@@ -11,14 +11,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
 (c) hold each kernel against its plain PyTorch version on the card at the
     main path's shapes (b=16, 480x640, C=18, a=16, bb=32; hn=tn=512,
     vn=9): exact equality required; time both with CUDA events;
-(d) load assets/duck_ckpt.msgpack with the port's reader, full float32
-    (no TF32), and answer 3 requests of 16 images (the fixture
-    assets/duck_views_480x640.npz tiled, with per-image brightness jitter)
-    through pvnet_tpu_torch.infer.infer_batch. Checks: finite poses of the
-    right shape, every kernel's launch count rose during those requests,
-    the kernel path equals the plain path (on the CPU) given the same draws,
-    and the well-visible fixture view is posed within 5 cm / 5 deg.
-    Prints per-stage milliseconds and the pose errors against ground truth;
+(c') hold the row-shift kernels K4 (shift_lanes) and K5 (shift_sublanes)
+    against their plain versions at the training path's shapes (K4: pass V
+    [64, 640, 480] and pass H [64, 480, 640]; K5: [64, 480, 640]), float32
+    and uint8: exact equality required; time kernel, plain version and
+    torch.gather with a precomputed index (the library yardstick);
+(d) the serving path: load assets/duck_ckpt.msgpack with the port's
+    reader, full float32 (no TF32), and answer 3 requests of 16 images (the
+    fixture assets/duck_views_480x640.npz tiled, with per-image brightness
+    jitter) through pvnet_tpu_torch.infer.infer_batch. Checks: finite poses
+    of the right shape, K1's and K3's launch counts rose during those
+    requests, the kernel path equals the plain path (on the CPU) given the
+    same draws, and the well-visible fixture view is posed within 5 cm /
+    5 deg. Prints per-stage milliseconds and the pose errors against ground
+    truth;
+(f) the training path: configs/synthetic_train.json (bf16, batch 16,
+    Adam) from the duck checkpoint, the fixture's 2 views tiled to a
+    device-resident uint8 set of 16, 3 warm-up and 10 timed steps of
+    pvnet_tpu_torch.train.trainer.train_step_from_data at 480x640. Checks:
+    a finite loss at every step; K4 launched exactly twice per timed step;
+    with the same draws, the augmentation through K4 equals the
+    augmentation through the plain shift bit for bit; one float32 step at
+    b=2 (TF32 off) on the card within stated tolerances of the same step on
+    the CPU (loss, gradients); a checkpoint the step saved loads through
+    pvnet_tpu_torch.infer.load_model. Prints step ms, images/s, the
+    augmentation's ms and share, and peak device memory;
 (e) print the kernels' JSON line, then, as the last line,
     {"ok": true, "device": {...}}.
 """
@@ -30,9 +47,15 @@ import subprocess
 import sys
 import time
 
+T_START = time.time()
 REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURE = os.path.join(REPO, "assets", "duck_views_480x640.npz")
 BATCH, H, W, VN = 16, 480, 640, 9
 N_REQUESTS = 3
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+# H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def cuda_ms(fn, iters: int = 50) -> float:
@@ -115,18 +138,92 @@ def check_kernels(dev, fixture):
     print(f"K3 count_inliers [b={BATCH}, hn=512, vn={VN}, tn=512] "
           f"(max count {int(got.max())}): equal to plain; kernel "
           f"{k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms", flush=True)
+
+    # bounds: K1 reads the score map once and the winners' field values,
+    # and writes best, idx and dirs; K3 does 18 f32 operations (13
+    # arithmetic, 5 compares) per (hypothesis, valid pixel, keypoint)
+    c = field.shape[1]
+    k1_bytes = score.numel() * 4 + BATCH * a * bb * (c * 4 + 4 + 4 + c * 4)
+    k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
+    pairs = int(fg.valid.sum()) * hyps.shape[1] * VN
+    k3_bound = max(pairs * 18 / F32_FLOPS,
+                   (fg.coords.numel() + fg.dirs.numel() * 4 + hyps.numel()
+                    + got.numel()) * 4 / HBM_BYTES_PER_S) * 1e3
+    print(f"K1 bound {k1_bound:.4f} ms ({k1_bytes / 1e6:.2f} MB at 3.35 "
+          f"TB/s); K3 bound {k3_bound:.4f} ms ({pairs / 1e6:.2f} M pairs x "
+          f"18 f32 operations at 67 TFLOP/s); no single PyTorch call "
+          f"computes either", flush=True)
     return [
         {"name": "stratified_select_cmajor", "route": "cuda",
          "source": "pvnet_tpu_torch/csrc/select_cmajor.cu",
          "replaces": "pvnet_tpu/ops/select_kernel.py:131",
          "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms},
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": "bytes",
+         "library_ms": None},
         {"name": "count_inliers", "route": "cuda",
          "source": "pvnet_tpu_torch/csrc/count_inliers.cu",
          "replaces": "pvnet_tpu/ops/voting.py:519",
          "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain_ms},
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": "operations", "library_ms": None},
     ]
+
+
+def check_row_shift(dev):
+    """Phase (c'): K4 and K5 against their plain versions at the training
+    path's shapes, float32 and uint8, exact; times of the kernel, the plain
+    version and torch.gather with a precomputed int64 index."""
+    import torch
+    from pvnet_tpu_torch.ops import row_shift as RS
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    planes = BATCH * 4
+    cases = [("shift_lanes", RS.shift_lanes, RS.shift_lanes_plain, 2,
+              (planes, W, H), "pass V"),
+             ("shift_lanes", RS.shift_lanes, RS.shift_lanes_plain, 2,
+              (planes, H, W), "pass H"),
+             ("shift_sublanes", RS.shift_sublanes, RS.shift_sublanes_plain,
+              1, (planes, H, W), "")]
+    entries = {}
+    for name, fn, plain, axis, shape, what in cases:
+        n = shape[axis]
+        s_shape = (shape[0], shape[1] if axis == 2 else shape[2])
+        starts = torch.randint(-n, 2 * n, s_shape, generator=g, device=dev,
+                               dtype=torch.int32)
+        ar = torch.arange(n, device=dev)
+        idx = torch.remainder(starts.long()[:, :, None] + ar if axis == 2
+                              else starts.long()[:, None, :] + ar[:, None], n)
+        for dtype in (torch.float32, torch.uint8):
+            x = (torch.rand(shape, generator=g, device=dev) * 255).to(dtype)
+            got, want = fn(x, starts), plain(x, starts)
+            lib = torch.gather(x, axis, idx)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            assert err == 0.0 and torch.equal(got, want), \
+                f"{name} {shape} {dtype} disagrees with its plain version"
+            assert torch.equal(lib, want)
+            if dtype != torch.float32:
+                continue
+            ms = cuda_ms(lambda: fn(x, starts))
+            plain_ms = cuda_ms(lambda: plain(x, starts))
+            lib_ms = cuda_ms(lambda: torch.gather(x, axis, idx))
+            nbytes = x.numel() * 4 * 2 + starts.numel() * 4
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"{'K4' if axis == 2 else 'K5'} {name} {list(shape)} "
+                  f"{what}: equal to plain (f32 and uint8); kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather "
+                  f"{lib_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB)", flush=True)
+            if name not in entries:
+                entries[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "pvnet_tpu_torch/csrc/row_shift.cu",
+                    "replaces": ("pvnet_tpu/ops/row_shift.py:68" if axis == 2
+                                 else "pvnet_tpu/ops/row_shift.py:116"),
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": "bytes", "library_ms": lib_ms}
+    return [entries["shift_lanes"], entries["shift_sublanes"]]
 
 
 def stage_ms(model, images_u8, pts, K, params, dev):
@@ -201,8 +298,8 @@ def run_pipeline(dev, fixture, kernels):
           f"{[round(x, 3) for x in latencies]}; kernel launches {launches}",
           flush=True)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        assert k["launches"] > 0, f"{k['name']} never launched on the path"
+        if k["name"] in launches:
+            k["launches"] = launches[k["name"]]
 
     rot_err, trans_err, views_of = [], [], []
     for est, idx in results:
@@ -272,6 +369,153 @@ def run_pipeline(dev, fixture, kernels):
           + f"; sum {sum(med.values()):.3f}", flush=True)
 
 
+def run_training(dev, kernels):
+    """Phase (f): the training path (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import infer
+    from pvnet_tpu_torch.config import TrainConfig
+    from pvnet_tpu_torch.data import augment_device as AD
+    from pvnet_tpu_torch.data.dataset import load_training_set
+    from pvnet_tpu_torch.ops import row_shift as RS
+    from pvnet_tpu_torch.train import trainer as TT
+    from pvnet_tpu_torch.train.checkpoint import save_model
+    from pvnet_tpu_torch.train.loop import TrainLoop
+
+    cfg = TrainConfig.from_json(os.path.join(REPO, "configs",
+                                             "synthetic_train.json"))
+    assert cfg.bf16 and cfg.train_batch_size == BATCH
+    ckpt = os.path.join(REPO, "assets", "duck_ckpt.msgpack")
+    images, masks, hcoords = load_training_set(FIXTURE)
+    tile = np.arange(BATCH) % len(images)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        loop = TrainLoop(cfg, os.path.join(tmp, "model"), device=dev,
+                         buckets=[(H, W)])
+        state = loop.init_state(init=ckpt)
+        data = loop.build_device_dataset(images[tile], masks[tile],
+                                         hcoords[tile])
+        ids = torch.arange(BATCH, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def step():
+            return TT.train_step_from_data(
+                state, data, ids, generator=gen, aug_cfg=cfg.aug_cfg,
+                aug_hw=(H, W), bf16=cfg.bf16)
+
+        for _ in range(WARMUP_STEPS):     # cuDNN autotuning, first launches
+            assert torch.isfinite(step()["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        RS.shift_lanes.launches = 0
+        RS.shift_sublanes.launches = 0
+        step_ms, losses = [], []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            met = step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+        launches = {"shift_lanes": RS.shift_lanes.launches,
+                    "shift_sublanes": RS.shift_sublanes.launches}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        assert all(np.isfinite(losses)), losses
+        assert launches["shift_lanes"] == 2 * TIMED_STEPS, launches
+        for k in kernels:
+            if k["name"] in launches:
+                k["launches"] = launches[k["name"]]
+        med = sorted(step_ms)[len(step_ms) // 2]
+        print(f"{TIMED_STEPS} bf16 training steps, b={BATCH}, {H}x{W}: "
+              f"step ms median {med:.3f} min {min(step_ms):.3f} max "
+              f"{max(step_ms):.3f}; {BATCH / med * 1e3:.1f} images/s; "
+              f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; peak device "
+              f"memory {peak_gb:.2f} GB; kernel launches {launches}",
+              flush=True)
+
+        # the augmentation alone, and through K4 vs the plain shift
+        raw = {k: v[ids] for k, v in data.items()}
+        draws = AD.sample_draws(BATCH, cfg.aug_cfg, gen, dev)
+        aug_ms = cuda_ms(lambda: TT.apply_device_aug(
+            raw, cfg.aug_cfg, (H, W), draws=draws), iters=10)
+        got = TT.apply_device_aug(raw, cfg.aug_cfg, (H, W), draws=draws)
+        kernel_fn = RS.shift_lanes
+        RS.shift_lanes = RS.shift_lanes_plain
+        try:
+            want = TT.apply_device_aug(raw, cfg.aug_cfg, (H, W), draws=draws)
+        finally:
+            RS.shift_lanes = kernel_fn
+        for k in ("image", "mask", "hcoords"):
+            assert torch.equal(got[k], want[k]), \
+                f"augmentation through K4 != through the plain shift: {k}"
+        print(f"augmentation b={BATCH} {H}x{W}: {aug_ms:.3f} ms "
+              f"({aug_ms / med * 100:.1f} % of the median step); through "
+              f"K4 equal to through the plain shift (image, mask, hcoords)",
+              flush=True)
+
+        # a checkpoint of the step loads through the inference entry point
+        path = save_model(state, 0, loop.model_dir)
+        served = infer.load_model(path, VN, dev)
+        for (name, a), b in zip(state.model.state_dict().items(),
+                                served.state_dict().values()):
+            assert torch.equal(a, b), f"checkpoint round trip changed {name}"
+        print(f"checkpoint {os.path.basename(path)} loads through "
+              f"infer.load_model, weights equal", flush=True)
+        del state, served, data, raw, got, want
+    torch.cuda.empty_cache()
+    check_f32_step_against_cpu(dev, images, masks, hcoords, cfg, ckpt)
+
+
+def check_f32_step_against_cpu(dev, images, masks, hcoords, cfg, ckpt):
+    """One float32 step at b=2, 480x640, TF32 off, on the card and on the
+    CPU from the same weights and draws. Tolerance: the two augmentations
+    differ by an ulp of cos/sin here and there (a few pixels may flip), and
+    the sums run in another order, so the loss within rtol 1e-3, each
+    gradient within 3e-2 of its norm and all of them within 5e-3 (the
+    tolerances tests/test_torch_train_step.py holds the port to against
+    JAX on the CPU)."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.data import augment_device as AD
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.train import trainer as TT
+    from pvnet_tpu_torch.utils.weights import load_weights
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    draws = AD.sample_draws(2, cfg.aug_cfg, torch.Generator().manual_seed(7),
+                            "cpu")
+    out = []
+    for where in (dev, torch.device("cpu")):
+        model = build_model("resnet18_8s", ver_dim=2 * VN)
+        load_weights(model, ckpt)
+        state = TT.create_train_state(model.to(where), cfg)
+        data = {k: torch.from_numpy(v).to(where) for k, v in
+                (("image", images), ("mask", masks), ("hcoords", hcoords))}
+        t0 = time.perf_counter()
+        met = TT.train_step_from_data(
+            state, data, torch.arange(2, device=where),
+            draws=AD.AugDraws(*(t.to(where) for t in draws)),
+            aug_cfg=cfg.aug_cfg, aug_hw=(H, W), bf16=False)
+        loss = float(met["loss"])
+        secs = time.perf_counter() - t0
+        out.append((loss, {n: p.grad.detach().double().cpu()
+                           for n, p in model.named_parameters()}, secs))
+    (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = out
+    rel = {n: float((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm())
+           for n in g_cpu}
+    total = float(sum(((g_gpu[n] - g_cpu[n]) ** 2).sum() for n in g_cpu)
+                  ** 0.5 / sum((g ** 2).sum() for g in g_cpu.values())
+                  ** 0.5)
+    worst = max(rel, key=rel.get)
+    print(f"f32 step b=2 {H}x{W} (TF32 off), card vs CPU: loss {l_gpu:.7f} "
+          f"vs {l_cpu:.7f}; gradients: worst tensor {worst} "
+          f"{rel[worst]:.2e} of its norm, all {total:.2e} (card "
+          f"{s_gpu:.2f} s, CPU {s_cpu:.2f} s)", flush=True)
+    assert abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu)
+    assert rel[worst] < 3e-2 and total < 5e-3
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -290,17 +534,31 @@ def main() -> int:
     torch.cuda.set_device(dev)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    t0 = time.time()
-    lib = kernel_lib.build()
-    kernel_lib.library()
-    print(f"built {os.path.relpath(lib, REPO)} in {time.time() - t0:.2f} s",
-          flush=True)
+    seconds = {}
 
-    with np.load(os.path.join(REPO, "assets",
-                              "duck_views_480x640.npz")) as z:
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[name] = time.time() - t0
+        return out
+
+    lib = phase("(b) build", kernel_lib.build)
+    kernel_lib.library()
+    print(f"built {os.path.relpath(lib, REPO)} in {seconds['(b) build']:.2f}"
+          f" s", flush=True)
+
+    with np.load(FIXTURE) as z:
         fixture = {k: z[k] for k in z.files}
-    kernels = check_kernels(dev, fixture)
-    run_pipeline(dev, fixture, kernels)
+    kernels = (phase("(c) K1, K3", check_kernels, dev, fixture)
+               + phase("(c') K4, K5", check_row_shift, dev))
+    phase("(d) serving", run_pipeline, dev, fixture, kernels)
+    phase("(f) training", run_training, dev, kernels)
+    print("seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f"; whole run {time.time() - T_START:.1f}", flush=True)
+    for k in kernels:
+        if k["name"] != "shift_sublanes":     # K5: on no path of the system
+            assert k["launches"] > 0, f"{k['name']} never launched on its path"
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

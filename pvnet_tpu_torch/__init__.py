@@ -4,7 +4,10 @@ Single-object inference, image -> 6DoF pose, on an NVIDIA Hopper GPU:
 a ResNet18-8s PVNet forward, stratified foreground selection (CUDA kernel),
 shared-pair hypothesis generation, inlier counting (CUDA kernel), a
 weighted-least-squares keypoint refine and a batched EPnP +
-Levenberg-Marquardt pose solve.
+Levenberg-Marquardt pose solve. And training on a device-resident set:
+augmentation on the device (its separable warp shifts rows with a CUDA
+kernel), vertex targets, the ResNet18-8s forward/backward under bf16
+autocast, and Adam.
 
 Module names mirror ``pvnet_tpu`` so each function's JAX counterpart is
 found under the same path. The package imports ``torch`` and ``numpy``
@@ -13,8 +16,14 @@ only; it never imports JAX, flax, msgpack, PIL or ``pvnet_tpu``.
 Subpackages
 -----------
 - ``pvnet_tpu_torch.models`` : PVNet ResNet18-8s.
-- ``pvnet_tpu_torch.ops``    : geometry, voting, PnP and the kernel wrappers.
-- ``pvnet_tpu_torch.utils``  : the flax-msgpack checkpoint reader.
+- ``pvnet_tpu_torch.ops``    : geometry, voting, PnP, row shifts and the
+  kernel wrappers.
+- ``pvnet_tpu_torch.data``   : device augmentation, vertex targets, the
+  batch sampler.
+- ``pvnet_tpu_torch.train``  : losses, the train step, checkpoints, the
+  recorder, the loop; ``python -m pvnet_tpu_torch.train`` trains.
+- ``pvnet_tpu_torch.utils``  : the flax-msgpack checkpoint reader and the
+  weight mapping both ways.
 - ``pvnet_tpu_torch.csrc``   : the CUDA C++ kernel sources.
 """
 

@@ -32,7 +32,7 @@ import torch
 from pvnet_tpu_torch import pipeline as pl_mod
 from pvnet_tpu_torch.config import LINEMOD_K
 from pvnet_tpu_torch.models.pvnet import build_model
-from pvnet_tpu_torch.utils.weights import load_pvnet_checkpoint
+from pvnet_tpu_torch.utils.weights import load_weights
 
 
 def load_images(spec: str) -> Tuple[np.ndarray, List[str]]:
@@ -60,8 +60,10 @@ def load_points_3d(spec: str) -> np.ndarray:
 
 
 def load_model(checkpoint: str, vn: int, device) -> torch.nn.Module:
+    """The PVNet of a flax msgpack checkpoint or of a ``.pth`` written by
+    the port's trainer, on ``device`` in eval mode."""
     model = build_model("resnet18_8s", ver_dim=2 * vn, seg_dim=2)
-    load_pvnet_checkpoint(model, checkpoint)
+    load_weights(model, checkpoint)
     return model.to(device).eval()
 
 

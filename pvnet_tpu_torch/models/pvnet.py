@@ -13,6 +13,13 @@ native layout. Module names follow the reference (resnet18_8s.fc,
 conv8s, conv4s, conv2s, convraw), so a reference state_dict loads as is.
 The TPU-only pieces (channel-major head conv, feature-return flags, int8
 decoder, PVNet2o) are not ported.
+
+For training, the JAX model's ``dtype=bfloat16`` with float32 parameters
+is the caller's ``torch.autocast(dtype=torch.bfloat16)`` around the
+forward pass (train/trainer.py); the model itself stays float32. A new
+model holds PyTorch's default initialization: a trainer starting from
+scratch applies the JAX model's with ``models.resnet.init_weights``
+(train/loop.py), a caller with a checkpoint loads it instead.
 """
 from __future__ import annotations
 
@@ -22,12 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pvnet_tpu_torch.models.resnet import _BN_EPS, resnet18_backbone
+from pvnet_tpu_torch.models.resnet import (_BN_EPS, BatchNorm2d,
+                                          resnet18_backbone)
 
 
 def _conv_bn_lrelu(cin: int, cout: int) -> nn.Sequential:
     return nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1, bias=False),
-                         nn.BatchNorm2d(cout, eps=_BN_EPS),
+                         BatchNorm2d(cout, eps=_BN_EPS),
                          nn.LeakyReLU(0.1, inplace=True))
 
 
@@ -54,7 +62,7 @@ class PVNet(nn.Module):
         # (ref model_repository.py:21-26)
         backbone.fc = nn.Sequential(
             nn.Conv2d(backbone.inplanes, fcdim, 3, padding=1, bias=False),
-            nn.BatchNorm2d(fcdim, eps=_BN_EPS),
+            BatchNorm2d(fcdim, eps=_BN_EPS),
             nn.ReLU(inplace=True))
         self.resnet18_8s = backbone
         self.conv8s = _conv_bn_lrelu(128 + fcdim, s8dim)
@@ -62,7 +70,7 @@ class PVNet(nn.Module):
         self.conv2s = _conv_bn_lrelu(64 + s4dim, s2dim)
         self.convraw = nn.Sequential(
             nn.Conv2d(3 + s2dim, raw_dim, 3, padding=1, bias=False),
-            nn.BatchNorm2d(raw_dim, eps=_BN_EPS),
+            BatchNorm2d(raw_dim, eps=_BN_EPS),
             nn.LeakyReLU(0.1, inplace=True),
             nn.Conv2d(raw_dim, seg_dim + ver_dim, 1))
 

@@ -12,15 +12,64 @@ layer{1..4}.{i}.conv{1,2}/bn{1,2}/downsample.{0,1}), so a reference
 state_dict loads without a converter. The TPU layout machinery of the JAX
 module (packed4 stem, channel-major input conv, space-to-batch, int8
 stages) is not ported.
+
+Training follows the JAX module: convolutions start He fan-out
+truncated-normal (:func:`init_weights`), and BatchNorm keeps flax's running
+statistics (:class:`BatchNorm2d`).
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _BN_EPS = 1e-5
+# stddev of a standard normal truncated to [-2, 2] (flax variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance tracks the *biased* batch
+    variance, as flax.linen.BatchNorm(momentum=0.9) does; PyTorch's own
+    tracks the unbiased one, larger by n/(n-1) for n values per channel.
+    Normalization itself uses the biased variance in both."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # PyTorch updates a copy to (1-m)*old + m*unbiased; taking
+        # unbiased/n of the m*unbiased term away leaves m*biased. The copy,
+        # not the buffer, is what autograd saves, so the buffer may change.
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(
+                var - (var - (1 - self.momentum) * self.running_var) / n)
+        return y
+
+
+def init_weights(model: nn.Module, generator: torch.Generator = None
+                 ) -> nn.Module:
+    """Initialize as the JAX models do: every conv kernel He fan-out
+    truncated-normal (flax ``variance_scaling(2.0, 'fan_out',
+    'truncated_normal')``, ref resnet.py:159-162), conv biases zero,
+    BatchNorm scale 1 and bias 0, running statistics (0, 1)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_out = m.weight.shape[0] * m.weight[0, 0].numel()
+                std = (2.0 / fan_out) ** 0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model
 
 
 class BasicBlock(nn.Module):
@@ -33,16 +82,16 @@ class BasicBlock(nn.Module):
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride,
                                padding=dilation, dilation=dilation,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=_BN_EPS)
+        self.bn1 = BatchNorm2d(planes, eps=_BN_EPS)
         self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
                                dilation=dilation, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=_BN_EPS)
+        self.bn2 = BatchNorm2d(planes, eps=_BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(planes, eps=_BN_EPS))
+                BatchNorm2d(planes, eps=_BN_EPS))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
@@ -62,7 +111,7 @@ class ResNetBackbone(nn.Module):
                  output_stride: int = 8):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=_BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=_BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         # stride/dilation schedule (ref resnet.py:167-198): current_stride

@@ -26,7 +26,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # -fmad=false: no multiply-add contraction anywhere (the count kernel also
 # spells its rounding out with __fmul_rn/__fadd_rn; see count_inliers.cu).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +36,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _VP],
     "pvnet_count_inliers": [_VP, _VP, _VP, _I, _I, _I, _I, ctypes.c_float,
                             _VP],
+    "pvnet_shift_lanes": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "pvnet_shift_sublanes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
 }
 
 _lib = None
@@ -53,7 +55,8 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into the build directory (if not already there)
-    and return the library's path."""
+    and return the library's path. Each source compiles in its own nvcc
+    process, all started together; one more nvcc links the objects."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -64,18 +67,30 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o")
+                for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        failed = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(src)} "
+                              f"({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp_lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib,
+                               *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(tmp_lib, lib_path)
     return lib_path
 
 

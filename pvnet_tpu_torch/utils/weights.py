@@ -1,10 +1,13 @@
-"""Map a flax PVNet variables tree onto the port's ``state_dict``.
+"""Map a flax PVNet variables tree onto the port's ``state_dict``, and
+back.
 
-The inverse of pvnet_tpu/utils/torch_convert.py (``_backbone_mapping``,
+:func:`state_dict_from_flax` is the inverse of
+pvnet_tpu/utils/torch_convert.py (``_backbone_mapping``,
 ``convert_state_dict``): conv kernels HWIO -> OIHW, BatchNorm
 scale/bias/mean/var -> weight/bias/running_mean/running_var. The port's
 module names are the reference ``Resnet18_8s``'s, so the result is also
-the reference's own state_dict layout.
+the reference's own state_dict layout. :func:`flax_from_state_dict` maps
+the other way, to numpy trees.
 
 Strict both ways: every leaf of the flax tree must be used, and
 ``load_state_dict`` must find every tensor the model has.
@@ -96,7 +99,64 @@ def state_dict_from_flax(variables: dict) -> "OrderedDict[str, torch.Tensor]":
     return sd
 
 
+def _nest(flat: Dict[str, np.ndarray]) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def flax_from_state_dict(sd) -> dict:
+    """The inverse of :func:`state_dict_from_flax`: the port's state_dict
+    (or any dict with its keys, e.g. of gradients) -> flax
+    {'params': ..., 'batch_stats': ...} trees of float32 numpy arrays, conv
+    kernels OIHW -> HWIO. Raises if a tensor of ``sd`` is left unused
+    (``num_batches_tracked`` has no flax counterpart and is skipped)."""
+    params, stats = {}, {}
+    used = set()
+
+    def take(key):
+        if key not in sd:
+            raise KeyError(f"state_dict has no {key}")
+        used.add(key)
+        return np.ascontiguousarray(
+            sd[key].detach().to(torch.float32).cpu().numpy())
+
+    convs, bns = _pairs()
+    for tp, fp in convs:
+        params[f"{fp}/kernel"] = np.ascontiguousarray(
+            take(f"{tp}.weight").transpose(2, 3, 1, 0))
+        if f"{tp}.bias" in sd:
+            params[f"{fp}/bias"] = take(f"{tp}.bias")
+    for tp, fp in bns:
+        params[f"{fp}/scale"] = take(f"{tp}.weight")
+        params[f"{fp}/bias"] = take(f"{tp}.bias")
+        stats[f"{fp}/mean"] = take(f"{tp}.running_mean")
+        stats[f"{fp}/var"] = take(f"{tp}.running_var")
+        used.add(f"{tp}.num_batches_tracked")
+    unused = set(sd) - used
+    if unused:
+        raise KeyError(f"{len(unused)} state_dict entries unused: "
+                       f"{sorted(unused)[:8]}")
+    return {"params": _nest(params), "batch_stats": _nest(stats)}
+
+
 def load_pvnet_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Load a flax msgpack PVNet checkpoint into ``model`` (strict)."""
     model.load_state_dict(state_dict_from_flax(flax_msgpack.load(path)),
                           strict=True)
+
+
+def load_weights(model: torch.nn.Module, path: str) -> None:
+    """Load network weights into ``model`` (strict) from a flax msgpack
+    checkpoint or from a port ``.pth`` checkpoint ({net, optim, epoch},
+    train/checkpoint.py)."""
+    if path.endswith(".pth"):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        model.load_state_dict(ckpt["net"], strict=True)
+    else:
+        load_pvnet_checkpoint(model, path)

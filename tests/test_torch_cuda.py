@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a CUDA
 card, at shapes the main path does not reach (ragged tiles, tiny grids,
-ties) — chip_smoke.py covers the main-path shapes.
+ties, widths that are no multiple of 32 or 128, every dtype the row-shift
+kernels move) — chip_smoke.py covers the main-path shapes.
 
 Skips without a card. The GPU host has no JAX, and tests/conftest.py
 imports JAX, so run this file there without the conftest:
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from pvnet_tpu_torch.ops import row_shift as RS
 from pvnet_tpu_torch.ops import select_kernel as SK
 from pvnet_tpu_torch.ops import voting as V
 
@@ -103,3 +105,134 @@ def test_voting_on_cuda_equals_cpu_selection_and_counts(cuda):
                                        V.count_inliers(fg, hyps, 0.99))])
     for x, y in zip(*outs):
         assert torch.equal(x, y)
+
+
+# --- K4 / K5 (row_shift.cu) -------------------------------------------------
+
+def _shift_input(cuda, shape, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.float32:
+        return torch.rand(shape, generator=g).to(cuda)
+    return torch.randint(0, 120, shape, generator=g).to(dtype).to(cuda)
+
+
+_SHIFT_DTYPES = [torch.float32, torch.int32, torch.uint8, torch.int8]
+
+
+@pytest.mark.parametrize("dtype", _SHIFT_DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 1, 37), (3, 5, 100),
+                                   (2, 7, 129), (4, 3, 640), (1, 2, 1000)])
+def test_shift_lanes_kernel_equals_plain(cuda, shape, dtype):
+    P, R, C = shape
+    x = _shift_input(cuda, shape, dtype, C)
+    g = torch.Generator().manual_seed(R)
+    for s in (torch.randint(-3 * C, 3 * C, (P, R), generator=g),
+              torch.zeros(P, R, dtype=torch.int64),
+              torch.full((P, R), C - 1)):
+        s = s.to(torch.int32).to(cuda)
+        before = RS.shift_lanes.launches
+        got = RS.shift_lanes(x, s)
+        want = RS.shift_lanes_plain(x, s)
+        torch.cuda.synchronize()
+        assert RS.shift_lanes.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", _SHIFT_DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 37, 1), (3, 53, 41),
+                                   (2, 480, 130), (1, 33, 257), (5, 7, 128)])
+def test_shift_sublanes_kernel_equals_plain(cuda, shape, dtype):
+    P, H, C = shape
+    x = _shift_input(cuda, shape, dtype, H)
+    g = torch.Generator().manual_seed(C)
+    for s in (torch.randint(-3 * H, 3 * H, (P, C), generator=g),
+              torch.zeros(P, C, dtype=torch.int64),
+              torch.full((P, C), H - 1)):
+        s = s.to(torch.int32).to(cuda)
+        before = RS.shift_sublanes.launches
+        got = RS.shift_sublanes(x, s)
+        want = RS.shift_sublanes_plain(x, s)
+        torch.cuda.synchronize()
+        assert RS.shift_sublanes.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_shift_kernels_take_wide_starts(cuda):
+    x = torch.rand(2, 3, 50, device=cuda)
+    s = torch.full((2, 3), 50 * 2**40 + 7, dtype=torch.int64, device=cuda)
+    assert torch.equal(RS.shift_lanes(x, s),
+                       RS.shift_lanes_plain(x, torch.full_like(s, 7)))
+
+
+@pytest.mark.parametrize("starts_dtype", [torch.int8, torch.uint8,
+                                          torch.int16])
+def test_shift_kernels_take_narrow_starts(cuda, starts_dtype):
+    # n = 640 is past the range of the narrow types; the plain version
+    # widens its starts first, so must the wrapper
+    n = 640
+    x = _shift_input(cuda, (2, 3, n), torch.float32, 0)
+    info = torch.iinfo(starts_dtype)
+    lo, hi = max(info.min, -3 * n), min(info.max, 3 * n)
+    g = torch.Generator().manual_seed(1)
+    s = torch.randint(lo, hi + 1, (2, 3), generator=g).to(starts_dtype)
+    s = s.to(cuda)
+    assert torch.equal(RS.shift_lanes(x, s), RS.shift_lanes_plain(x, s))
+    xt = x.transpose(1, 2).contiguous()                     # [2, n, 3]
+    assert torch.equal(RS.shift_sublanes(xt, s),
+                       RS.shift_sublanes_plain(xt, s))
+
+
+def test_shift_kernels_reject_what_they_cannot_take(cuda):
+    x = torch.rand(2, 4, 16, device=cuda)
+    s = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        RS.shift_lanes(x.double(), s)
+    with pytest.raises(TypeError):
+        RS.shift_sublanes(x.half(), torch.zeros(2, 16, dtype=torch.int32,
+                                                device=cuda))
+    with pytest.raises(ValueError, match="starts on"):
+        RS.shift_lanes(x, s.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        RS.shift_lanes(x.transpose(1, 2).contiguous().transpose(1, 2), s)
+
+
+def test_augmentation_with_the_kernel_equals_the_plain_shift(cuda,
+                                                             monkeypatch):
+    from pvnet_tpu_torch.config import AugConfig
+    from pvnet_tpu_torch.data import augment_device as AD
+    g = torch.Generator().manual_seed(0)
+    image = torch.randint(0, 256, (2, 60, 80, 3), generator=g,
+                          dtype=torch.uint8).to(cuda)
+    mask = torch.zeros(2, 60, 80, dtype=torch.uint8, device=cuda)
+    mask[:, 20:40, 30:60] = 1
+    hcoords = torch.tensor([[[40.0, 30.0, 1.0]]] * 2, device=cuda)
+    cfg = AugConfig()
+    draws = AD.sample_draws(2, cfg, torch.Generator(cuda).manual_seed(1),
+                            cuda)
+    before = RS.shift_lanes.launches
+    got = AD.augment_batch(image, mask, hcoords, (48, 64), cfg, draws=draws)
+    assert RS.shift_lanes.launches == before + 2
+    monkeypatch.setattr(RS, "shift_lanes", RS.shift_lanes_plain)
+    want = AD.augment_batch(image, mask, hcoords, (48, 64), cfg, draws=draws)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_augmentation_never_waits_for_the_device(cuda):
+    # a host-to-device copy of a constant, or a read back, would block the
+    # host until the queue drains and leave the card idle meanwhile
+    from pvnet_tpu_torch.config import AugConfig
+    from pvnet_tpu_torch.data import augment_device as AD
+    image = torch.zeros(2, 60, 80, 3, dtype=torch.uint8, device=cuda)
+    mask = torch.zeros(2, 60, 80, dtype=torch.uint8, device=cuda)
+    mask[:, 20:40, 30:60] = 1
+    hcoords = torch.ones(2, 1, 3, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    cfg = AugConfig()
+    AD.augment_batch(image, mask, hcoords, (48, 64), cfg, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        AD.augment_batch(image, mask, hcoords, (48, 64), cfg, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
