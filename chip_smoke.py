@@ -9,8 +9,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
     limit as nvidia-smi reports them;
 (b) build the CUDA kernels from pvnet_tpu_torch/csrc with nvcc;
 (c) hold each kernel against its plain PyTorch version on the card at the
-    main path's shapes (b=16, 480x640, C=18, a=16, bb=32; hn=tn=512,
-    vn=9): exact equality required; time both with CUDA events;
+    main path's shapes (K1: b=16, 480x640, C=18, a=16, bb=32; K3:
+    hn=tn=512, vn=9; K2: the packed path's [16, 240, 320] score and
+    [16, 240, 320, 80] field in float32 and bfloat16, a=8, bb=16): exact
+    equality required; time both with CUDA events, the timed launches
+    queued behind a sleep kernel so that the events time the device;
 (c') hold the row-shift kernels K4 (shift_lanes) and K5 (shift_sublanes)
     against their plain versions at the training path's shapes (K4: pass V
     [64, 640, 480] and pass H [64, 480, 640]; K5: [64, 480, 640]), float32
@@ -25,6 +28,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
     same draws, and the well-visible fixture view is posed within 5 cm /
     5 deg. Prints per-stage milliseconds and the pose errors against ground
     truth;
+(g) the packed serving path: 3 requests of 16 images through
+    infer_batch(tail_depth=3) in float32, without and then with
+    uncertainty. Checks: finite poses of the right shape; per variant K2
+    launched exactly once per request, K1 never, K3 once per request (twice
+    with uncertainty); view 0 within 5 cm / 5 deg; the packed field,
+    unpacked, equals the plain forward's fields on the card (argmax on
+    >= 99.9 % of pixels, values within 1e-3 of the field's max abs); from
+    the same packed field, fgcnt and draws, the card path equals the CPU
+    path in selection, hypotheses and counts (both passes), keypoints
+    within 1e-2 px, poses (plain and uncertainty) within 0.05 deg / 1 mm.
+    Prints request latency beside (d)'s and per-stage milliseconds;
 (f) the training path: configs/synthetic_train.json (bf16, batch 16,
     Adam) from the duck checkpoint, the fixture's 2 views tiled to a
     device-resident uint8 set of 16, 3 warm-up and 10 timed steps of
@@ -56,15 +70,26 @@ WARMUP_STEPS, TIMED_STEPS = 3, 10
 # H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+# device clock cycles of cuda_ms's head start: ~50 ms at the H100's clocks
+SLEEP_CYCLES = 100_000_000
 
 
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Mean milliseconds of fn() on the current stream, after a warm-up."""
+def cuda_ms(fn, iters: int = 50, head_start: bool = True) -> float:
+    """Mean milliseconds of fn() on the current stream, after a warm-up,
+    from CUDA events. With ``head_start`` the timed launches queue behind
+    a sleep kernel of ~50 ms, so the events time the device's work: a
+    kernel wrapper's Python and its launch cost tens of microseconds, as
+    much as the smaller kernels, and back to back (head_start=False) the
+    events time that host work instead. Work whose launches take the
+    host longer than the head start to queue is still partly timed on the
+    host's clock."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if head_start:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -119,10 +144,13 @@ def check_kernels(dev, fixture):
     assert k1_err == 0.0, f"K1 disagrees with its plain version: {k1_err}"
     k1_ms = cuda_ms(lambda: select_kernel.stratified_select_cmajor(
         score, field, a, bb))
+    k1_b2b = cuda_ms(lambda: select_kernel.stratified_select_cmajor(
+        score, field, a, bb), head_start=False)
     k1_plain_ms = cuda_ms(lambda: select_kernel.stratified_select_cmajor_plain(
         score, field, a, bb))
     print(f"K1 stratified_select_cmajor [b={BATCH}, C={2 * VN}, {H}x{W}, "
-          f"a={a}, bb={bb}]: equal to plain; kernel {k1_ms:.4f} ms, plain "
+          f"a={a}, bb={bb}]: equal to plain; kernel {k1_ms:.4f} ms "
+          f"({k1_b2b:.4f} ms back to back, without the head start), plain "
           f"{k1_plain_ms:.4f} ms", flush=True)
 
     fg = voting.sample_foreground(mask, field, 512, noise=noise)
@@ -134,10 +162,13 @@ def check_kernels(dev, fixture):
     k3_err = float((got - want).abs().max())
     assert k3_err == 0.0, f"K3 disagrees with its plain version: {k3_err}"
     k3_ms = cuda_ms(lambda: voting.count_inliers(fg, hyps, 0.99))
+    k3_b2b = cuda_ms(lambda: voting.count_inliers(fg, hyps, 0.99),
+                     head_start=False)
     k3_plain_ms = cuda_ms(lambda: voting.count_inliers_plain(fg, hyps, 0.99))
     print(f"K3 count_inliers [b={BATCH}, hn=512, vn={VN}, tn=512] "
           f"(max count {int(got.max())}): equal to plain; kernel "
-          f"{k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms", flush=True)
+          f"{k3_ms:.4f} ms ({k3_b2b:.4f} ms back to back), plain "
+          f"{k3_plain_ms:.4f} ms", flush=True)
 
     # bounds: K1 reads the score map once and the winners' field values,
     # and writes best, idx and dirs; K3 does 18 f32 operations (13
@@ -153,9 +184,10 @@ def check_kernels(dev, fixture):
           f"TB/s); K3 bound {k3_bound:.4f} ms ({pairs / 1e6:.2f} M pairs x "
           f"18 f32 operations at 67 TFLOP/s); no single PyTorch call "
           f"computes either", flush=True)
+    k2 = check_k2(dev, g)
     return [
         {"name": "stratified_select_cmajor", "route": "cuda",
-         "source": "pvnet_tpu_torch/csrc/select_cmajor.cu",
+         "source": "pvnet_tpu_torch/csrc/stratified_select.cu",
          "replaces": "pvnet_tpu/ops/select_kernel.py:131",
          "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": "bytes",
@@ -166,7 +198,56 @@ def check_kernels(dev, fixture):
          "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": "operations", "library_ms": None},
+        k2,
     ]
+
+
+def check_k2(dev, g):
+    """K2 against its plain version at the packed path's shapes: score
+    [16, 240, 320], an NHWC field [16, 240, 320, 80] in float32 and
+    bfloat16, a=8, bb=16 (tn=512 pixels = 128 cells). Exact equality."""
+    import torch
+    from pvnet_tpu_torch.ops import select_kernel, voting
+
+    hp, wp, c = H // 2, W // 2, 4 * (2 + 2 * VN)
+    a, bb = voting._phase_grid(512 // 4)
+    score = ((torch.rand((BATCH, hp, wp), generator=g, device=dev) < 0.05)
+             .float() * 2.0
+             + torch.rand((BATCH, hp, wp), generator=g, device=dev))
+    field32 = torch.randn((BATCH, hp, wp, c), generator=g, device=dev)
+    err, times = 0.0, {}
+    for field in (field32, field32.bfloat16()):
+        got = select_kernel.stratified_select(score, field, a, bb)
+        want = select_kernel.stratified_select_plain(score, field, a, bb)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(x, y), f"K2 {field.dtype} != plain"
+            err = max(err, float((x.double() - y.double()).abs().max()))
+        nbytes = (score.numel() * 4 + BATCH * a * bb * (4 + 4)
+                  + 2 * BATCH * a * bb * c * field.element_size())
+        def kernel():
+            return select_kernel.stratified_select(score, field, a, bb)
+        times[field.dtype] = (
+            cuda_ms(kernel), cuda_ms(kernel, head_start=False),
+            cuda_ms(lambda: select_kernel.stratified_select_plain(
+                score, field, a, bb)),
+            nbytes / HBM_BYTES_PER_S * 1e3, nbytes)
+    assert err == 0.0, f"K2 disagrees with its plain version: {err}"
+    for dt, (ms, b2b, plain_ms, bound, nbytes) in times.items():
+        print(f"K2 stratified_select [b={BATCH}, {hp}x{wp}, C={c}, {dt}, "
+              f"a={a}, bb={bb}]: equal to plain; kernel {ms:.4f} ms "
+              f"({b2b:.4f} ms back to back), plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB: the score "
+              f"map, the winners' rows read and written, best and idx, at "
+              f"3.35 TB/s); no single PyTorch call computes it", flush=True)
+    ms, _, plain_ms, bound, _ = times[torch.float32]
+    return {"name": "stratified_select", "route": "cuda",
+            "source": "pvnet_tpu_torch/csrc/stratified_select.cu",
+            "replaces": "pvnet_tpu/ops/select_kernel.py:43",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None}
 
 
 def check_row_shift(dev):
@@ -256,6 +337,37 @@ def stage_ms(model, images_u8, pts, K, params, dev):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
+def check_poses(results, fixture):
+    """Finite poses of the right shape, errors against ground truth by
+    view, and the well-visible view 0 within 5 cm / 5 deg in at least
+    half of its images."""
+    import torch
+    from pvnet_tpu_torch.ops.geometry import rotation_angle_deg
+
+    rot_err, trans_err, views_of = [], [], []
+    for est, idx in results:
+        pose = est.pose.cpu()
+        assert pose.shape == (BATCH, 3, 4) and est.kps.shape == (BATCH, VN, 2)
+        assert torch.isfinite(pose).all() and torch.isfinite(est.kps).all()
+        g_t = torch.as_tensor(fixture["poses"][idx])
+        rot_err.append(rotation_angle_deg(pose[:, :, :3], g_t[:, :, :3]))
+        trans_err.append((pose[:, :, 3] - g_t[:, :, 3]).norm(dim=-1))
+        views_of.append(torch.as_tensor(idx))
+    rot_err, trans_err = torch.cat(rot_err), torch.cat(trans_err)
+    views_of = torch.cat(views_of)
+    for v in range(len(fixture["images"])):
+        sel = views_of == v
+        print(f"view {v} ({int(fixture['masks'][v].sum())} visible px): "
+              f"rotation error deg median {float(rot_err[sel].median()):.4f}"
+              f" max {float(rot_err[sel].max()):.4f}; translation error m "
+              f"median {float(trans_err[sel].median()):.5f} max "
+              f"{float(trans_err[sel].max()):.5f}", flush=True)
+    ok0 = ((rot_err < 5.0) & (trans_err < 0.05))[views_of == 0]
+    assert ok0.float().mean() >= 0.5, \
+        f"view 0 posed within 5 cm / 5 deg in only {int(ok0.sum())} of " \
+        f"{len(ok0)} images"
+
+
 def run_pipeline(dev, fixture, kernels):
     """Phase (d)."""
     import torch
@@ -274,26 +386,29 @@ def run_pipeline(dev, fixture, kernels):
     K = torch.as_tensor(fixture["K"], device=dev)
     params = pl.VoteParams()
     gen = torch.Generator(device=dev).manual_seed(0)
-    views, gt = fixture["images"], fixture["poses"]
+    views = fixture["images"]
 
     # warm-up request (cuDNN autotuning, first launches), not counted
     infer.infer_batch(model, request_images(views, -1)[0], pts, K, params,
-                      gen)
+                      gen, tail_depth=0)
     torch.cuda.synchronize()
 
     select_kernel.stratified_select_cmajor.launches = 0
+    select_kernel.stratified_select.launches = 0
     voting.count_inliers.launches = 0
     results, latencies = [], []
     for r in range(N_REQUESTS):
         imgs, idx = request_images(views, r)
         t0 = time.perf_counter()
-        est = infer.infer_batch(model, imgs, pts, K, params, gen)
+        est = infer.infer_batch(model, imgs, pts, K, params, gen,
+                                tail_depth=0)
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         results.append((est, idx))
     launches = {"stratified_select_cmajor":
                 select_kernel.stratified_select_cmajor.launches,
                 "count_inliers": voting.count_inliers.launches}
+    assert select_kernel.stratified_select.launches == 0
     print(f"{N_REQUESTS} requests of {BATCH} images at {H}x{W}: latency ms "
           f"{[round(x, 3) for x in latencies]}; kernel launches {launches}",
           flush=True)
@@ -301,28 +416,7 @@ def run_pipeline(dev, fixture, kernels):
         if k["name"] in launches:
             k["launches"] = launches[k["name"]]
 
-    rot_err, trans_err, views_of = [], [], []
-    for est, idx in results:
-        pose = est.pose.cpu()
-        assert pose.shape == (BATCH, 3, 4) and est.kps.shape == (BATCH, VN, 2)
-        assert torch.isfinite(pose).all() and torch.isfinite(est.kps).all()
-        g_t = torch.as_tensor(gt[idx])
-        rot_err.append(rotation_angle_deg(pose[:, :, :3], g_t[:, :, :3]))
-        trans_err.append((pose[:, :, 3] - g_t[:, :, 3]).norm(dim=-1))
-        views_of.append(torch.as_tensor(idx))
-    rot_err, trans_err = torch.cat(rot_err), torch.cat(trans_err)
-    views_of = torch.cat(views_of)
-    for v in range(len(views)):
-        sel = views_of == v
-        print(f"view {v} ({int(fixture['masks'][v].sum())} visible px): "
-              f"rotation error deg median {float(rot_err[sel].median()):.4f}"
-              f" max {float(rot_err[sel].max()):.4f}; translation error m "
-              f"median {float(trans_err[sel].median()):.5f} max "
-              f"{float(trans_err[sel].max()):.5f}", flush=True)
-    ok0 = ((rot_err < 5.0) & (trans_err < 0.05))[views_of == 0]
-    assert ok0.float().mean() >= 0.5, \
-        f"view 0 posed within 5 cm / 5 deg in only {int(ok0.sum())} of " \
-        f"{len(ok0)} images"
+    check_poses(results, fixture)
 
     # the kernel path against the plain path, same fields and draws
     with torch.no_grad():
@@ -367,6 +461,186 @@ def run_pipeline(dev, fixture, kernels):
     print(f"stage ms (median of 3 requests of {BATCH} images): "
           + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
           + f"; sum {sum(med.values()):.3f}", flush=True)
+    return latencies
+
+
+def packed_stage_ms(model, images_u8, pts, K, params, dev, uncertainty):
+    """Per-stage milliseconds of one packed-path request (tail_depth 3,
+    float32), from CUDA events."""
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.ops import packed_tail, voting
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    names = ["fcn->8s", "packed tail", "select (K2)", "hypotheses+count",
+             "refine"] + (["covariance"] if uncertainty else []) + ["pnp"]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    with torch.no_grad():
+        x = pl.normalize_images(torch.from_numpy(images_u8).to(dev))
+        x = x.permute(0, 3, 1, 2).contiguous()
+        torch.cuda.synchronize()
+        ev[0].record()
+        fm8, x4s, x2s = model(x, return_8s_features=True)
+        ev[1].record()
+        packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
+            model, fm8, x4s, x2s, x, dtype=torch.float32)
+        ev[2].record()
+        fg = voting.sample_foreground_packed(packed, fgcnt, params.max_num,
+                                             generator=g)
+        ev[3].record()
+        hyps = voting.generate_hypotheses(fg, params.hyp_num, generator=g)
+        counts = voting.count_inliers(fg, hyps, params.inlier_thresh)
+        ev[4].record()
+        kps = voting.vote_argmax_refine(fg, hyps, counts,
+                                        params.inlier_thresh, params.min_num)
+        ev[5].record()
+        cov = None
+        if uncertainty:
+            _, cov = voting.estimate_voting_distribution_from_fg(
+                fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
+                generator=g)
+            ev[6].record()
+        pl.poses_from_keypoints(pts, kps, K, covar=cov)
+        ev[-1].record()
+        torch.cuda.synchronize()
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def run_packed(dev, fixture, kernels, plain_latencies):
+    """Phase (g): the packed serving path, tail_depth 3 in float32, with
+    and without uncertainty (see the module docstring)."""
+    import torch
+    from pvnet_tpu_torch import infer, pipeline as pl
+    from pvnet_tpu_torch.ops import packed_tail, select_kernel, voting
+
+    model = infer.load_model(os.path.join(REPO, "assets",
+                                          "duck_ckpt.msgpack"), VN, dev)
+    pts = torch.as_tensor(fixture["points_3d"], device=dev)
+    K = torch.as_tensor(fixture["K"], device=dev)
+    params = pl.VoteParams()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    views = fixture["images"]
+    counters = {"stratified_select": select_kernel.stratified_select,
+                "stratified_select_cmajor":
+                select_kernel.stratified_select_cmajor,
+                "count_inliers": voting.count_inliers}
+    k2_launches = 0
+    for unc in (False, True):
+        infer.infer_batch(model, request_images(views, -2)[0], pts, K,
+                          params, gen, tail_depth=3, uncertainty=unc)
+        torch.cuda.synchronize()                # warm-up, not counted
+        for fn in counters.values():
+            fn.launches = 0
+        results, latencies = [], []
+        for r in range(N_REQUESTS):
+            imgs, idx = request_images(views, r)
+            t0 = time.perf_counter()
+            est = infer.infer_batch(model, imgs, pts, K, params, gen,
+                                    tail_depth=3, uncertainty=unc)
+            torch.cuda.synchronize()
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            results.append((est, idx))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"packed path (tail_depth 3, float32), uncertainty={unc}: "
+              f"{N_REQUESTS} requests of {BATCH} images at {H}x{W}: latency"
+              f" ms {[round(x, 3) for x in latencies]} (plain path, phase "
+              f"(d): {[round(x, 3) for x in plain_latencies]}); kernel "
+              f"launches {launches}", flush=True)
+        assert launches == {"stratified_select": N_REQUESTS,
+                            "stratified_select_cmajor": 0,
+                            "count_inliers": N_REQUESTS * (1 + unc)}, \
+            launches
+        k2_launches += launches["stratified_select"]
+        for est, _ in results:
+            assert (est.fg_pixels > 0).all()
+        check_poses(results, fixture)
+    for k in kernels:
+        if k["name"] == "stratified_select":
+            k["launches"] = k2_launches
+
+    # the packed field, unpacked, against the plain forward's fields
+    with torch.no_grad():
+        imgs, _ = request_images(views, 0)
+        x = pl.normalize_images(torch.from_numpy(imgs).to(dev))
+        x = x.permute(0, 3, 1, 2).contiguous()
+        packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
+            model, *model(x, return_8s_features=True), x,
+            dtype=torch.float32)
+        seg, ver = model(x)
+        full = torch.cat([seg, ver], 1).permute(0, 2, 3, 1)
+        hout = full.shape[-1]
+        unpacked = packed.reshape(BATCH, H // 2, W // 2, 2, 2, hout) \
+            .permute(0, 1, 3, 2, 4, 5).reshape(BATCH, H, W, hout)
+        same = float((unpacked[..., :2].argmax(-1) == full[..., :2]
+                      .argmax(-1)).float().mean())
+        rel = float((unpacked - full).abs().max() / full.abs().max())
+        del seg, ver, full, unpacked
+    print(f"packed field unpacked vs the plain forward (card): argmax equal "
+          f"on {same * 100:.4f} % of pixels; max abs difference "
+          f"{rel:.3e} of the field's max abs", flush=True)
+    assert same >= 0.999 and rel <= 1e-3
+
+    # the card path against the CPU path from the same packed field,
+    # fgcnt and draws
+    noise = torch.rand((BATCH, H // 2, W // 2), generator=gen, device=dev)
+    pair_u = torch.rand((BATCH, params.hyp_num, 2), generator=gen,
+                        device=dev)
+    cov_u = torch.rand((BATCH, params.uncertainty_hyp_num, 2),
+                       generator=gen, device=dev)
+    outs = []
+    with torch.no_grad():
+        for where in (dev, torch.device("cpu")):
+            fg = voting.sample_foreground_packed(
+                packed.to(where), fgcnt.to(where), params.max_num,
+                noise=noise.to(where))
+            hyps = voting.generate_hypotheses(fg, params.hyp_num,
+                                              pair_u=pair_u.to(where))
+            counts = voting.count_inliers(fg, hyps, params.inlier_thresh)
+            kps = voting.vote_argmax_refine(fg, hyps, counts,
+                                            params.inlier_thresh,
+                                            params.min_num)
+            cov_hyps = voting.generate_hypotheses(
+                fg, params.uncertainty_hyp_num, pair_u=cov_u.to(where))
+            cov_counts = voting.count_inliers(fg, cov_hyps,
+                                              params.inlier_thresh)
+            _, cov = voting.estimate_voting_distribution_from_fg(
+                fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
+                pair_u=cov_u.to(where))
+            p_w, K_w = pts.to(where), K.to(where)
+            outs.append([t.cpu() for t in (
+                *fg, hyps, counts, cov_hyps, cov_counts, kps,
+                pl.poses_from_keypoints(p_w, kps, K_w),
+                pl.poses_from_keypoints(p_w, kps, K_w, covar=cov))])
+    names = ("coords", "dirs", "valid", "count", "total", "hyps", "counts",
+             "covariance hyps", "covariance counts")
+    for name, x, y in zip(names, outs[0], outs[1]):
+        assert torch.equal(x, y), f"packed card path != CPU path on {name}"
+    kp_diff = float((outs[0][9] - outs[1][9]).abs().max())
+    diffs = []
+    for i in (10, 11):
+        pg, pc = outs[0][i].double(), outs[1][i].double()
+        # the geodesic angle from the chord |R1 - R2|_F: no arccos floor
+        # (~0.02 deg) for float32 rotations a hair off orthonormal
+        chord = (pg[:, :, :3] - pc[:, :, :3]).flatten(1).norm(dim=1)
+        ang = torch.rad2deg(2 * torch.asin((chord / 8 ** 0.5).clamp(max=1)))
+        diffs.append((float(ang.max()),
+                      float((pg[:, :, 3] - pc[:, :, 3]).abs().max())))
+    print(f"packed card path vs CPU path, same field and draws: selection, "
+          f"hypotheses and counts (both passes) equal; keypoints max diff "
+          f"{kp_diff:.3e} px; poses max diff {diffs[0][0]:.3e} deg, "
+          f"{diffs[0][1]:.3e} m; uncertainty poses {diffs[1][0]:.3e} deg, "
+          f"{diffs[1][1]:.3e} m", flush=True)
+    assert kp_diff < 1e-2
+    assert all(r < 0.05 and t < 1e-3 for r, t in diffs), diffs
+
+    for unc in (False, True):
+        stages = [packed_stage_ms(model, request_images(views, r)[0], pts, K,
+                                  params, dev, unc) for r in range(3)]
+        med = {k: sorted(s[k] for s in stages)[1] for k in stages[0]}
+        print(f"packed path stage ms, uncertainty={unc} (median of 3 "
+              f"requests of {BATCH} images): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+              + f"; sum {sum(med.values()):.3f}", flush=True)
 
 
 def run_training(dev, kernels):
@@ -549,9 +823,10 @@ def main() -> int:
 
     with np.load(FIXTURE) as z:
         fixture = {k: z[k] for k in z.files}
-    kernels = (phase("(c) K1, K3", check_kernels, dev, fixture)
+    kernels = (phase("(c) K1, K2, K3", check_kernels, dev, fixture)
                + phase("(c') K4, K5", check_row_shift, dev))
-    phase("(d) serving", run_pipeline, dev, fixture, kernels)
+    latencies = phase("(d) serving", run_pipeline, dev, fixture, kernels)
+    phase("(g) packed serving", run_packed, dev, fixture, kernels, latencies)
     phase("(f) training", run_training, dev, kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())

@@ -1,10 +1,12 @@
 """pvnet_tpu_torch — the PyTorch + CUDA port of pvnet_tpu.
 
 Single-object inference, image -> 6DoF pose, on an NVIDIA Hopper GPU:
-a ResNet18-8s PVNet forward, stratified foreground selection (CUDA kernel),
+a ResNet18-8s PVNet forward (its decoder tail optionally on a packed
+half-resolution lattice), stratified foreground selection (CUDA kernels),
 shared-pair hypothesis generation, inlier counting (CUDA kernel), a
 weighted-least-squares keypoint refine and a batched EPnP +
-Levenberg-Marquardt pose solve. And training on a device-resident set:
+Levenberg-Marquardt pose solve, optionally weighted by each keypoint's
+hypothesis covariance. And training on a device-resident set:
 augmentation on the device (its separable warp shifts rows with a CUDA
 kernel), vertex targets, the ResNet18-8s forward/backward under bf16
 autocast, and Adam.
@@ -16,8 +18,8 @@ only; it never imports JAX, flax, msgpack, PIL or ``pvnet_tpu``.
 Subpackages
 -----------
 - ``pvnet_tpu_torch.models`` : PVNet ResNet18-8s.
-- ``pvnet_tpu_torch.ops``    : geometry, voting, PnP, row shifts and the
-  kernel wrappers.
+- ``pvnet_tpu_torch.ops``    : geometry, voting, PnP, the packed tail, row
+  shifts and the kernel wrappers.
 - ``pvnet_tpu_torch.data``   : device augmentation, vertex targets, the
   batch sampler.
 - ``pvnet_tpu_torch.train``  : losses, the train step, checkpoints, the

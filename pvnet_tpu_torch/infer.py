@@ -10,7 +10,12 @@ pipeline in fixed-size batches, and writes one JSON line per image:
   python -m pvnet_tpu_torch.infer --checkpoint assets/duck_ckpt.msgpack \
       --points_3d assets/duck_views_480x640.npz \
       --images assets/duck_views_480x640.npz --device cuda --batch 16 \
-      --output poses.jsonl
+      --output poses.jsonl [--tail_depth 3] [--uncertainty]
+
+``--tail_depth 1-3`` runs the packed-lattice decoder tail (the JAX CLI's
+default is 3; here it is 0, the plain decoder, which is the faster one on
+an H100, see PERF.md); ``--uncertainty`` weights the PnP by each
+keypoint's hypothesis covariance.
 
 ``--images`` is an .npz (key ``images``) or .npy of uint8 [n, h, w, 3]; a
 glob of image files works only where PIL is installed. ``--points_3d`` is
@@ -69,14 +74,23 @@ def load_model(checkpoint: str, vn: int, device) -> torch.nn.Module:
 
 def infer_batch(model: torch.nn.Module, images_u8: np.ndarray,
                 points_3d: torch.Tensor, K: torch.Tensor,
-                params: pl_mod.VoteParams,
-                generator: torch.Generator) -> pl_mod.PoseEstimate:
+                params: pl_mod.VoteParams, generator: torch.Generator,
+                tail_depth: int = 0,
+                uncertainty: bool = False) -> pl_mod.PoseEstimate:
     """One request: uint8 [b, h, w, 3] host images -> poses on the model's
-    device (upload, normalization, FCN, voting, PnP)."""
+    device (upload, normalization, FCN, voting, PnP).
+
+    tail_depth 0 runs the plain decoder; 1-3 the packed-lattice tail of
+    that depth in float32 (pipeline.fused_tail_foreground; even image
+    dims). uncertainty=True adds the covariance pass and the
+    uncertainty-weighted PnP."""
     device = points_3d.device
     x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
-    return pl_mod.estimate_poses(model, pl_mod.normalize_images(x),
-                                 points_3d, K, params, generator=generator)
+    return pl_mod.estimate_poses(
+        model, pl_mod.normalize_images(x), points_3d, K, params,
+        generator=generator, uncertainty=uncertainty,
+        fused_tail=tail_depth > 0, tail_depth=tail_depth,
+        tail_dtype=torch.float32)
 
 
 def parse_args(argv=None):
@@ -94,6 +108,14 @@ def parse_args(argv=None):
                    help="'linemod' or a txt file with the 3x3 intrinsics")
     p.add_argument("--device", default="cuda")
     p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--tail_depth", type=int, default=0, choices=(0, 1, 2, 3),
+                   help="0 plain decoder; 1-3 packed-lattice tail of that "
+                        "depth (ops/packed_tail.py; needs even image dims)")
+    p.add_argument("--uncertainty", action="store_true",
+                   help="uncertainty-weighted PnP from the hypothesis "
+                        "covariance")
+    p.add_argument("--hyp_num", type=int, default=None,
+                   help="hypotheses per keypoint (default: VoteParams)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="poses.jsonl")
     return p.parse_args(argv)
@@ -110,20 +132,24 @@ def main(argv=None) -> int:
     pts3d = load_points_3d(args.points_3d)
     K = LINEMOD_K if args.K == "linemod" else np.loadtxt(args.K)
     n, h, w = imgs.shape[:3]
-    print(f"{n} images at {h}x{w}; vn={len(pts3d)}; device {device}",
+    print(f"{n} images at {h}x{w}; vn={len(pts3d)}; device {device}; "
+          f"tail_depth {args.tail_depth}; uncertainty {args.uncertainty}",
           flush=True)
 
     model = load_model(args.checkpoint, len(pts3d), device)
     pts_t = torch.as_tensor(pts3d, device=device)
     K_t = torch.as_tensor(np.asarray(K, np.float32), device=device)
     params = pl_mod.VoteParams()
+    if args.hyp_num:
+        params = params._replace(hyp_num=args.hyp_num)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     t0 = time.time()
     with open(args.output, "w") as out:
         for i in range(0, n, args.batch):
             est = infer_batch(model, imgs[i:i + args.batch], pts_t, K_t,
-                              params, gen)
+                              params, gen, tail_depth=args.tail_depth,
+                              uncertainty=args.uncertainty)
             poses = est.pose.cpu().numpy()
             kps = est.kps.cpu().numpy()
             fg = est.fg_pixels.cpu().numpy()

@@ -11,8 +11,9 @@ Outputs are channel-major — seg [b, seg_dim, h, w], ver [b, ver_dim, h, w]
 — which is the JAX model's head_layout='NCHW' emission and PyTorch's
 native layout. Module names follow the reference (resnet18_8s.fc,
 conv8s, conv4s, conv2s, convraw), so a reference state_dict loads as is.
-The TPU-only pieces (channel-major head conv, feature-return flags, int8
-decoder, PVNet2o) are not ported.
+The feature-return flags of the JAX model feed the packed inference tail
+(ops/packed_tail.py). The TPU-only pieces (channel-major head conv, int8
+decoder, packed4 stem, PVNet2o) are not ported.
 
 For training, the JAX model's ``dtype=bfloat16`` with float32 parameters
 is the caller's ``torch.autocast(dtype=torch.bfloat16)`` around the
@@ -22,8 +23,6 @@ scratch applies the JAX model's with ``models.resnet.init_weights``
 (train/loop.py), a caller with a checkpoint loads it instead.
 """
 from __future__ import annotations
-
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -74,18 +73,33 @@ class PVNet(nn.Module):
             nn.LeakyReLU(0.1, inplace=True),
             nn.Conv2d(raw_dim, seg_dim + ver_dim, 1))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, return_2s_features: bool = False,
+                return_4s_features: bool = False,
+                return_8s_features: bool = False):
         """x: [b, 3, h, w] ImageNet-normalized image.
 
-        Returns (seg [b, seg_dim, h, w] logits, ver [b, ver_dim, h, w])."""
+        Returns (seg [b, seg_dim, h, w] logits, ver [b, ver_dim, h, w]).
+        The feature flags stop the decoder early and return the inputs of
+        the packed inference tail (ops/packed_tail.py), as the JAX model's
+        flags of the same names do, channel-major:
+        return_8s_features -> (fm8 [b, s8dim, h/8, w/8], x4s, x2s), the 8s
+        stage's activation before its upsample and the backbone skips;
+        return_4s_features -> (fm4 [b, s4dim, h/4, w/4], x2s);
+        return_2s_features -> fm2 [b, s2dim, h/2, w/2]."""
         h, w = x.shape[2:]
         x2s, x4s, x8s, _, x32s = self.resnet18_8s(x)
         xfc = self.resnet18_8s.fc(x32s)
         fm = self.conv8s(torch.cat([xfc, x8s], 1))
+        if return_8s_features:
+            return fm, x4s, x2s
         fm = _upsample(fm, *x4s.shape[2:])
         fm = self.conv4s(torch.cat([fm, x4s], 1))
+        if return_4s_features:
+            return fm, x2s
         fm = _upsample(fm, *x2s.shape[2:])
         fm = self.conv2s(torch.cat([fm, x2s], 1))
+        if return_2s_features:
+            return fm
         fm = _upsample(fm, h, w)
         out = self.convraw(torch.cat([fm, x], 1))
         return out[:, :self.seg_dim], out[:, self.seg_dim:]

@@ -107,6 +107,41 @@ def pose_from_Rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([R, t[..., :, None]], dim=-1)
 
 
+def inv_sqrtm_2x2(S: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Closed-form inverse square root S^{-1/2} [..., 2, 2] of symmetric
+    PSD 2x2 matrices S [..., 2, 2], by their eigendecomposition (the
+    reference's per-keypoint ``inv(scipy.linalg.sqrtm(cov))``, ref
+    evaluation_utils.py:172-179). Eigenvalues are clamped to ``eps``;
+    (near-)isotropic matrices take the eigenvector (1, 0)."""
+    a = S[..., 0, 0]
+    b = 0.5 * (S[..., 0, 1] + S[..., 1, 0])
+    d = S[..., 1, 1]
+    tr = a + d
+    det = a * d - b * b
+    gap = torch.sqrt((0.25 * tr * tr - det).clamp(min=0.0))
+    l1 = (0.5 * tr + gap).clamp(min=eps)
+    l2 = (0.5 * tr - gap).clamp(min=eps)
+
+    # eigenvector of l1: the better-conditioned of (b, l1-a) and (l1-d, b)
+    ax = torch.stack([b, l1 - a], dim=-1)
+    bx = torch.stack([l1 - d, b], dim=-1)
+    v = torch.where(((ax * ax).sum(-1) >= (bx * bx).sum(-1))[..., None],
+                    ax, bx)
+    n1 = torch.sqrt((v * v).sum(-1))
+    iso = n1 < eps
+    v1x = torch.where(iso, 1.0, v[..., 0] / n1.clamp(min=eps))
+    v1y = torch.where(iso, 0.0, v[..., 1] / n1.clamp(min=eps))
+    v2x, v2y = -v1y, v1x
+
+    s1 = 1.0 / torch.sqrt(l1)
+    s2 = 1.0 / torch.sqrt(l2)
+    m00 = s1 * v1x * v1x + s2 * v2x * v2x
+    m01 = s1 * v1x * v1y + s2 * v2x * v2y
+    m11 = s1 * v1y * v1y + s2 * v2y * v2y
+    return torch.stack([torch.stack([m00, m01], dim=-1),
+                        torch.stack([m01, m11], dim=-1)], dim=-2)
+
+
 def solve_2x2(A: torch.Tensor, b: torch.Tensor,
               eps: float = 1e-12) -> torch.Tensor:
     """Closed-form solve of batched 2x2 systems A [..., 2, 2] x = b [..., 2];

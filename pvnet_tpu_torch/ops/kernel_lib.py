@@ -34,6 +34,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "pvnet_select_cmajor": [_VP, _VP, _VP, _VP, _VP,
                             _I, _I, _I, _I, _I, _I, _VP],
+    "pvnet_select_nhwc": [_VP, _VP, _VP, _VP, _VP,
+                          _I, _I, _I, _I, _I, _I, _I, _VP],
     "pvnet_count_inliers": [_VP, _VP, _VP, _I, _I, _I, _I, ctypes.c_float,
                             _VP],
     "pvnet_shift_lanes": [_VP, _VP, _VP, _I, _I, _I, _VP],

@@ -1,8 +1,10 @@
 """Perspective-n-Point: EPnP initialization + Levenberg-Marquardt refine.
 
-PyTorch port of the plain-PnP path of pvnet_tpu/ops/pnp.py (the
-functional equivalent of the reference's ``cv2.solvePnP(...,
-SOLVEPNP_ITERATIVE)``, ref lib/utils/evaluation_utils.py:19-52). Every
+PyTorch port of the plain and the uncertainty-weighted PnP of
+pvnet_tpu/ops/pnp.py (the functional equivalents of the reference's
+``cv2.solvePnP(..., SOLVEPNP_ITERATIVE)``, ref
+lib/utils/evaluation_utils.py:19-52, and of its Ceres
+``uncertainty_pnp``, ref extend_utils.py:63-114). Every
 function takes a leading batch dimension written out where the JAX code
 uses ``vmap``; all solvers run in float32 on conditioned (centred /
 normalized) points.
@@ -376,3 +378,32 @@ def pnp_batch(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
     observations pts2d [b, n, 2]; K [3, 3]. Returns poses [b, 3, 4]."""
     b = pts2d.shape[0]
     return pnp(pts3d.expand(b, *pts3d.shape), pts2d, K, iters)
+
+
+def uncertainty_pnp(pts2d: torch.Tensor, weights: torch.Tensor,
+                    pts3d: torch.Tensor, K: torch.Tensor, iters: int = 16
+                    ) -> torch.Tensor:
+    """Uncertainty-weighted PnP, batched (ref extend_utils.py:63-114).
+
+    Args:
+      pts2d:   [N, n, 2] voted keypoint means.
+      weights: [N, n, 3] (wxx, wxy, wyy) rows of the 2x2 weight matrices,
+        typically inv_sqrtm_2x2 of the voting covariance (ref
+        evaluation_utils.py:172-181); degenerate keypoints carry zeros.
+      pts3d:   [N, n, 3] canonical 3D keypoints.
+      K:       [3, 3].
+    Returns [N, 3, 4]: EPnP weighted by each matrix's trace, then the
+    weighted multi-start LM."""
+    pose0 = epnp(pts3d, pts2d, K, weights=weights[..., 0] + weights[..., 2])
+    return _lm_multi_start(pose0, pts3d, pts2d, K, weights, iters)
+
+
+def uncertainty_pnp_batch(pts2d: torch.Tensor, weights: torch.Tensor,
+                          pts3d: torch.Tensor, K: torch.Tensor,
+                          iters: int = 16) -> torch.Tensor:
+    """:func:`uncertainty_pnp` for one object's keypoints pts3d [n, 3]
+    shared by a batch of observations pts2d [b, n, 2] with weights
+    [b, n, 3]; K [3, 3]. Returns poses [b, 3, 4]."""
+    b = pts2d.shape[0]
+    return uncertainty_pnp(pts2d, weights, pts3d.expand(b, *pts3d.shape), K,
+                           iters)

@@ -4,21 +4,26 @@ PyTorch port of the v3 path of pvnet_tpu/ops/voting.py:
 
 1. Stratified foreground selection (:func:`sample_foreground`): one random
    foreground pixel per spatial phase bucket, through kernel K1
-   (ops/select_kernel.py), then a stable compaction of the valid slots
-   into a prefix. Selection is stratified on every device (the JAX
-   ``method='auto'`` picks top-k off the TPU; the port does not).
+   (channel-major field) or K2 (NHWC field) of ops/select_kernel.py, then
+   a stable compaction of the valid slots into a prefix. Selection is
+   stratified on every device (the JAX ``method='auto'`` picks top-k off
+   the TPU; the port does not). :func:`sample_foreground_packed` selects
+   the same way, through K2, on the packed tail's half-resolution field.
 2. Shared-pair hypothesis generation (:func:`generate_hypotheses`).
 3. Inlier counting (:func:`count_inliers`) in the multiplication-only form
    ``dot > 0 and dot^2 > t^2 |d|^2 |n|^2`` through kernel K3
    (csrc/count_inliers.cu); the [hn, vn, tn] inlier tensor never exists.
 4. Winner argmax + weighted-least-squares refine
    (:func:`vote_argmax_refine`).
+5. For the uncertainty path, the hypothesis covariance about the voted
+   keypoints (:func:`estimate_voting_distribution_from_fg`, K3 again).
 
 Every function whose JAX twin draws random numbers takes the draws as
-optional tensors — ``noise`` [b, h, w] for selection and ``pair_u``
-[b, hn, 2] for hypothesis pairs — so a test can feed in JAX's draws and
-demand exact integer agreement. Without them the draws come from
-``torch.rand`` with the given ``torch.Generator``.
+optional tensors — ``noise`` for selection ([b, h, w], or [b, HP, WP] on
+the packed lattice) and ``pair_u`` [b, hn, 2] for hypothesis pairs — so a
+test can feed in JAX's draws and demand exact integer agreement. Without
+them the draws come from ``torch.rand`` with the given
+``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch.nn.functional as F
 
 from pvnet_tpu_torch.ops import kernel_lib
 from pvnet_tpu_torch.ops.geometry import solve_2x2
-from pvnet_tpu_torch.ops.select_kernel import stratified_select_cmajor
+from pvnet_tpu_torch.ops.select_kernel import (stratified_select,
+                                               stratified_select_cmajor)
 
 # Guard constants matching the CUDA kernels
 # (ref ransac_voting_kernel.cu:42,121).
@@ -79,6 +85,13 @@ def _phase_grid(tn: int) -> Tuple[int, int]:
     return a, tn // a
 
 
+def _phase_offsets(a: int, bb: int, device) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Row and column phase [a*bb] of each slot of an (a, bb) grid."""
+    return (torch.arange(a, device=device).repeat_interleave(bb),
+            torch.arange(bb, device=device).repeat(a))
+
+
 def sample_foreground(mask: torch.Tensor, vertex: torch.Tensor, tn: int,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None
@@ -92,13 +105,15 @@ def sample_foreground(mask: torch.Tensor, vertex: torch.Tensor, tn: int,
 
     Args:
       mask:   [b, h, w] segmentation (nonzero = foreground).
-      vertex: [b, vn*2, h, w] channel-major direction field.
+      vertex: [b, vn*2, h, w] channel-major direction field (selected by
+        kernel K1), or [b, h, w, vn, 2] NHWC (kernel K2).
       tn:     fixed pixel budget.
       noise:  optional [b, h, w] uniform draws; drawn from ``generator``
         when absent.
     """
     b, h, w = mask.shape
-    vn = vertex.shape[1] // 2
+    cmajor = vertex.dim() == 4
+    vn = vertex.shape[1] // 2 if cmajor else vertex.shape[3]
     a, bb = _phase_grid(tn)
     pad_h, pad_w = (-h) % a, (-w) % bb
     fg = mask != 0
@@ -108,13 +123,16 @@ def sample_foreground(mask: torch.Tensor, vertex: torch.Tensor, tn: int,
         noise = uniform((b, h, w), generator, mask.device)
     score = fg.to(torch.float32) * 2.0 + noise
     vertex = vertex.to(torch.float32)
+    if not cmajor:
+        vertex = vertex.reshape(b, h, w, 2 * vn)
     if pad_h or pad_w:
         score = F.pad(score, (0, pad_w, 0, pad_h), value=-1.0)
-        vertex = F.pad(vertex, (0, pad_w, 0, pad_h))
+        vertex = F.pad(vertex, (0, pad_w, 0, pad_h) if cmajor
+                       else (0, 0, 0, pad_w, 0, pad_h))
     tx_n = (w + pad_w) // bb
 
-    best, idx, dirs = stratified_select_cmajor(
-        score.contiguous(), vertex.contiguous(), a, bb)
+    select = stratified_select_cmajor if cmajor else stratified_select
+    best, idx, dirs = select(score.contiguous(), vertex.contiguous(), a, bb)
 
     valid = (best >= 2.0).reshape(b, tn)
     ty = (idx // tx_n).reshape(b, tn)
@@ -122,14 +140,83 @@ def sample_foreground(mask: torch.Tensor, vertex: torch.Tensor, tn: int,
     dirs = dirs.reshape(b, tn, vn, 2) * valid[:, :, None, None].to(
         torch.float32)
 
-    dev = mask.device
-    phase_y = torch.arange(a, device=dev).repeat_interleave(bb)   # [tn]
-    phase_x = torch.arange(bb, device=dev).repeat(a)
+    phase_y, phase_x = _phase_offsets(a, bb, mask.device)   # [tn]
     ys = (ty * a + phase_y[None, :]).to(torch.float32)
     xs = (tx * bb + phase_x[None, :]).to(torch.float32)
     coords = torch.stack([xs, ys], dim=-1)                  # [b, tn, 2]
 
     coords, dirs, valid = _compact_valid_prefix(coords, dirs, valid)
+    count = valid.sum(1).to(torch.int32)
+    return ForegroundSample(coords, dirs, valid, count, total)
+
+
+def sample_foreground_packed(packed: torch.Tensor, fgcnt: torch.Tensor,
+                             tn: int, noise: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None,
+                             seg_dim: int = 2) -> ForegroundSample:
+    """Stratified foreground sampling directly on a packed head field.
+
+    Consumes the packed inference tail's outputs (ops/packed_tail.py):
+    ``packed`` [b, HP, WP, 4*hout] holds the seg+ver head values of each
+    2x2 full-resolution cell in depth (sub-pixel (p, q) at channels
+    (p*2+q)*hout), ``fgcnt`` [b, HP, WP] its foreground pixel count.
+    Selection picks tn//4 cells on a phase grid over the half-resolution
+    lattice through kernel K2 and expands each winner into its 4
+    sub-pixels, valid where their seg logits say foreground. The
+    full-resolution fields never exist. Port of
+    ``voting.sample_foreground_packed``.
+
+    Args:
+      tn: pixel budget, a multiple of 4 (tn//4 cells).
+      noise: optional [b, HP, WP] uniform draws; drawn from ``generator``
+        when absent.
+    Returns a ForegroundSample with tn slots; ``total`` is the exact
+    full-resolution foreground pixel count.
+    """
+    b, HP, WP, h4 = packed.shape
+    hout = h4 // 4
+    if seg_dim != 2:
+        # the sub-pixel test compares seg logits 1 vs 0
+        # (ref train_linemod.py:99-102)
+        raise ValueError(f"seg_dim must be 2, got {seg_dim}")
+    if tn % 4:
+        raise ValueError(f"tn must be a multiple of 4, got {tn}")
+    vn = (hout - seg_dim) // 2
+    blocks = tn // 4
+    a, bb = _phase_grid(blocks)
+    pad_h, pad_w = (-HP) % a, (-WP) % bb
+    total = fgcnt.reshape(b, HP * WP).sum(1).to(torch.int32)
+
+    if noise is None:
+        noise = uniform((b, HP, WP), generator, packed.device)
+    score = (fgcnt > 0).to(torch.float32) * 2.0 + noise
+    if pad_h or pad_w:
+        score = F.pad(score, (0, pad_w, 0, pad_h), value=-1.0)
+        packed = F.pad(packed, (0, 0, 0, pad_w, 0, pad_h))
+    tx_n = (WP + pad_w) // bb
+
+    best, idx, rows = stratified_select(score.contiguous(),
+                                        packed.contiguous(), a, bb)
+
+    block_valid = (best >= 2.0).reshape(b, blocks)
+    phase_y, phase_x = _phase_offsets(a, bb, packed.device)
+    cell_y = (idx // tx_n).reshape(b, blocks) * a + phase_y[None, :]
+    cell_x = (idx % tx_n).reshape(b, blocks) * bb + phase_x[None, :]
+
+    rows = rows.reshape(b, blocks, 4, hout).to(torch.float32)
+    sub_fg = rows[..., 1] > rows[..., 0]                    # [b, blocks, 4]
+    sub_valid = sub_fg & block_valid[..., None]
+    dirs = rows[..., seg_dim:].reshape(b, blocks, 4, vn, 2) \
+        * sub_valid[..., None, None].to(torch.float32)
+
+    par = torch.arange(4, device=packed.device)             # sub-pixel p*2+q
+    ys = 2 * cell_y[:, :, None] + (par // 2)[None, None, :]
+    xs = 2 * cell_x[:, :, None] + (par % 2)[None, None, :]
+    coords = torch.stack([xs, ys], dim=-1).to(torch.float32)
+
+    coords, dirs, valid = _compact_valid_prefix(
+        coords.reshape(b, tn, 2), dirs.reshape(b, tn, vn, 2),
+        sub_valid.reshape(b, tn))
     count = valid.sum(1).to(torch.int32)
     return ForegroundSample(coords, dirs, valid, count, total)
 
@@ -376,3 +463,49 @@ def ransac_voting_v3(mask: torch.Tensor, vertex: torch.Tensor,
     fg = sample_foreground(mask, vertex, max_num, noise, generator)
     return ransac_voting_v3_from_fg(fg, hyp_num, inlier_thresh, min_num,
                                     pair_u, generator)
+
+
+# ---------------------------------------------------------------------------
+# Hypothesis covariance (the uncertainty path)
+# ---------------------------------------------------------------------------
+
+def estimate_voting_distribution_from_fg(
+        fg: ForegroundSample, mean: torch.Tensor, hyp_num: int = 4096,
+        inlier_thresh: float = 0.99, pair_u: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Spatial covariance of the hypothesis distribution about ``mean``
+    [b, vn, 2], from a built foreground sample (ref
+    ransac_voting_gpu.py:333-406): ``hyp_num`` hypotheses counted through
+    K3, each weighted by its inlier ratio, weights below (max ratio - 0.1)
+    zeroed, and the weighted 2x2 scatter about the mean.
+
+    Args:
+      pair_u: optional [b, hyp_num, 2] uniform draws for the pairs.
+    Returns (mean passed through, cov [b, vn, 2, 2])."""
+    hyps = generate_hypotheses(fg, hyp_num, pair_u, generator)
+    counts = count_inliers(fg, hyps, inlier_thresh)         # [b, hn, vn]
+
+    denom = fg.count.clamp(min=1).to(torch.float32)[:, None, None]
+    ratio = counts.to(torch.float32) / denom
+    thresh = ratio.amax(dim=1, keepdim=True) - 0.1
+    w = torch.where(ratio < thresh, 0.0, ratio)             # [b, hn, vn]
+
+    diff = hyps - mean[:, None, :, :]                       # [b, hn, vn, 2]
+    cov = torch.einsum("bhvi,bhvj->bvij", diff, diff * w[..., None])
+    cov = cov / (w.sum(1)[..., None, None] + 1e-3)
+    return mean, cov
+
+
+def estimate_voting_distribution_with_mean(
+        mask: torch.Tensor, vertex: torch.Tensor, mean: torch.Tensor,
+        hyp_num: int = 4096, inlier_thresh: float = 0.99,
+        max_num: int = 1024, noise: Optional[torch.Tensor] = None,
+        pair_u: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`estimate_voting_distribution_from_fg` on a fresh foreground
+    sample of (mask, vertex) drawn with ``noise``."""
+    fg = sample_foreground(mask, vertex, max_num, noise, generator)
+    return estimate_voting_distribution_from_fg(
+        fg, mean, hyp_num, inlier_thresh, pair_u, generator)

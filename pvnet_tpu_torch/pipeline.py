@@ -1,10 +1,14 @@
 """End-to-end single-object inference: image -> FCN -> voting -> PnP.
 
-Port of the plain ``run`` path of pvnet_tpu/pipeline.py (no uncertainty,
-no packed tail). Where the JAX pipeline compiles the whole path into one
-XLA program, the port runs it eagerly on one device: the FCN through
-PyTorch/cuDNN convolutions, selection and inlier counting through the
-port's CUDA kernels, the rest as PyTorch tensor code.
+Port of pvnet_tpu/pipeline.py's ``make_pose_pipeline``: the plain ``run``
+path (the full-resolution FCN, selection through K1) and the packed-tail
+``run_fused`` path (the decoder's last stages on the half-resolution
+packed lattice of ops/packed_tail.py, selection through K2), each with or
+without the uncertainty variant (hypothesis covariance, then
+uncertainty-weighted PnP). Where the JAX pipeline compiles the whole path
+into one XLA program, the port runs it eagerly on one device: the FCN
+through PyTorch/cuDNN convolutions, selection and inlier counting through
+the port's CUDA kernels, the rest as PyTorch tensor code.
 """
 from __future__ import annotations
 
@@ -14,17 +18,21 @@ import numpy as np
 import torch
 
 from pvnet_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+from pvnet_tpu_torch.ops import packed_tail
 from pvnet_tpu_torch.ops import pnp as pnp_mod
 from pvnet_tpu_torch.ops import voting
+from pvnet_tpu_torch.ops.geometry import inv_sqrtm_2x2
 
 
 class VoteParams(NamedTuple):
     """Voting envelope; the defaults of pvnet_tpu.pipeline.VoteParams
-    (512 hypotheses, a 512-pixel foreground budget)."""
+    (512 hypotheses, a 512-pixel foreground budget, 1024 hypotheses for
+    the uncertainty path's covariance)."""
     hyp_num: int = 512
     inlier_thresh: float = 0.99
     max_num: int = 512
     min_num: int = 5
+    uncertainty_hyp_num: int = 1024
 
 
 class PoseEstimate(NamedTuple):
@@ -64,11 +72,74 @@ def keypoints_from_fields(mask: torch.Tensor, vertex: torch.Tensor,
         generator=generator)
 
 
+def keypoints_with_covariance(mask: torch.Tensor, vertex: torch.Tensor,
+                              params: VoteParams = VoteParams(),
+                              noise: Optional[torch.Tensor] = None,
+                              pair_u: Optional[torch.Tensor] = None,
+                              cov_noise: Optional[torch.Tensor] = None,
+                              cov_pair_u: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uncertainty path: v3 voting, then the hypothesis covariance about
+    its keypoints on a second foreground sample (ref
+    UncertaintyEvalWrapper :119-130). ``noise``/``pair_u`` are the
+    voting's draws, ``cov_noise``/``cov_pair_u`` the covariance pass's.
+    Returns (mean [b, vn, 2], cov [b, vn, 2, 2])."""
+    mean = keypoints_from_fields(mask, vertex, params, noise, pair_u,
+                                 generator)
+    return voting.estimate_voting_distribution_with_mean(
+        mask, vertex, mean, hyp_num=params.uncertainty_hyp_num,
+        inlier_thresh=params.inlier_thresh, max_num=params.max_num,
+        noise=cov_noise, pair_u=cov_pair_u, generator=generator)
+
+
 def poses_from_keypoints(points_3d: torch.Tensor, kps_2d: torch.Tensor,
-                         K: torch.Tensor) -> torch.Tensor:
-    """Batched plain PnP: points_3d [vn, 3], kps_2d [b, vn, 2], K [3, 3]
-    -> [b, 3, 4]."""
-    return pnp_mod.pnp_batch(points_3d, kps_2d, K)
+                         K: torch.Tensor,
+                         covar: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Batched pose solve: points_3d [vn, 3], kps_2d [b, vn, 2], K [3, 3]
+    -> [b, 3, 4]. ``covar`` [b, vn, 2, 2] selects the uncertainty-weighted
+    solver, weighting each keypoint by covar^{-1/2}; keypoints whose
+    covariance is degenerate (var_x < 1e-6) or NaN get weight 0."""
+    if covar is None:
+        return pnp_mod.pnp_batch(points_3d, kps_2d, K)
+    W = inv_sqrtm_2x2(covar)
+    bad = (covar[..., 0, 0] < 1e-6) | torch.isnan(covar).flatten(-2).any(-1)
+    W = torch.where(bad[..., None, None], 0.0, W)
+    w3 = torch.stack([W[..., 0, 0], W[..., 0, 1], W[..., 1, 1]], dim=-1)
+    return pnp_mod.uncertainty_pnp_batch(kps_2d, w3, points_3d, K)
+
+
+def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
+                          max_num: int, noise: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None,
+                          dtype=torch.bfloat16, tail_depth: int = 1
+                          ) -> voting.ForegroundSample:
+    """Foreground sample through the packed inference tail.
+
+    Runs the FCN on normalized [b, h, w, 3] images (h, w even) to the 2s
+    stage (tail_depth=1), the 4s stage (2) or the 8s stage (3), computes
+    the rest of the decoder on half-resolution packed lattices
+    (ops/packed_tail.py) and samples the packed field directly through
+    kernel K2; the full-resolution seg/ver tensors never exist.
+    ``noise`` [b, h/2, w/2] is the selection's optional draw."""
+    x = image.permute(0, 3, 1, 2).contiguous()
+    if tail_depth == 3:
+        fm8, x4s, x2s = model(x, return_8s_features=True)
+        packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
+            model, fm8, x4s, x2s, x, dtype=dtype)
+    elif tail_depth == 2:
+        fm4, x2s = model(x, return_4s_features=True)
+        packed, fgcnt = packed_tail.packed_tail_deep_from_model(
+            model, fm4, x2s, x, dtype=dtype)
+    elif tail_depth == 1:
+        fm2 = model(x, return_2s_features=True)
+        packed, fgcnt = packed_tail.packed_tail_from_model(model, fm2, x,
+                                                           dtype=dtype)
+    else:
+        raise ValueError(f"tail_depth must be 1, 2 or 3; got {tail_depth}")
+    return voting.sample_foreground_packed(packed, fgcnt, max_num, noise,
+                                           generator)
 
 
 @torch.no_grad()
@@ -77,26 +148,63 @@ def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
                    params: VoteParams = VoteParams(),
                    noise: Optional[torch.Tensor] = None,
                    pair_u: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   uncertainty: bool = False, fused_tail: bool = False,
+                   tail_depth: int = 1, tail_dtype=torch.bfloat16,
+                   cov_pair_u: Optional[torch.Tensor] = None,
+                   cov_noise: Optional[torch.Tensor] = None
                    ) -> PoseEstimate:
-    """The whole slice on normalized images [b, h, w, 3]: fields, voting,
-    PnP, plus each image's foreground pixel count."""
-    mask, vertex = predict_fields(model, images)
-    kps = keypoints_from_fields(mask, vertex, params, noise, pair_u,
-                                generator)
-    pose = poses_from_keypoints(points_3d, kps, K)
-    fg = (mask != 0).flatten(1).sum(1).to(torch.int32)
-    return PoseEstimate(pose, kps, fg)
+    """The whole slice on normalized images [b, h, w, 3]: fields (or the
+    packed tail), voting, optionally the covariance, PnP, plus each
+    image's foreground pixel count.
+
+    fused_tail=True takes the packed-tail path (``run_fused`` of the JAX
+    pipeline) at ``tail_depth`` in {1, 2, 3} and ``tail_dtype``; its
+    ``fg_pixels`` is the sample's exact full-resolution count. Draws, all
+    optional (see ops/voting.py): ``noise`` and ``pair_u`` for the voting,
+    ``cov_pair_u`` for the covariance pass, and on the plain path, which
+    samples the foreground a second time for it, ``cov_noise``."""
+    if fused_tail:
+        fg = fused_tail_foreground(model, images, params.max_num, noise,
+                                   generator, tail_dtype, tail_depth)
+        kps = voting.ransac_voting_v3_from_fg(
+            fg, params.hyp_num, params.inlier_thresh, params.min_num,
+            pair_u, generator)
+        cov = None
+        if uncertainty:
+            _, cov = voting.estimate_voting_distribution_from_fg(
+                fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
+                cov_pair_u, generator)
+        fg_pixels = fg.total
+    else:
+        mask, vertex = predict_fields(model, images)
+        if uncertainty:
+            kps, cov = keypoints_with_covariance(
+                mask, vertex, params, noise, pair_u, cov_noise, cov_pair_u,
+                generator)
+        else:
+            kps = keypoints_from_fields(mask, vertex, params, noise, pair_u,
+                                        generator)
+            cov = None
+        fg_pixels = (mask != 0).flatten(1).sum(1).to(torch.int32)
+    pose = poses_from_keypoints(points_3d, kps, K, covar=cov)
+    return PoseEstimate(pose, kps, fg_pixels)
 
 
 def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
                        params: VoteParams = VoteParams(),
-                       device="cpu"):
-    """Build the image -> pose function.
+                       uncertainty: bool = False, fused_tail: bool = False,
+                       tail_depth: int = 1, tail_dtype=torch.bfloat16,
+                       device=None):
+    """Build the image -> pose function (the JAX ``run`` closure, or
+    ``run_fused`` with fused_tail=True; see :func:`estimate_poses`).
 
-    Returns run(images [b, h, w, 3] normalized float32 on ``device``,
-    generator=None) -> (pose [b, 3, 4], kps [b, vn, 2]). ``generator``
-    supplies the selection noise and the hypothesis pair draws."""
+    Returns run(images [b, h, w, 3] normalized float32 on the model's
+    device, generator=None) -> (pose [b, 3, 4], kps [b, vn, 2]).
+    ``generator`` supplies every random draw. The keypoints and K go to
+    ``device``, by default the model's."""
+    if device is None:
+        device = next(model.parameters()).device
     points_3d = torch.as_tensor(np.asarray(points_3d, np.float32),
                                 device=device)
     K = torch.as_tensor(np.asarray(K, np.float32), device=device)
@@ -104,7 +212,9 @@ def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
     def run(images: torch.Tensor,
             generator: Optional[torch.Generator] = None):
         est = estimate_poses(model, images, points_3d, K, params,
-                             generator=generator)
+                             generator=generator, uncertainty=uncertainty,
+                             fused_tail=fused_tail, tail_depth=tail_depth,
+                             tail_dtype=tail_dtype)
         return est.pose, est.kps
 
     return run

@@ -107,6 +107,79 @@ def test_voting_on_cuda_equals_cpu_selection_and_counts(cuda):
         assert torch.equal(x, y)
 
 
+# --- K2 (stratified_select.cu, NHWC field) ----------------------------------
+
+# C odd, C = 80 (the packed path's 4*(2+18)), a*bb above one block of 128
+# threads, the packed path's own grid, a single tile per phase
+@pytest.mark.parametrize("b,h,w,c,a,bb", [
+    (2, 16, 32, 3, 4, 8), (3, 24, 48, 80, 8, 16), (1, 32, 64, 5, 16, 16),
+    (2, 40, 96, 18, 8, 32), (1, 8, 8, 1, 8, 8), (2, 30, 40, 80, 30, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_nhwc_kernel_equals_plain(cuda, b, h, w, c, a, bb, dtype):
+    g = torch.Generator().manual_seed(b * h + w + c)
+    score = (torch.rand(b, h, w, generator=g)
+             + 2.0 * (torch.rand(b, h, w, generator=g) < 0.3)).to(cuda)
+    field = torch.randn(b, h, w, c, generator=g).to(dtype).to(cuda)
+    before = SK.stratified_select.launches
+    got = SK.stratified_select(score, field, a, bb)
+    want = SK.stratified_select_plain(score, field, a, bb)
+    torch.cuda.synchronize()
+    assert SK.stratified_select.launches == before + 1
+    assert got[2].dtype == dtype
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_select_nhwc_kernel_empty_batch_and_ties(cuda):
+    best, idx, dirs = SK.stratified_select(
+        torch.rand(0, 16, 32, device=cuda), torch.rand(0, 16, 32, 4,
+                                                       device=cuda), 4, 8)
+    assert best.shape == (0, 4, 8) and dirs.shape == (0, 4, 8, 4)
+    score = torch.full((2, 32, 64), 2.5, device=cuda)
+    field = torch.randn(2, 32, 64, 7, device=cuda)
+    _, idx, dirs = SK.stratified_select(score, field, 8, 16)
+    assert (idx == 0).all()
+    assert torch.equal(dirs, field[:, :8, :16])
+
+
+def test_select_nhwc_kernel_rejects_what_it_cannot_take(cuda):
+    score = torch.rand(1, 16, 32, device=cuda)
+    field = torch.rand(1, 16, 32, 4, device=cuda)
+    with pytest.raises(TypeError):
+        SK.stratified_select(score, field.half(), 4, 8)
+    with pytest.raises(TypeError):
+        SK.stratified_select(score.double(), field, 4, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        SK.stratified_select(score, torch.rand(1, 16, 4, 32, device=cuda)
+                             .transpose(2, 3), 4, 8)
+    with pytest.raises(ValueError, match="score on"):
+        SK.stratified_select(score.cpu(), field, 4, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_sampling_on_cuda_equals_cpu(cuda, dtype):
+    # a 30x44 lattice: tn=256 -> (8, 8) cells, so both axes are padded
+    g = torch.Generator().manual_seed(1)
+    rows = torch.randn(2, 30, 44, 4, 8, generator=g)
+    rows[..., 1] = rows[..., 0] + torch.where(
+        torch.rand(2, 30, 44, 4, generator=g) < 0.4, 1.0, -1.0)
+    fgcnt = (rows[..., 1] > rows[..., 0]).sum(-1).float()
+    packed = rows.reshape(2, 30, 44, 32).to(dtype)
+    noise = torch.rand(2, 30, 44, generator=g)
+    pair_u = torch.rand(2, 128, 2, generator=g)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        before = SK.stratified_select.launches
+        fg = V.sample_foreground_packed(packed.to(dev), fgcnt.to(dev), 256,
+                                        noise=noise.to(dev))
+        assert SK.stratified_select.launches == before + (dev == cuda)
+        hyps = V.generate_hypotheses(fg, 128, pair_u=pair_u.to(dev))
+        outs.append([t.cpu() for t in (*fg, hyps,
+                                       V.count_inliers(fg, hyps, 0.99))])
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+
+
 # --- K4 / K5 (row_shift.cu) -------------------------------------------------
 
 def _shift_input(cuda, shape, dtype, seed):

@@ -122,12 +122,111 @@ def _rot_err(pose_t, pose_np):
                               torch.tensor(pose_np[..., :3])).numpy()
 
 
+@pytest.fixture(scope="module")
+def crop_views():
+    """A 120x160 crop of the 480x640 fixture around both objects (the
+    model sees them at the scale it was trained at; a 120x160 render
+    leaves view 0 with 7 foreground pixels), K shifted to the crop. The
+    packed lattice is 60x80, so selection pads 60 rows to 64."""
+    y0, x0 = 216, 232
+    with np.load(DEFAULT_OUT) as z:
+        K = z["K"].copy()
+        K[0, 2] -= x0
+        K[1, 2] -= y0
+        return {"images": z["images"][:, y0:y0 + 120, x0:x0 + 160],
+                "points_3d": z["points_3d"], "K": K, "poses": z["poses"]}
+
+
+@pytest.mark.parametrize("uncertainty", [False, True])
+def test_packed_slice_matches_jax_run_fused(crop_views, uncertainty):
+    v = crop_views
+    params = TPL.VoteParams()
+    images = ((v["images"].astype(np.float32) / 255.0 - IMAGENET_MEAN)
+              / IMAGENET_STD).astype(np.float32)
+    b, h, w, _ = images.shape
+    with open(CKPT, "rb") as f:
+        variables = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(x, jnp.float32),
+            serialization.msgpack_restore(f.read()))
+    fmodel = build_flax("resnet18_8s", ver_dim=18)
+    key = jax.random.PRNGKey(11)
+    run = jax.jit(JPL.make_pose_pipeline(
+        fmodel.apply, v["points_3d"], v["K"], params,
+        uncertainty=uncertainty, fused_tail=True, tail_depth=3,
+        tail_dtype=jnp.float32))
+    pose_j, kps_j = (np.asarray(t) for t in run(variables,
+                                                jnp.asarray(images), key))
+    # run_fused's draws: split(key, 3) -> selection, pairs, covariance
+    k0, k1, k2 = jax.random.split(key, 3)
+    fg_j = JPL.fused_tail_foreground(fmodel.apply, variables,
+                                     jnp.asarray(images), params.max_num,
+                                     k0, dtype=jnp.float32, tail_depth=3)
+
+    def u(k, shape):
+        return torch.tensor(np.asarray(jax.random.uniform(k, shape,
+                                                          jnp.float32)))
+
+    est = TPL.estimate_poses(
+        load_model(CKPT, 9, "cpu"), torch.tensor(images),
+        torch.tensor(v["points_3d"]), torch.tensor(v["K"]), params,
+        noise=u(k0, (b, h // 2, w // 2)),
+        pair_u=u(k1, (b, params.hyp_num, 2)),
+        cov_pair_u=u(k2, (b, params.uncertainty_hyp_num, 2)),
+        uncertainty=uncertainty, fused_tail=True, tail_depth=3,
+        tail_dtype=torch.float32)
+    np.testing.assert_array_equal(est.fg_pixels.numpy(),
+                                  np.asarray(fg_j.total))
+    assert (est.fg_pixels.numpy() > 1000).all()
+    # the tolerance of test_slice_matches_jax_composition, for its reasons
+    err = np.linalg.norm(est.kps.numpy() - kps_j, axis=-1)
+    assert (err < 5e-2).mean() >= 0.8 and err.max() < 2.0, err
+    assert _rot_err(est.pose, pose_j).max() < 1.0
+    np.testing.assert_allclose(est.pose[..., 3].numpy(), pose_j[..., 3],
+                               atol=1.5e-2)
+    # and both near the ground truth of the well-visible view 0
+    assert _rot_err(est.pose[:1], v["poses"][:1]).max() < 5.0
+    assert np.abs(pose_j[0, :, 3] - v["poses"][0, :, 3]).max() < 0.05
+
+
 def test_run_closure_shapes_and_determinism(small_views):
     model = load_model(CKPT, 9, "cpu")
     images = TPL.normalize_images(torch.tensor(small_views["images"]))
     run = TPL.make_pose_pipeline(model, small_views["points_3d"],
                                  small_views["K"],
                                  TPL.VoteParams(hyp_num=64, max_num=64))
+    pose1, kps1 = run(images, torch.Generator().manual_seed(0))
+    pose2, kps2 = run(images, torch.Generator().manual_seed(0))
+    assert pose1.shape == (2, 3, 4) and kps1.shape == (2, 9, 2)
+    assert torch.isfinite(pose1).all()
+    assert torch.equal(pose1, pose2) and torch.equal(kps1, kps2)
+
+
+def test_run_closure_places_its_constants_where_the_model_is(small_views,
+                                                            monkeypatch):
+    # without ``device`` the keypoints and K go to the model's device: a
+    # model on the meta device must meet meta constants, not CPU ones
+    model = load_model(CKPT, 9, "cpu").to("meta")
+    seen = {}
+
+    def fake_estimate(model_, images, points_3d, K, *args, **kwargs):
+        seen["devices"] = (points_3d.device, K.device)
+        return TPL.PoseEstimate(None, None, None)
+
+    monkeypatch.setattr(TPL, "estimate_poses", fake_estimate)
+    run = TPL.make_pose_pipeline(model, small_views["points_3d"],
+                                 small_views["K"])
+    run(torch.zeros(1, 8, 8, 3, device="meta"))
+    assert seen["devices"] == (torch.device("meta"), torch.device("meta"))
+
+
+@pytest.mark.parametrize("uncertainty", [False, True])
+def test_packed_run_closure_shapes_and_determinism(crop_views, uncertainty):
+    model = load_model(CKPT, 9, "cpu")
+    images = TPL.normalize_images(torch.tensor(crop_views["images"]))
+    run = TPL.make_pose_pipeline(
+        model, crop_views["points_3d"], crop_views["K"],
+        TPL.VoteParams(hyp_num=64, max_num=64, uncertainty_hyp_num=128),
+        uncertainty=uncertainty, fused_tail=True, tail_depth=3)
     pose1, kps1 = run(images, torch.Generator().manual_seed(0))
     pose2, kps2 = run(images, torch.Generator().manual_seed(0))
     assert pose1.shape == (2, 3, 4) and kps1.shape == (2, 9, 2)
@@ -165,24 +264,30 @@ def test_port_imports_and_infers_without_jax(tmp_path):
         imgs = z["images"][:, :64, :96]
     np.savez(tmp_path / "views.npz", images=imgs, points_3d=pts)
     out = tmp_path / "poses.jsonl"
+    out3 = tmp_path / "poses_packed.jsonl"
+    argv = (f"['infer', '--checkpoint', {CKPT!r}, '--points_3d',"
+            f" {str(tmp_path / 'views.npz')!r}, '--images',"
+            f" {str(tmp_path / 'views.npz')!r}, '--device', 'cpu',"
+            " '--batch', '1', '--output', ")
     code = (
         "import runpy\n"
         "import pvnet_tpu_torch.ops.voting, pvnet_tpu_torch.ops.pnp\n"
         "import pvnet_tpu_torch.pipeline, pvnet_tpu_torch.infer\n"
-        f"sys.argv = ['infer', '--checkpoint', {CKPT!r}, '--points_3d',"
-        f" {str(tmp_path / 'views.npz')!r}, '--images',"
-        f" {str(tmp_path / 'views.npz')!r}, '--device', 'cpu',"
-        f" '--batch', '1', '--output', {str(out)!r}]\n"
+        f"argv = {argv}{str(out3)!r}, '--tail_depth', '3',"
+        " '--uncertainty']\n"
+        "assert pvnet_tpu_torch.infer.main(argv[1:]) == 0\n"
+        f"sys.argv = {argv}{str(out)!r}]\n"
         "runpy.run_module('pvnet_tpu_torch.infer', run_name='__main__')\n")
     proc = _run_blocked(code, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    rows = [json.loads(line) for line in out.read_text().splitlines()]
-    assert len(rows) == 2
-    for row in rows:
-        assert set(row) == {"path", "pose", "kps", "fg_pixels"}
-        assert np.isfinite(np.asarray(row["pose"])).all()
-        assert np.asarray(row["pose"]).shape == (3, 4)
-        assert np.asarray(row["kps"]).shape == (9, 2)
+    for path in (out, out3):
+        rows = [json.loads(line) for line in path.read_text().splitlines()]
+        assert len(rows) == 2
+        for row in rows:
+            assert set(row) == {"path", "pose", "kps", "fg_pixels"}
+            assert np.isfinite(np.asarray(row["pose"])).all()
+            assert np.asarray(row["pose"]).shape == (3, 4)
+            assert np.asarray(row["kps"]).shape == (9, 2)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -155,3 +155,45 @@ def test_so3_project_matches_jax():
                                np.broadcast_to(np.eye(3), got.shape),
                                atol=1e-5)
     assert (np.linalg.det(got) > 0).all()
+
+
+def test_inv_sqrtm_2x2_matches_jax():
+    rng = np.random.RandomState(4)
+    M = rng.randn(12, 2, 2).astype(np.float32)
+    S = M @ M.transpose(0, 2, 1) + 1e-3 * np.eye(2, dtype=np.float32)
+    S[0] = 2.5 * np.eye(2)                                  # isotropic
+    S[1] = 0.0                                              # zero
+    S[2] = [[4.0, 0.0], [0.0, 1e-14]]                       # rank one
+    S = S.astype(np.float32)
+    got = TG.inv_sqrtm_2x2(_t(S)).numpy()
+    np.testing.assert_allclose(got, np.asarray(JG.inv_sqrtm_2x2(S)),
+                               rtol=1e-5)
+    # a well-conditioned S: W S W = I
+    np.testing.assert_allclose(got[3:] @ S[3:] @ got[3:],
+                               np.broadcast_to(np.eye(2), (9, 2, 2)),
+                               atol=2e-3)
+
+
+_jit_unc_batch = jax.jit(JP.uncertainty_pnp_batch)
+
+
+@pytest.mark.parametrize("name", ["noisy", "planar"])
+def test_uncertainty_pnp_batch_matches_jax(name):
+    # by pose (fault F3), with test_pnp.py's tolerance; one keypoint of
+    # each problem carries zero weights (a degenerate covariance)
+    rng = np.random.RandomState(10 + len(name))
+    pts3d, pts2d, gt = _case(name, rng)
+    M = rng.randn(4, 9, 2, 2).astype(np.float32)
+    cov = M @ M.transpose(0, 1, 3, 2) + 0.1 * np.eye(2, dtype=np.float32)
+    W = np.asarray(JG.inv_sqrtm_2x2(cov))
+    w3 = np.stack([W[..., 0, 0], W[..., 0, 1], W[..., 1, 1]], -1)
+    w3[:, 4] = 0.0
+    w3 = w3.astype(np.float32)
+    want = np.asarray(_jit_unc_batch(jnp.asarray(pts2d), jnp.asarray(w3),
+                                     jnp.asarray(pts3d),
+                                     jnp.asarray(LINEMOD_K)))
+    got = TP.uncertainty_pnp_batch(_t(pts2d), _t(w3), _t(pts3d),
+                                   _t(LINEMOD_K)).numpy()
+    assert got.shape == (4, 3, 4) and np.isfinite(got).all()
+    ang, trans = _pose_err(got, want)
+    assert ang.max() < 0.5 and trans.max() < 5e-3, (ang, trans)

@@ -88,3 +88,66 @@ def test_wrapper_rejects_bad_inputs():
         TSK.stratified_select_cmajor(torch.zeros(1, 32, 32, device="meta"),
                                      torch.zeros(1, 2, 32, 32,
                                                  device="meta"), 4, 8)
+
+
+# --- K2: the NHWC field (stratified_select) ----------------------------------
+
+# the (a, bb) grids of the packed path's budgets (tn//4 = 64 -> (8, 8),
+# 128 -> (8, 16)) and one Pallas cannot take (a % 8 != 0)
+@pytest.mark.parametrize("a,bb", [(8, 8), (4, 16), (8, 16)])
+def test_nhwc_plain_matches_pallas_interpret_and_xla(a, bb):
+    score, vertex = _inputs(100 + a * bb, h=32, w=128, c=20)
+    with pltpu.force_tpu_interpret_mode():
+        pallas = SK.stratified_select(jnp.asarray(score), jnp.asarray(vertex),
+                                      a, bb)
+    xla = SK.stratified_select_xla(jnp.asarray(score), jnp.asarray(vertex),
+                                   a, bb)
+    tb, ti, td = TSK.stratified_select_plain(
+        torch.from_numpy(score), torch.from_numpy(vertex), a, bb)
+    assert ti.dtype == torch.int32 and td.shape == (2, a, bb, 20)
+    for want_b, want_i, want_d in (pallas, xla):
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(want_b))
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(td.numpy(), np.asarray(want_d))
+
+
+@pytest.mark.parametrize("a,bb", [(8, 8), (4, 16), (8, 16)])
+def test_nhwc_plain_bf16_field_is_bit_equal(a, bb):
+    # a bf16 field is selected, never rounded: idx and dirs bit-equal
+    score, vertex = _inputs(200 + a * bb, h=32, w=128, c=20)
+    vb = jnp.asarray(vertex, jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        pb, pi, pd = SK.stratified_select(jnp.asarray(score), vb, a, bb)
+    xb, xi, xd = SK.stratified_select_xla(jnp.asarray(score), vb, a, bb)
+    tb, ti, td = TSK.stratified_select_plain(
+        torch.from_numpy(score), torch.from_numpy(vertex).bfloat16(), a, bb)
+    assert td.dtype == torch.bfloat16
+    bits = td.view(torch.int16).numpy()
+    for want_i, want_d in ((pi, pd), (xi, xd)):
+        assert np.asarray(want_d).dtype == jnp.bfloat16
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(
+            bits, np.asarray(want_d).view(np.int16))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(pb))
+
+
+def test_nhwc_wrapper_takes_plain_version_on_cpu_without_counting():
+    score, vertex = _inputs(9, c=5)
+    s, v = torch.from_numpy(score), torch.from_numpy(vertex)
+    before = TSK.stratified_select.launches
+    for g, w in zip(TSK.stratified_select(s, v, 8, 16),
+                    TSK.stratified_select_plain(s, v, 8, 16)):
+        assert torch.equal(g, w)
+    assert TSK.stratified_select.launches == before
+
+
+def test_nhwc_wrapper_rejects_bad_inputs():
+    with pytest.raises(ValueError, match="multiples"):
+        TSK.stratified_select(torch.zeros(1, 30, 32),
+                              torch.zeros(1, 30, 32, 2), 4, 8)
+    with pytest.raises(ValueError, match="does not match"):
+        TSK.stratified_select(torch.zeros(1, 32, 32),
+                              torch.zeros(1, 2, 32, 32), 4, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TSK.stratified_select(torch.zeros(1, 32, 32, device="meta"),
+                              torch.zeros(1, 32, 32, 2, device="meta"), 4, 8)

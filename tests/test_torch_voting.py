@@ -175,3 +175,54 @@ def test_min_num_guard_gives_zeros():
 def test_phase_grid_matches_jax():
     for tn in (64, 100, 128, 512, 1000, 1024):
         assert TV._phase_grid(tn) == JV._phase_grid(tn)
+
+
+# --- the uncertainty path's covariance ---------------------------------------
+
+# Random fields: JAX's compiled count path may round at the cosine
+# boundary unlike its op-by-op form (ROADMAP fault F4); on random rays no
+# pixel sits within an ulp of it, so the counts must be equal. The
+# covariance is a weighted sum over the hypotheses in another order:
+# rtol 1e-4.
+@pytest.mark.parametrize("tn,hn", [(64, 160), (100, 256)])
+def test_covariance_from_fg_matches_jax(tn, hn):
+    rng = np.random.RandomState(tn + hn)
+    fg, _ = _random_fg(rng, tn=tn, hn=1)
+    mean = rng.uniform(20, 80, (2, 3, 2)).astype(np.float32)
+    key = jax.random.PRNGKey(hn)
+    want_mean, want_cov = JV.estimate_voting_distribution_from_fg(
+        fg, jnp.asarray(mean), key, hyp_num=hn, inlier_thresh=0.9)
+    u = np.asarray(jax.random.uniform(key, (2, hn, 2), jnp.float32))
+    tfg = _to_torch_fg(fg)
+    got_mean, got_cov = TV.estimate_voting_distribution_from_fg(
+        tfg, torch.tensor(mean), hn, 0.9, pair_u=torch.tensor(u))
+    hyps_j = JV.generate_hypotheses(fg, hn, key)
+    hyps_t = TV.generate_hypotheses(tfg, hn, pair_u=torch.tensor(u))
+    np.testing.assert_array_equal(
+        TV.count_inliers(tfg, hyps_t, 0.9).numpy(),
+        np.asarray(JV.count_inliers(fg, hyps_j, 0.9)))
+    np.testing.assert_array_equal(got_mean.numpy(), mean)
+    assert got_cov.shape == (2, 3, 2, 2)
+    want_cov = np.asarray(want_cov)
+    np.testing.assert_allclose(got_cov.numpy(), want_cov, rtol=1e-4,
+                               atol=1e-6 * np.abs(want_cov).max())
+
+
+def test_covariance_with_mean_matches_jax():
+    mask, vcm = _cmajor_batch(128, 128, noise=0.05, seed=8)
+    key = jax.random.PRNGKey(9)
+    mean = np.asarray(KPTS[None].repeat(2, 0) + 0.5, np.float32)
+    mean[1] += 5
+    _, want = JV.estimate_voting_distribution_with_mean(
+        jnp.asarray(mask), jnp.asarray(vcm), jnp.asarray(mean), key,
+        hyp_num=256, max_num=256, select_method="stratified")
+    k1, k2 = jax.random.split(key)
+    noise = np.asarray(jax.random.uniform(k1, mask.shape, jnp.float32))
+    u = np.asarray(jax.random.uniform(k2, (2, 256, 2), jnp.float32))
+    _, got = TV.estimate_voting_distribution_with_mean(
+        torch.tensor(mask), torch.tensor(vcm), torch.tensor(mean),
+        hyp_num=256, max_num=256, noise=torch.tensor(noise),
+        pair_u=torch.tensor(u))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                               atol=1e-6 * np.abs(want).max())
