@@ -10,15 +10,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
 (b) build the CUDA kernels from pvnet_tpu_torch/csrc with nvcc;
 (c) hold each kernel against its plain PyTorch version on the card at the
     main path's shapes (K1: b=16, 480x640, C=18, a=16, bb=32; K3:
-    hn=tn=512, vn=9; K2: the packed path's [16, 240, 320] score and
-    [16, 240, 320, 80] field in float32 and bfloat16, a=8, bb=16): exact
-    equality required; time both with CUDA events, the timed launches
-    queued behind a sleep kernel so that the events time the device;
+    hn=tn=512, vn=9, and the covariance pass's hn=1024; K2: the packed
+    path's [16, 240, 320] score and [16, 240, 320, 80] field in float32
+    and bfloat16, a=8, bb=16), and K3 also at tn=500, hn=37 and vn=1 with
+    invalid slots: exact equality required; time both with CUDA events,
+    the timed launches queued behind a sleep kernel so that the events
+    time the device;
 (c') hold the row-shift kernels K4 (shift_lanes) and K5 (shift_sublanes)
     against their plain versions at the training path's shapes (K4: pass V
     [64, 640, 480] and pass H [64, 480, 640]; K5: [64, 480, 640]), float32
-    and uint8: exact equality required; time kernel, plain version and
-    torch.gather with a precomputed index (the library yardstick);
+    and uint8, and K5 at [3, 53, 41], [2, 480, 130], [4, 1, 640] and
+    [2, 2000, 41] in four dtypes: exact equality required; time kernel,
+    plain version and torch.gather with a precomputed index (the library
+    yardstick), K3's and K5's times beside those before their redesign;
 (d) the serving path: load assets/duck_ckpt.msgpack with the port's
     reader, full float32 (no TF32), and answer 3 requests of 16 images (the
     fixture assets/duck_views_480x640.npz tiled, with per-image brightness
@@ -69,7 +73,21 @@ N_REQUESTS = 3
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 # H100 SXM peaks (NVIDIA data sheet; at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+# Instruction rate: 132 SMs x 4 schedulers x 32 lanes = 128 thread-
+# instructions a cycle per SM at the ~1.98 GHz boost clock. The data
+# sheet's 67 TFLOP/s float32 is this rate with an FMA counted as two
+# operations; K3 is built with -fmad=false, so each multiply, add and
+# compare is one instruction and this is its peak.
+INSTR_PER_S = 132 * 128 * 1.98e9
+# K3's instructions per (hypothesis, valid pixel, keypoint) pair: 13
+# float32 multiplies and adds (dot 4, |h-c|^2 6, the two products 3), 2
+# compares (d2 > eps; dot*|dot| > t2*d2*n2, which folds dot > 0 in) and
+# one predicated count; the |n|^2 and valid tests are per pixel
+K3_INSTR_PER_PAIR = 16
+# device times of K3 (kernel, back to back) and K5 at the main-path
+# shapes before their Hopper redesign (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md's kernel table)
+BEFORE_MS = {"K3": 0.0832, "K3 back to back": 0.3455, "K5": 0.4453}
 # device clock cycles of cuda_ms's head start: ~50 ms at the H100's clocks
 SLEEP_CYCLES = 100_000_000
 
@@ -153,37 +171,15 @@ def check_kernels(dev, fixture):
           f"({k1_b2b:.4f} ms back to back, without the head start), plain "
           f"{k1_plain_ms:.4f} ms", flush=True)
 
-    fg = voting.sample_foreground(mask, field, 512, noise=noise)
-    hyps = voting.generate_hypotheses(fg, 512, generator=g)
-    got = voting.count_inliers(fg, hyps, 0.99)
-    want = voting.count_inliers_plain(fg, hyps, 0.99)
-    torch.cuda.synchronize()
-    assert got.dtype == want.dtype == torch.int32 and got.shape == want.shape
-    k3_err = float((got - want).abs().max())
-    assert k3_err == 0.0, f"K3 disagrees with its plain version: {k3_err}"
-    k3_ms = cuda_ms(lambda: voting.count_inliers(fg, hyps, 0.99))
-    k3_b2b = cuda_ms(lambda: voting.count_inliers(fg, hyps, 0.99),
-                     head_start=False)
-    k3_plain_ms = cuda_ms(lambda: voting.count_inliers_plain(fg, hyps, 0.99))
-    print(f"K3 count_inliers [b={BATCH}, hn=512, vn={VN}, tn=512] "
-          f"(max count {int(got.max())}): equal to plain; kernel "
-          f"{k3_ms:.4f} ms ({k3_b2b:.4f} ms back to back), plain "
-          f"{k3_plain_ms:.4f} ms", flush=True)
-
-    # bounds: K1 reads the score map once and the winners' field values,
-    # and writes best, idx and dirs; K3 does 18 f32 operations (13
-    # arithmetic, 5 compares) per (hypothesis, valid pixel, keypoint)
+    # bound: K1 reads the score map once and the winners' field values,
+    # and writes best, idx and dirs
     c = field.shape[1]
     k1_bytes = score.numel() * 4 + BATCH * a * bb * (c * 4 + 4 + 4 + c * 4)
     k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
-    pairs = int(fg.valid.sum()) * hyps.shape[1] * VN
-    k3_bound = max(pairs * 18 / F32_FLOPS,
-                   (fg.coords.numel() + fg.dirs.numel() * 4 + hyps.numel()
-                    + got.numel()) * 4 / HBM_BYTES_PER_S) * 1e3
     print(f"K1 bound {k1_bound:.4f} ms ({k1_bytes / 1e6:.2f} MB at 3.35 "
-          f"TB/s); K3 bound {k3_bound:.4f} ms ({pairs / 1e6:.2f} M pairs x "
-          f"18 f32 operations at 67 TFLOP/s); no single PyTorch call "
-          f"computes either", flush=True)
+          f"TB/s); no single PyTorch call computes it", flush=True)
+    k3 = check_k3(dev, g, voting.sample_foreground(mask, field, 512,
+                                                   noise=noise))
     k2 = check_k2(dev, g)
     return [
         {"name": "stratified_select_cmajor", "route": "cuda",
@@ -192,14 +188,84 @@ def check_kernels(dev, fixture):
          "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": "bytes",
          "library_ms": None},
-        {"name": "count_inliers", "route": "cuda",
-         "source": "pvnet_tpu_torch/csrc/count_inliers.cu",
-         "replaces": "pvnet_tpu/ops/voting.py:519",
-         "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
-         "bound_by": "operations", "library_ms": None},
+        k3,
         k2,
     ]
+
+
+def random_sample(dev, g, b, tn, vn):
+    """A foreground sample of random rays with ~20 % invalid slots (not a
+    prefix), as the GPU tests make them."""
+    import torch
+    from pvnet_tpu_torch.ops import voting
+    coords = torch.rand((b, tn, 2), generator=g, device=dev) * 100
+    dirs = torch.randn((b, tn, vn, 2), generator=g, device=dev)
+    valid = torch.rand((b, tn), generator=g, device=dev) > 0.2
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True) * valid[..., None, None]
+    count = valid.sum(1).to(torch.int32)
+    return voting.ForegroundSample(coords, dirs, valid, count, count)
+
+
+def check_k3(dev, g, fg):
+    """K3 against its plain version, exactly: on the main path's sample
+    (b=16, tn=512, vn=9, from a voting field) with hn=512 and with the
+    covariance pass's hn=1024; on random samples with invalid slots at
+    tn=500, hn=37 and vn=1. Times at the main-path shape: the kernel, back
+    to back, without the pixel split (one block per group and hypothesis
+    tile), and the plain version."""
+    import torch
+    from pvnet_tpu_torch.ops import kernel_lib, voting
+
+    def exact(fg, hyps):
+        got = voting.count_inliers(fg, hyps, 0.99)
+        want = voting.count_inliers_plain(fg, hyps, 0.99)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == torch.int32
+        assert got.shape == want.shape
+        err = float((got - want).abs().max())
+        assert err == 0.0, \
+            f"K3 {tuple(hyps.shape)} disagrees with its plain version: {err}"
+        return got, err
+
+    hyps = voting.generate_hypotheses(fg, 512, generator=g)
+    got, err = exact(fg, hyps)
+    exact(fg, voting.generate_hypotheses(fg, 1024, generator=g))
+    for b, tn, vn, hn in ((BATCH, 500, VN, 512), (BATCH, 512, VN, 37),
+                          (4, 512, 1, 512)):
+        hyp = torch.rand((b, hn, vn, 2), generator=g, device=dev) * 140 - 20
+        exact(random_sample(dev, g, b, tn, vn), hyp)
+
+    def run():
+        return voting.count_inliers(fg, hyps, 0.99)
+    ms, b2b = cuda_ms(run), cuda_ms(run, head_start=False)
+    plain_ms = cuda_ms(lambda: voting.count_inliers_plain(fg, hyps, 0.99))
+    lib, counts = kernel_lib.library(), torch.empty_like(got)
+    assert all(t.is_contiguous() for t in (*fg[:3], hyps))
+    nosplit_ms = cuda_ms(lambda: lib.pvnet_count_inliers(
+        fg.coords.data_ptr(), fg.dirs.data_ptr(), fg.valid.data_ptr(),
+        hyps.data_ptr(), counts.data_ptr(), BATCH, VN, 512, 512, 0.99 ** 2,
+        512, torch.cuda.current_stream().cuda_stream))
+    pairs = int(fg.valid.sum()) * 512 * VN
+    nbytes = (fg.coords.numel() + fg.dirs.numel() + hyps.numel()
+              + got.numel()) * 4 + fg.valid.numel()
+    bound = max(pairs * K3_INSTR_PER_PAIR / INSTR_PER_S,
+                nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"K3 count_inliers [b={BATCH}, hn=512, vn={VN}, tn=512] (max "
+          f"count {int(got.max())}; also exact at hn=1024, tn=500, hn=37, "
+          f"vn=1 with invalid slots): kernel {ms:.4f} ms (before the "
+          f"redesign: {BEFORE_MS['K3']}), back to back {b2b:.4f} ms (before:"
+          f" {BEFORE_MS['K3 back to back']}), without the pixel split "
+          f"{nosplit_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{bound:.4f} ms ({pairs / 1e6:.2f} M pairs x "
+          f"{K3_INSTR_PER_PAIR} instructions at "
+          f"{INSTR_PER_S / 1e12:.1f} T/s); no single PyTorch call computes "
+          f"it", flush=True)
+    return {"name": "count_inliers", "route": "cuda",
+            "source": "pvnet_tpu_torch/csrc/count_inliers.cu",
+            "replaces": "pvnet_tpu/ops/voting.py:519",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": None}
 
 
 def check_k2(dev, g):
@@ -290,9 +356,11 @@ def check_row_shift(dev):
             lib_ms = cuda_ms(lambda: torch.gather(x, axis, idx))
             nbytes = x.numel() * 4 * 2 + starts.numel() * 4
             bound = nbytes / HBM_BYTES_PER_S * 1e3
+            before = ("" if axis == 2 else
+                      f" (before the redesign: {BEFORE_MS['K5']})")
             print(f"{'K4' if axis == 2 else 'K5'} {name} {list(shape)} "
                   f"{what}: equal to plain (f32 and uint8); kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather "
+                  f"{ms:.4f} ms{before}, plain {plain_ms:.4f} ms, torch.gather "
                   f"{lib_ms:.4f} ms, bound {bound:.4f} ms "
                   f"({nbytes / 1e6:.1f} MB)", flush=True)
             if name not in entries:
@@ -304,6 +372,21 @@ def check_row_shift(dev):
                     "launches": 0, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound,
                     "bound_by": "bytes", "library_ms": lib_ms}
+    # K5 where its strips can break: a ragged strip of four-byte columns,
+    # one-byte columns with C % 4 != 0 (no word stores), H = 1, and
+    # H = 2000, too tall for shared memory (the direct branch)
+    for shape in ((3, 53, 41), (2, 480, 130), (4, 1, 640), (2, 2000, 41)):
+        starts = torch.randint(-3 * shape[1], 3 * shape[1],
+                               (shape[0], shape[2]), generator=g, device=dev,
+                               dtype=torch.int32)
+        for dtype in (torch.float32, torch.int32, torch.uint8, torch.int8):
+            x = (torch.rand(shape, generator=g, device=dev) * 120).to(dtype)
+            assert torch.equal(RS.shift_sublanes(x, starts),
+                               RS.shift_sublanes_plain(x, starts)), \
+                f"shift_sublanes {shape} {dtype} != its plain version"
+    print("K5 shift_sublanes also equal to plain at [3, 53, 41], [2, 480, "
+          "130], [4, 1, 640] and [2, 2000, 41] (the direct branch), float32, "
+          "int32, uint8 and int8", flush=True)
     return [entries["shift_lanes"], entries["shift_sublanes"]]
 
 

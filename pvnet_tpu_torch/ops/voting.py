@@ -330,6 +330,31 @@ def count_inliers_plain(fg: ForegroundSample, hyps: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
+def _count_kernel_args(fg: ForegroundSample, hyps: torch.Tensor):
+    """Validate the tensors of a K3 launch; return (coords, dirs, valid,
+    hyps), each contiguous (copied only if it is not)."""
+    if hyps.dim() != 4 or hyps.shape[3] != 2:
+        raise ValueError(f"hyps must be [b, hn, vn, 2], got "
+                         f"{tuple(hyps.shape)}")
+    b, _, vn, _ = hyps.shape
+    tn = fg.coords.shape[1] if fg.coords.dim() == 3 else -1
+    if (fg.coords.shape != (b, tn, 2) or fg.dirs.shape != (b, tn, vn, 2)
+            or fg.valid.shape != (b, tn)):
+        raise ValueError(f"hyps {tuple(hyps.shape)} does not match sample "
+                         f"coords {tuple(fg.coords.shape)}, dirs "
+                         f"{tuple(fg.dirs.shape)}, valid "
+                         f"{tuple(fg.valid.shape)}")
+    dtypes = (hyps.dtype, fg.dirs.dtype, fg.coords.dtype)
+    if any(d != torch.float32 for d in dtypes) or fg.valid.dtype != torch.bool:
+        raise TypeError(f"float32 hyps, dirs and coords and bool valid "
+                        f"required; got {dtypes}, {fg.valid.dtype}")
+    tensors = (fg.coords, fg.dirs, fg.valid, hyps)
+    if any(t.device != hyps.device for t in tensors):
+        raise ValueError(f"sample on {fg.coords.device}, {fg.dirs.device}, "
+                         f"{fg.valid.device}, hyps on {hyps.device}")
+    return tuple(t.contiguous() for t in tensors)
+
+
 def count_inliers(fg: ForegroundSample, hyps: torch.Tensor,
                   thresh: float) -> torch.Tensor:
     """Inlier counts [b, hn, vn] int32 of each hypothesis (kernel K3).
@@ -337,36 +362,27 @@ def count_inliers(fg: ForegroundSample, hyps: torch.Tensor,
     Semantics of the reference's voting_for_hypothesis_kernel
     (ref ransac_voting_kernel.cu:88-126). A CPU tensor runs
     :func:`count_inliers_plain`; a CUDA tensor launches the kernel (and
-    counts the launch in ``.launches``) or raises."""
+    counts the launch in ``.launches``) or raises. The kernel reads the
+    sample's coords, dirs and valid itself."""
     if thresh <= 0.0:
         raise ValueError(f"thresh must be > 0, got {thresh}")
     if hyps.device.type == "cpu":
         return count_inliers_plain(fg, hyps, thresh)
     if hyps.device.type != "cuda":
         raise ValueError(f"unsupported device {hyps.device}")
-    b, hn, vn, two = hyps.shape
-    tn = fg.coords.shape[1]
-    if two != 2 or fg.dirs.shape != (b, tn, vn, 2):
-        raise ValueError(f"hyps {tuple(hyps.shape)} does not match sample "
-                         f"dirs {tuple(fg.dirs.shape)}")
-    dtypes = (hyps.dtype, fg.dirs.dtype, fg.coords.dtype)
-    if any(d != torch.float32 for d in dtypes):
-        raise TypeError(f"float32 hyps, dirs and coords required; got "
-                        f"{dtypes}")
-    pix = _pixel_features(fg)                               # contiguous
-    hyps = hyps.contiguous()
-    if pix.device != hyps.device:
-        raise ValueError(f"sample on {pix.device}, hyps on {hyps.device}")
+    coords, dirs, valid, hyps = _count_kernel_args(fg, hyps)
+    b, hn, vn, _ = hyps.shape
+    tn = coords.shape[1]
     counts = torch.empty((b, hn, vn), dtype=torch.int32, device=hyps.device)
     if counts.numel() == 0:
         return counts
     if tn == 0:
         return counts.zero_()
-    lib = kernel_lib.library()
     with torch.cuda.device(hyps.device):
-        err = lib.pvnet_count_inliers(
-            pix.data_ptr(), hyps.data_ptr(), counts.data_ptr(),
-            b, vn, tn, hn, float(thresh * thresh),
+        err = kernel_lib.library().pvnet_count_inliers(
+            coords.data_ptr(), dirs.data_ptr(), valid.data_ptr(),
+            hyps.data_ptr(), counts.data_ptr(), b, vn, tn, hn,
+            float(thresh * thresh), 0,
             torch.cuda.current_stream().cuda_stream)
     kernel_lib.check(err, "pvnet_count_inliers")
     count_inliers.launches += 1

@@ -75,9 +75,13 @@ def _sample(cuda, b, tn, vn, seed):
         coords, dirs, valid, count, count)))
 
 
+# the main path (hn=tn=512, vn=9), the covariance pass (hn=1024), tn and
+# hn that fill no tile, one keypoint, more hypotheses than one block holds
 @pytest.mark.parametrize("b,tn,vn,hn,thresh", [
     (2, 100, 3, 130, 0.95), (1, 1, 1, 5, 0.99), (2, 512, 9, 512, 0.99),
-    (3, 300, 2, 1, 0.9), (1, 257, 4, 129, 0.999)])
+    (3, 300, 2, 1, 0.9), (1, 257, 4, 129, 0.999), (4, 512, 9, 1024, 0.99),
+    (2, 500, 9, 512, 0.99), (2, 512, 9, 37, 0.99), (3, 200, 1, 300, 0.99),
+    (1, 1000, 2, 1500, 0.95)])
 def test_count_kernel_equals_plain(cuda, b, tn, vn, hn, thresh):
     fg = _sample(cuda, b, tn, vn, tn + hn)
     hyps = torch.empty(b, hn, vn, 2, device=cuda).uniform_(-20, 120)
@@ -87,6 +91,110 @@ def test_count_kernel_equals_plain(cuda, b, tn, vn, hn, thresh):
     torch.cuda.synchronize()
     assert V.count_inliers.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _near_boundary(fg, hyps, thresh):
+    """Valid pairs whose cosine test holds or fails by less than 1e-6 of
+    its right side, in float64."""
+    c = fg.coords.double().cpu()[:, None, :, None, :]      # [b,1,tn,1,2]
+    n = fg.dirs.double().cpu()[:, None]                     # [b,1,tn,vn,2]
+    h = hyps.double().cpu()[:, :, None]                     # [b,hn,1,vn,2]
+    dot = ((h - c) * n).sum(-1)
+    rhs = thresh ** 2 * ((h - c) ** 2).sum(-1) * (n ** 2).sum(-1)
+    near = (dot > 0) & ((dot * dot - rhs).abs() <= 1e-6 * rhs)
+    return int((near & fg.valid.cpu()[:, None, :, None]).sum())
+
+
+def test_count_kernel_on_the_cosine_boundary(cuda):
+    # every hypothesis lies at exactly the threshold angle from some
+    # pixel's ray, at distances from 0.5 to 200 px, so thousands of pairs
+    # sit within an ulp or two of the boundary: where a multiply-add were
+    # contracted into an FMA, they would move (ROADMAP fault F4)
+    rng = np.random.RandomState(4)
+    b, tn, vn, hn, thresh = 2, 300, 3, 600, 0.99
+    fg = _sample(cuda, b, tn, vn, 4)
+    c = fg.coords.cpu().double()
+    n = fg.dirs.cpu().double()
+    src = rng.randint(0, tn, (b, hn))
+    ang = np.arccos(thresh) * rng.choice([-1.0, 1.0], (b, hn, 1))
+    rot = torch.tensor(np.stack([np.cos(ang), np.sin(ang)], -1))
+    bi = np.arange(b)[:, None]
+    ray = n[bi, src]                                        # [b, hn, vn, 2]
+    ray = torch.stack([ray[..., 0] * rot[..., 0] - ray[..., 1] * rot[..., 1],
+                       ray[..., 0] * rot[..., 1] + ray[..., 1] * rot[..., 0]],
+                      -1)
+    dist = torch.tensor(rng.uniform(0.5, 200.0, (b, hn, 1, 1)))
+    hyps = (c[bi, src][:, :, None, :] + dist * ray).float().to(cuda)
+    hyps[0, :5] = fg.coords[0, :5, None, :]                 # d2 == 0
+    assert _near_boundary(fg, hyps, thresh) > 1000
+    got = V.count_inliers(fg, hyps, thresh)
+    want = V.count_inliers_plain(
+        V.ForegroundSample(*(t.cpu() for t in fg)), hyps.cpu(), thresh)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_count_kernel_on_a_learned_field(cuda):
+    # the duck checkpoint's own field on the fixture's views (the F4 case
+    # of test_torch_pipeline.py at full resolution): many hypotheses sit
+    # near the keypoints and tie on their counts, so boundary pixels decide
+    # winners
+    import os
+
+    from pvnet_tpu_torch import infer, pipeline as PL
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(repo, "assets", "duck_views_480x640.npz")) as z:
+        images = torch.from_numpy(z["images"]).to(cuda)
+    model = infer.load_model(os.path.join(repo, "assets", "duck_ckpt.msgpack"),
+                             9, cuda)
+    g = torch.Generator(cuda).manual_seed(0)
+    with torch.no_grad():
+        mask, vertex = PL.predict_fields(model, PL.normalize_images(images))
+        fg = V.sample_foreground(mask, vertex, 512, generator=g)
+        hyps = V.generate_hypotheses(fg, 512, generator=g)
+    assert _near_boundary(fg, hyps, 0.99) > 0
+    got = V.count_inliers(fg, hyps, 0.99)
+    want = V.count_inliers_plain(
+        V.ForegroundSample(*(t.cpu() for t in fg)), hyps.cpu(), 0.99)
+    assert torch.equal(got.cpu(), want) and int(want.max()) > 100
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 8, 100, 127, 129, 300, 1000])
+def test_count_kernel_pixel_splits(cuda, chunk):
+    # blocks that split the pixels at chunks that fill no tile, or tiles
+    # their chunk does not divide, add exact partial counts
+    from pvnet_tpu_torch.ops import kernel_lib
+    b, tn, vn, hn = 2, 700, 3, 600
+    fg = _sample(cuda, b, tn, vn, chunk)
+    hyps = torch.empty(b, hn, vn, 2, device=cuda).uniform_(-20, 120)
+    counts = torch.full((b, hn, vn), -7, dtype=torch.int32, device=cuda)
+    err = kernel_lib.library().pvnet_count_inliers(
+        fg.coords.data_ptr(), fg.dirs.data_ptr(), fg.valid.data_ptr(),
+        hyps.data_ptr(), counts.data_ptr(), b, vn, tn, hn, 0.99 ** 2, chunk,
+        torch.cuda.current_stream().cuda_stream)
+    kernel_lib.check(err, "pvnet_count_inliers")
+    assert torch.equal(counts, V.count_inliers_plain(fg, hyps, 0.99))
+
+
+def test_count_kernel_empty_batch_and_no_pixels(cuda):
+    before = V.count_inliers.launches
+    fg = _sample(cuda, 0, 64, 3, 0)
+    got = V.count_inliers(fg, torch.zeros(0, 16, 3, 2, device=cuda), 0.99)
+    assert got.shape == (0, 16, 3)
+    fg = _sample(cuda, 2, 0, 3, 0)
+    got = V.count_inliers(fg, torch.rand(2, 16, 3, 2, device=cuda), 0.99)
+    assert got.shape == (2, 16, 3) and (got == 0).all()
+    assert V.count_inliers.launches == before
+
+
+def test_count_kernel_takes_views(cuda):
+    # a sample whose tensors are not contiguous is copied, not refused
+    fg = _sample(cuda, 2, 64, 3, 1)
+    hyps = torch.empty(2, 3, 40, 2, device=cuda).uniform_(0, 100)
+    view = V.ForegroundSample(
+        fg.coords.transpose(0, 1).contiguous().transpose(0, 1),
+        fg.dirs, fg.valid, fg.count, fg.total)
+    assert torch.equal(V.count_inliers(view, hyps.transpose(1, 2), 0.99),
+                       V.count_inliers_plain(fg, hyps.transpose(1, 2), 0.99))
 
 
 def test_voting_on_cuda_equals_cpu_selection_and_counts(cuda):
@@ -211,9 +319,17 @@ def test_shift_lanes_kernel_equals_plain(cuda, shape, dtype):
         assert got.dtype == dtype and torch.equal(got, want)
 
 
+# strips of 32 four-byte or 128 one-byte columns: widths on both sides of
+# a strip boundary, C % 4 != 0 (no word stores), H below the block's 8
+# warps, H = 480 (60 KB of shared memory), and H = 2000, whose strip does
+# not fit shared memory (the direct branch)
 @pytest.mark.parametrize("dtype", _SHIFT_DTYPES)
 @pytest.mark.parametrize("shape", [(1, 1, 1), (1, 37, 1), (3, 53, 41),
-                                   (2, 480, 130), (1, 33, 257), (5, 7, 128)])
+                                   (2, 480, 130), (1, 33, 257), (5, 7, 128),
+                                   (2, 11, 31), (2, 9, 32), (2, 5, 33),
+                                   (1, 3, 127), (1, 4, 129), (2, 1, 130),
+                                   (1, 6, 256), (2, 480, 640),
+                                   (1, 2000, 41), (1, 2000, 132)])
 def test_shift_sublanes_kernel_equals_plain(cuda, shape, dtype):
     P, H, C = shape
     x = _shift_input(cuda, shape, dtype, H)
@@ -228,6 +344,20 @@ def test_shift_sublanes_kernel_equals_plain(cuda, shape, dtype):
         torch.cuda.synchronize()
         assert RS.shift_sublanes.launches == before + 1
         assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,offset", [
+    (torch.uint8, 1), (torch.uint8, 4), (torch.int8, 2), (torch.float32, 1),
+    (torch.int32, 2)])
+def test_shift_sublanes_kernel_takes_unaligned_planes(cuda, dtype, offset):
+    # a contiguous view that starts off a 16-byte boundary stages element
+    # by element
+    shape = (3, 45, 260)
+    flat = _shift_input(cuda, (offset + 3 * 45 * 260,), dtype, offset)
+    x = flat[offset:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    s = torch.randint(-90, 90, (3, 260), device=cuda, dtype=torch.int32)
+    assert torch.equal(RS.shift_sublanes(x, s), RS.shift_sublanes_plain(x, s))
 
 
 def test_shift_kernels_take_wide_starts(cuda):

@@ -139,6 +139,50 @@ def test_count_wrapper_takes_plain_version_on_cpu():
         TV.count_inliers(tfg, th, 0.0)
 
 
+def _bad(tfg, th, **fields):
+    return tfg._replace(**fields), th
+
+
+@pytest.mark.parametrize("case,error", [
+    ("hyps_3d", ValueError), ("hyps_last", ValueError),
+    ("dirs_vn", ValueError), ("coords_tn", ValueError),
+    ("valid_shape", ValueError), ("dirs_f64", TypeError),
+    ("hyps_f16", TypeError), ("valid_int", TypeError),
+    ("valid_device", ValueError)])
+def test_count_kernel_args_raise_before_any_launch(case, error):
+    # the checks K3's launch makes; on the CPU they run through the same
+    # helper without a card
+    fg, hyps = _random_fg(np.random.RandomState(1), tn=40, hn=20)
+    tfg, th = _to_torch_fg(fg), torch.tensor(hyps)
+    tfg, th = {
+        "hyps_3d": lambda: (tfg, th[..., 0]),
+        "hyps_last": lambda: (tfg, th.repeat(1, 1, 1, 2)),
+        "dirs_vn": lambda: _bad(tfg, th, dirs=tfg.dirs[:, :, :2]),
+        "coords_tn": lambda: _bad(tfg, th, coords=tfg.coords[:, :30]),
+        "valid_shape": lambda: _bad(tfg, th, valid=tfg.valid[:, :30]),
+        "dirs_f64": lambda: _bad(tfg, th, dirs=tfg.dirs.double()),
+        "hyps_f16": lambda: (tfg, th.half()),
+        "valid_int": lambda: _bad(tfg, th, valid=tfg.valid.int()),
+        "valid_device": lambda: _bad(tfg, th,
+                                     valid=tfg.valid.to("meta")),
+    }[case]()
+    with pytest.raises(error):
+        TV._count_kernel_args(tfg, th)
+
+
+def test_count_kernel_args_make_contiguous_copies_only():
+    fg, hyps = _random_fg(np.random.RandomState(2), tn=40, hn=20)
+    tfg, th = _to_torch_fg(fg), torch.tensor(hyps)
+    out = TV._count_kernel_args(tfg, th)
+    assert all(a is b for a, b in zip(out, (tfg.coords, tfg.dirs, tfg.valid,
+                                            th)))
+    view = th.transpose(1, 2).contiguous().transpose(1, 2)
+    out = TV._count_kernel_args(tfg, view)
+    assert out[3].is_contiguous() and torch.equal(out[3], th)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TV.count_inliers(tfg, th.to("meta"), 0.99)
+
+
 @pytest.mark.parametrize("noise,outliers", [(0.0, 0.0), (0.03, 0.3)])
 def test_ransac_voting_v3_matches_jax(noise, outliers):
     mask, vcm = _cmajor_batch(128, 128, noise=noise, outlier_frac=outliers,
