@@ -12,10 +12,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
     main path's shapes (K1: b=16, 480x640, C=18, a=16, bb=32; K3:
     hn=tn=512, vn=9, and the covariance pass's hn=1024; K2: the packed
     path's [16, 240, 320] score and [16, 240, 320, 80] field in float32
-    and bfloat16, a=8, bb=16), and K3 also at tn=500, hn=37 and vn=1 with
-    invalid slots: exact equality required; time both with CUDA events,
+    and bfloat16, a=8, bb=16), K1 also at tn=1024 (a=32, bb=32), K1 and
+    K2 also on a tie-heavy map (integer scores), K2 also at b=1 and b=64,
+    and K3 also at tn=500, hn=37 and vn=1 with invalid slots: exact
+    equality required (K1 and K2 bit for bit); time both with CUDA events,
     the timed launches queued behind a sleep kernel so that the events
-    time the device;
+    time the device: warm (the same inputs every launch, as the path
+    finds them in the L2 cache) and, for K1 and K2, cold (the score
+    rotated over copies that exceed the 50 MB L2); time an empty kernel
+    the same way (the launch floor);
 (c') hold the row-shift kernels K4 (shift_lanes) and K5 (shift_sublanes)
     against their plain versions at the training path's shapes (K4: pass V
     [64, 640, 480] and pass H [64, 480, 640]; K5: [64, 480, 640]), float32
@@ -54,8 +59,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     the CPU (loss, gradients); a checkpoint the step saved loads through
     pvnet_tpu_torch.infer.load_model. Prints step ms, images/s, the
     augmentation's ms and share, and peak device memory;
-(e) print the kernels' JSON line, then, as the last line,
-    {"ok": true, "device": {...}}.
+(e) print the kernels' JSON line (K1 and K2 with their cold times), then,
+    as the last line, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -84,10 +89,13 @@ INSTR_PER_S = 132 * 128 * 1.98e9
 # compares (d2 > eps; dot*|dot| > t2*d2*n2, which folds dot > 0 in) and
 # one predicated count; the |n|^2 and valid tests are per pixel
 K3_INSTR_PER_PAIR = 16
-# device times of K3 (kernel, back to back) and K5 at the main-path
-# shapes before their Hopper redesign (NVIDIA H100 80GB HBM3, 700.00 W;
-# PERF.md's kernel table)
-BEFORE_MS = {"K3": 0.0832, "K3 back to back": 0.3455, "K5": 0.4453}
+# device times at the main-path shapes before each kernel's Hopper
+# redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table): K3
+# (kernel, back to back), K5, K1 and K2 (f32, bf16)
+BEFORE_MS = {"K3": 0.0832, "K3 back to back": 0.3455, "K5": 0.4453,
+             "K1": 0.0383, "K2 f32": 0.0469, "K2 bf16": 0.0464}
+# L2 cache of the H100: the cold timings rotate over inputs that exceed it
+L2_BYTES = 50 * 2 ** 20
 # device clock cycles of cuda_ms's head start: ~50 ms at the H100's clocks
 SLEEP_CYCLES = 100_000_000
 
@@ -114,6 +122,34 @@ def cuda_ms(fn, iters: int = 50, head_start: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, inputs) -> float:
+    """cuda_ms of fn(x) with x rotated over ``inputs``, whose bytes together
+    exceed the L2 cache, so that each launch reads its input from device
+    memory."""
+    import itertools
+    nbytes = sum(x.numel() * x.element_size() for x in inputs)
+    assert nbytes > L2_BYTES, nbytes
+    it = itertools.cycle(inputs)
+    return cuda_ms(lambda: fn(next(it)))
+
+
+def same_selection(got, want, what: str) -> float:
+    """K1's or K2's outputs equal the plain version's bit for bit; returns
+    the max abs error (0.0)."""
+    import torch
+    torch.cuda.synchronize()
+    err = 0.0
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, (x.shape, y.shape)
+        bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        assert torch.equal(x.view(bits.get(x.dtype, x.dtype)),
+                           y.view(bits.get(y.dtype, y.dtype))), \
+            f"{what} disagrees with its plain version"
+        err = max(err, float((x.double() - y.double()).abs().max()))
+    assert err == 0.0, f"{what}: max abs error {err}"
+    return err
 
 
 def request_images(views, request: int):
@@ -152,23 +188,35 @@ def check_kernels(dev, fixture):
     field = (d + 0.05 * torch.randn(d.shape, generator=g, device=dev)
              ).reshape(BATCH, 2 * VN, H, W).contiguous()
 
-    got = select_kernel.stratified_select_cmajor(score, field, a, bb)
-    want = select_kernel.stratified_select_cmajor_plain(score, field, a, bb)
-    torch.cuda.synchronize()
-    k1_err = 0.0
-    for x, y in zip(got, want):
-        assert x.dtype == y.dtype and x.shape == y.shape, (x.shape, y.shape)
-        k1_err = max(k1_err, float((x.double() - y.double()).abs().max()))
-    assert k1_err == 0.0, f"K1 disagrees with its plain version: {k1_err}"
-    k1_ms = cuda_ms(lambda: select_kernel.stratified_select_cmajor(
-        score, field, a, bb))
-    k1_b2b = cuda_ms(lambda: select_kernel.stratified_select_cmajor(
-        score, field, a, bb), head_start=False)
-    k1_plain_ms = cuda_ms(lambda: select_kernel.stratified_select_cmajor_plain(
-        score, field, a, bb))
+    k1, k1_plain = (select_kernel.stratified_select_cmajor,
+                    select_kernel.stratified_select_cmajor_plain)
+    k1_err = same_selection(k1(score, field, a, bb),
+                            k1_plain(score, field, a, bb), "K1")
+    # also at tn=1024 (a=32, bb=32) and on a tie-heavy map (integer scores
+    # 0, 1, 2: the first maximum in tile order must win)
+    a2, bb2 = voting._phase_grid(1024)
+    same_selection(k1(score, field, a2, bb2),
+                   k1_plain(score, field, a2, bb2), "K1 at tn=1024")
+    ties = torch.randint(0, 3, (BATCH, H, W), generator=g, device=dev).float()
+    same_selection(k1(ties, field, a, bb), k1_plain(ties, field, a, bb),
+                   "K1 on a tie-heavy map")
+    k1_ms = cuda_ms(lambda: k1(score, field, a, bb))
+    k1_b2b = cuda_ms(lambda: k1(score, field, a, bb), head_start=False)
+    # the same mask with other noise: 5 score maps of 19.7 MB
+    scores = [(mask != 0).float() * 2.0
+              + torch.rand((BATCH, H, W), generator=g, device=dev)
+              for _ in range(5)]
+    k1_cold = cold_ms(lambda s: k1(s, field, a, bb), scores)
+    del scores
+    k1_plain_ms = cuda_ms(lambda: k1_plain(score, field, a, bb))
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(0))
+    print(f"launch floor (an empty kernel, timed the same way): "
+          f"{floor_ms:.4f} ms", flush=True)
     print(f"K1 stratified_select_cmajor [b={BATCH}, C={2 * VN}, {H}x{W}, "
-          f"a={a}, bb={bb}]: equal to plain; kernel {k1_ms:.4f} ms "
-          f"({k1_b2b:.4f} ms back to back, without the head start), plain "
+          f"a={a}, bb={bb}]: equal to plain (also at a={a2}, bb={bb2} and on "
+          f"a tie-heavy map); kernel {k1_ms:.4f} ms warm (before the "
+          f"redesign: {BEFORE_MS['K1']}), {k1_cold:.4f} ms cold, "
+          f"{k1_b2b:.4f} ms back to back, without the head start; plain "
           f"{k1_plain_ms:.4f} ms", flush=True)
 
     # bound: K1 reads the score map once and the winners' field values,
@@ -186,8 +234,8 @@ def check_kernels(dev, fixture):
          "source": "pvnet_tpu_torch/csrc/stratified_select.cu",
          "replaces": "pvnet_tpu/ops/select_kernel.py:131",
          "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": "bytes",
-         "library_ms": None},
+         "cold_ms": k1_cold, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "bound_by": "bytes", "library_ms": None},
         k3,
         k2,
     ]
@@ -271,49 +319,72 @@ def check_k3(dev, g, fg):
 def check_k2(dev, g):
     """K2 against its plain version at the packed path's shapes: score
     [16, 240, 320], an NHWC field [16, 240, 320, 80] in float32 and
-    bfloat16, a=8, bb=16 (tn=512 pixels = 128 cells). Exact equality."""
+    bfloat16, a=8, bb=16 (tn=512 pixels = 128 cells), and on a tie-heavy
+    map; exact equality. Times warm and cold, and warm at b=1 and b=64."""
     import torch
     from pvnet_tpu_torch.ops import select_kernel, voting
 
+    k2, k2_plain = (select_kernel.stratified_select,
+                    select_kernel.stratified_select_plain)
     hp, wp, c = H // 2, W // 2, 4 * (2 + 2 * VN)
     a, bb = voting._phase_grid(512 // 4)
-    score = ((torch.rand((BATCH, hp, wp), generator=g, device=dev) < 0.05)
-             .float() * 2.0
-             + torch.rand((BATCH, hp, wp), generator=g, device=dev))
+
+    def scores(b, n):
+        return [((torch.rand((b, hp, wp), generator=g, device=dev) < 0.05)
+                 .float() * 2.0
+                 + torch.rand((b, hp, wp), generator=g, device=dev))
+                for _ in range(n)]
+
+    cold = scores(BATCH, 20)                    # 20 maps of 4.9 MB
+    score = cold[0]
+    ties = torch.randint(0, 3, (BATCH, hp, wp), generator=g,
+                         device=dev).float()
     field32 = torch.randn((BATCH, hp, wp, c), generator=g, device=dev)
     err, times = 0.0, {}
     for field in (field32, field32.bfloat16()):
-        got = select_kernel.stratified_select(score, field, a, bb)
-        want = select_kernel.stratified_select_plain(score, field, a, bb)
-        torch.cuda.synchronize()
-        for x, y in zip(got, want):
-            assert x.dtype == y.dtype and x.shape == y.shape
-            assert torch.equal(x, y), f"K2 {field.dtype} != plain"
-            err = max(err, float((x.double() - y.double()).abs().max()))
+        dt = {torch.float32: "f32", torch.bfloat16: "bf16"}[field.dtype]
+        err = max(err, same_selection(k2(score, field, a, bb),
+                                      k2_plain(score, field, a, bb),
+                                      f"K2 {dt}"))
+        same_selection(k2(ties, field, a, bb), k2_plain(ties, field, a, bb),
+                       f"K2 {dt} on a tie-heavy map")
         nbytes = (score.numel() * 4 + BATCH * a * bb * (4 + 4)
                   + 2 * BATCH * a * bb * c * field.element_size())
-        def kernel():
-            return select_kernel.stratified_select(score, field, a, bb)
-        times[field.dtype] = (
-            cuda_ms(kernel), cuda_ms(kernel, head_start=False),
-            cuda_ms(lambda: select_kernel.stratified_select_plain(
-                score, field, a, bb)),
+        times[dt] = (
+            cuda_ms(lambda: k2(score, field, a, bb)),
+            cold_ms(lambda s: k2(s, field, a, bb), cold),
+            cuda_ms(lambda: k2(score, field, a, bb), head_start=False),
+            cuda_ms(lambda: k2_plain(score, field, a, bb)),
             nbytes / HBM_BYTES_PER_S * 1e3, nbytes)
-    assert err == 0.0, f"K2 disagrees with its plain version: {err}"
-    for dt, (ms, b2b, plain_ms, bound, nbytes) in times.items():
+    del cold
+    for dt, (ms, cold_t, b2b, plain_ms, bound, nbytes) in times.items():
         print(f"K2 stratified_select [b={BATCH}, {hp}x{wp}, C={c}, {dt}, "
-              f"a={a}, bb={bb}]: equal to plain; kernel {ms:.4f} ms "
-              f"({b2b:.4f} ms back to back), plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB: the score "
-              f"map, the winners' rows read and written, best and idx, at "
-              f"3.35 TB/s); no single PyTorch call computes it", flush=True)
-    ms, _, plain_ms, bound, _ = times[torch.float32]
+              f"a={a}, bb={bb}]: equal to plain (also on a tie-heavy map); "
+              f"kernel {ms:.4f} ms warm (before the redesign: "
+              f"{BEFORE_MS['K2 ' + dt]}), "
+              f"{cold_t:.4f} ms cold, {b2b:.4f} ms back to back; plain "
+              f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({nbytes / 1e6:.2f} "
+              f"MB: the score map, the winners' rows read and written, best "
+              f"and idx, at 3.35 TB/s); no single PyTorch call computes it",
+              flush=True)
+    # how the time grows with the batch (float32, warm)
+    by_batch = {}
+    for b in (1, 64):
+        s = scores(b, 1)[0]
+        f = torch.randn((b, hp, wp, c), generator=g, device=dev)
+        same_selection(k2(s, f, a, bb), k2_plain(s, f, a, bb), f"K2 b={b}")
+        by_batch[b] = cuda_ms(lambda: k2(s, f, a, bb))
+        del s, f
+    print(f"K2 f32 warm by batch: b=1 {by_batch[1]:.4f} ms, b={BATCH} "
+          f"{times['f32'][0]:.4f} ms, b=64 {by_batch[64]:.4f} ms (equal "
+          f"to plain at each)", flush=True)
+    ms, cold_t, _, plain_ms, bound, _ = times["f32"]
     return {"name": "stratified_select", "route": "cuda",
             "source": "pvnet_tpu_torch/csrc/stratified_select.cu",
             "replaces": "pvnet_tpu/ops/select_kernel.py:43",
             "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": None}
+            "cold_ms": cold_t, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def check_row_shift(dev):

@@ -16,6 +16,8 @@ from pvnet_tpu_torch.ops import row_shift as RS
 from pvnet_tpu_torch.ops import select_kernel as SK
 from pvnet_tpu_torch.ops import voting as V
 
+from _select_maps import KINDS, first_max_tiles, tie_map
+
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
 
@@ -27,9 +29,23 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# (b, h, w, a, bb) where the kernel's branches part: a = 1, ty_n = 1,
+# tx_n = 1; bb from 1 to 64 on the vector path (w % 4 == 0: shuffles where
+# bb divides 128, shared atomics alone at bb = 3, 40) and the scalar path
+# (w % 4 != 0: shuffles where bb divides 32); more column groups than
+# threads (w = 1100, 1280); bb > 4096 (the phases split over blocks)
+_GRIDS = [(2, 5, 64, 1, 8), (2, 8, 64, 8, 8), (2, 16, 40, 4, 40),
+          (2, 6, 20, 2, 1), (2, 6, 24, 3, 3), (1, 12, 192, 6, 16),
+          (3, 8, 640, 4, 32), (2, 4, 1280, 2, 64), (2, 6, 120, 3, 40),
+          (2, 6, 45, 3, 3), (2, 9, 70, 3, 14), (2, 4, 66, 2, 2),
+          (2, 3, 33, 1, 1), (1, 3, 1100, 1, 4), (1, 2, 8200, 1, 4100),
+          (1, 1, 8193, 1, 8193)]
+
+
 @pytest.mark.parametrize("b,c,h,w,a,bb", [
     (1, 2, 16, 32, 4, 8), (2, 6, 20, 24, 4, 8), (3, 18, 48, 96, 16, 32),
-    (2, 4, 64, 64, 8, 8), (1, 1, 8, 8, 8, 8)])
+    (2, 4, 64, 64, 8, 8), (1, 1, 8, 8, 8, 8)]
+    + [(b, 3, h, w, a, bb) for b, h, w, a, bb in _GRIDS])
 def test_select_kernel_equals_plain(cuda, b, c, h, w, a, bb):
     g = torch.Generator().manual_seed(b * h + w)
     score = (torch.rand(b, h, w, generator=g)
@@ -218,10 +234,14 @@ def test_voting_on_cuda_equals_cpu_selection_and_counts(cuda):
 # --- K2 (stratified_select.cu, NHWC field) ----------------------------------
 
 # C odd, C = 80 (the packed path's 4*(2+18)), a*bb above one block of 128
-# threads, the packed path's own grid, a single tile per phase
+# threads, the packed path's own grid, a single tile per phase, rows of
+# 16 bytes (f32 C = 4, bf16 C = 8: 16-byte copies where C * element size
+# is a multiple of 16), and K1's branch grids
 @pytest.mark.parametrize("b,h,w,c,a,bb", [
     (2, 16, 32, 3, 4, 8), (3, 24, 48, 80, 8, 16), (1, 32, 64, 5, 16, 16),
-    (2, 40, 96, 18, 8, 32), (1, 8, 8, 1, 8, 8), (2, 30, 40, 80, 30, 40)])
+    (2, 40, 96, 18, 8, 32), (1, 8, 8, 1, 8, 8), (2, 30, 40, 80, 30, 40),
+    (2, 24, 64, 4, 8, 16), (2, 24, 64, 8, 8, 16)]
+    + [(b, h, w, 3, a, bb) for b, h, w, a, bb in _GRIDS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_select_nhwc_kernel_equals_plain(cuda, b, h, w, c, a, bb, dtype):
     g = torch.Generator().manual_seed(b * h + w + c)
@@ -286,6 +306,124 @@ def test_packed_sampling_on_cuda_equals_cpu(cuda, dtype):
                                        V.count_inliers(fg, hyps, 0.99))])
     for x, y in zip(*outs):
         assert torch.equal(x, y)
+
+
+# --- K1 and K2: the tie rule, unaligned inputs, batch sizes, NaN, -0 -------
+
+_LAYOUTS = ["cmajor", "f32", "bf16"]      # K1; K2 with a float32 / bf16 field
+
+
+def _bits(x):
+    """The tensor's bit patterns (so that -0.0 and 0.0 differ)."""
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)
+    return x.view(torch.int16) if x.dtype == torch.bfloat16 else x
+
+
+def _field(layout, score, c, seed=0):
+    b, h, w = score.shape
+    g = torch.Generator().manual_seed(seed)
+    f = torch.randn(b, h, w, c, generator=g)
+    if layout == "cmajor":
+        f = f.permute(0, 3, 1, 2).contiguous()
+    elif layout == "bf16":
+        f = f.bfloat16()
+    return f.to(score.device)
+
+
+def _selects_like_plain(layout, score, field, a, bb):
+    """The kernel (K1 for the "cmajor" layout, else K2) equals its plain
+    version bit for bit, in one launch."""
+    if layout == "cmajor":
+        fn, plain = (SK.stratified_select_cmajor,
+                     SK.stratified_select_cmajor_plain)
+    else:
+        fn, plain = SK.stratified_select, SK.stratified_select_plain
+    before = fn.launches
+    got = fn(score, field, a, bb)
+    want = plain(score, field, a, bb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + (score.shape[0] > 0)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(_bits(x), _bits(y))
+    return got
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+@pytest.mark.parametrize("a,bb", [(8, 8), (4, 32)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_select_tie_maps(cuda, kind, a, bb, layout):
+    score = torch.from_numpy(tie_map(kind, 2, 24, 256, a, bb,
+                                     seed=len(kind) + a)).to(cuda)
+    _, idx, _ = _selects_like_plain(layout, score, _field(layout, score, 3),
+                                    a, bb)
+    assert np.array_equal(idx.cpu().numpy(),
+                          first_max_tiles(score.cpu().numpy(), a, bb))
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+@pytest.mark.parametrize("h,w,a,bb", [(15, 45, 5, 9), (16, 64, 4, 16)])
+def test_select_unaligned_score(cuda, h, w, a, bb, layout):
+    # a score that does not start on 16 bytes takes the scalar path even
+    # where w % 4 == 0: the [1:] slice of a [b+1, h, w] tensor (h*w odd),
+    # and a view one element into a flat buffer
+    b = 2
+    if h * w % 2:
+        score = torch.rand(b + 1, h, w, device=cuda)[1:]
+    else:
+        score = torch.rand(b * h * w + 1, device=cuda)[1:].view(b, h, w)
+    assert score.is_contiguous() and score.data_ptr() % 16
+    _selects_like_plain(layout, score, _field(layout, score, 3), a, bb)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_nhwc_unaligned_field(cuda, dtype):
+    # an 80-channel field one element into its buffer: element by element
+    score = torch.rand(2, 24, 64, device=cuda)
+    n = 2 * 24 * 64 * 80
+    field = torch.randn(n + 1, device=cuda).to(dtype)[1:].view(2, 24, 64, 80)
+    assert field.data_ptr() % 16
+    _selects_like_plain("nhwc", score, field, 8, 16)
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+@pytest.mark.parametrize("b", [0, 64])
+def test_select_batch_sizes(cuda, b, layout):
+    score = torch.rand(b, 48, 64, device=cuda)
+    best, idx, dirs = _selects_like_plain(
+        layout, score, _field(layout, score, 3), 8, 16)
+    assert best.shape == idx.shape == (b, 8, 16) and dirs.shape[0] == b
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_select_never_picks_nan(cuda, layout):
+    # the kernel, like the Pallas kernels, passes over a NaN score: it
+    # equals the plain version on the map with NaN read as -inf (no bucket
+    # is NaN throughout, so no winner's score is NaN)
+    g = torch.Generator().manual_seed(5)
+    score = torch.rand(2, 24, 256, generator=g)
+    score[torch.rand(2, 24, 256, generator=g) < 0.1] = float("nan")
+    score = score.to(cuda)
+    field = _field(layout, score, 3)
+    got = (SK.stratified_select_cmajor if layout == "cmajor"
+           else SK.stratified_select)(score, field, 8, 8)
+    want = _selects_like_plain(
+        layout, torch.where(score.isnan(), float("-inf"), score), field, 8, 8)
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("layout", _LAYOUTS)
+def test_select_signed_zeros_tie(cuda, layout):
+    # -0.0 and 0.0 tie, as '>' sees them: tile 0 wins and its score comes
+    # back with its sign
+    g = torch.Generator().manual_seed(6)
+    score = torch.where(torch.rand(2, 24, 256, generator=g) < 0.5, -0.0, 0.0)
+    score = score.to(cuda)
+    _, idx, _ = _selects_like_plain(layout, score, _field(layout, score, 3),
+                                    8, 8)
+    assert (idx == 0).all()
 
 
 # --- K4 / K5 (row_shift.cu) -------------------------------------------------

@@ -15,7 +15,12 @@ tail_depth 3. It prints:
   plain decoder's stages (conv4s, conv2s, convraw with their upsamples);
 - from torch.profiler over one whole request (infer_batch with
   uncertainty): the device's busy time against the wall-clock window,
-  hence the idle share, and the 12 kernels with the most device time.
+  hence the idle share, and the 12 kernels with the most device time;
+- the same over the select stage alone, on the plain path
+  (voting.sample_foreground on the plain forward's fields: mask sum,
+  noise, score, kernel K1, compaction) and on the packed path
+  (voting.sample_foreground_packed, through K2): its device operations and
+  the kernels by device time.
 
 Needs a CUDA card; exits 1 without one.
 """
@@ -104,6 +109,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
     from pvnet_tpu_torch import infer, pipeline as pl
+    from pvnet_tpu_torch.ops import packed_tail as PT, voting
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
@@ -137,14 +143,35 @@ def main(argv=None) -> int:
                                  torch.Generator(device=dev).manual_seed(0),
                                  tail_depth=3, uncertainty=True)
 
-    request()
-    torch.cuda.synchronize()
+    profile_once("one packed request with uncertainty", request, 12)
+    g = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        mask, vertex = pl.predict_fields(model, pl.normalize_images(
+            torch.from_numpy(images).to(dev)))
+        packed, fgcnt = PT.packed_tail_deep3_from_model(
+            model, *model(x, return_8s_features=True), x, dtype=torch.float32)
+    profile_once("the plain path's select stage (sample_foreground, K1)",
+                 lambda: voting.sample_foreground(mask, vertex, 512,
+                                                  generator=g), 40)
+    profile_once("the packed path's select stage (sample_foreground_packed, "
+                 "K2)", lambda: voting.sample_foreground_packed(
+                     packed, fgcnt, 512, generator=g), 40)
+    return 0
+
+
+def profile_once(label, fn, top):
+    """torch.profiler over one call of fn after a warm-up: the device's busy
+    time against the wall-clock window, its operations, and the top
+    kernels by device time."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        request()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, getattr(e, "self_device_time_total",
@@ -153,16 +180,16 @@ def main(argv=None) -> int:
             if e.device_type != DeviceType.CPU]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     if not rows:
-        print("torch.profiler saw no device time", flush=True)
-        return 0
+        print(f"profiler, {label}: torch.profiler saw no device time",
+              flush=True)
+        return
     busy = sum(r[1] for r in rows)
-    print(f"profiler, one packed request with uncertainty: device busy "
-          f"{busy:.3f} ms of a {wall_ms:.3f} ms window, idle share "
-          f"{1 - busy / wall_ms:.3f}, {sum(r[2] for r in rows)} device "
-          f"operations (the profiler slows the host)", flush=True)
-    for key, ms, count in rows[:12]:
+    print(f"profiler, {label}: device busy {busy:.3f} ms of a "
+          f"{wall_ms:.3f} ms window, idle share {1 - busy / wall_ms:.3f}, "
+          f"{sum(r[2] for r in rows)} device operations (the profiler slows "
+          f"the host)", flush=True)
+    for key, ms, count in rows[:top]:
         print(f"  {ms:9.3f} ms  {count:5d}x  {key[:100]}", flush=True)
-    return 0
 
 
 if __name__ == "__main__":
