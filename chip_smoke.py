@@ -59,6 +59,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
     the CPU (loss, gradients); a checkpoint the step saved loads through
     pvnet_tpu_torch.infer.load_model. Prints step ms, images/s, the
     augmentation's ms and share, and peak device memory;
+(h) pose evaluation: generate the first 64 images that
+    ``python -m pvnet_tpu_torch.train --test_model`` evaluates on README's
+    synthetic occluded split (the test half of
+    generate_synthetic_linemod(2048, occluder_prob=0.5, max_clutter=2,
+    seed=0): images 1228-1291) with the port's generator, check them bit
+    for bit against the hashes in assets/duck_eval_occ64.json (the JAX
+    package's renders, tools/make_torch_eval_fixture.py), and evaluate
+    assets/duck_ckpt.msgpack on them on the card through
+    TrainLoop.validate + Evaluator: float32 at tail_depth 3 (the JAX
+    reference's path) and 0 (the port's default), plain and with
+    uncertainty, each rate within the stated tolerance of the JAX
+    reference's (tolerance: the reference's spread over three RANSAC
+    seeds, at least two images); the bf16 recipe's rates printed beside
+    them. K1, K2 and K3 must launch during these evaluations. Two of the
+    images evaluated on the card and on the CPU with the same draws, from
+    the same fields (poses within (d)'s tolerances) and each with its own
+    FCN (within the CPU tests' 1 deg / 15 mm), per-image errors within
+    the tolerances that follow, and equal pass/fail except within 1e-3
+    (relative) of a threshold. Prints the seconds of generation and evaluation and the
+    evaluation's images/s;
 (e) print the kernels' JSON line (K1 and K2 with their cold times), then,
     as the last line, {"ok": true, "device": {...}}.
 """
@@ -73,6 +93,8 @@ import time
 T_START = time.time()
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "assets", "duck_views_480x640.npz")
+EVAL_REFERENCE = os.path.join(REPO, "assets", "duck_eval_occ64.json")
+CKPT = os.path.join(REPO, "assets", "duck_ckpt.msgpack")
 BATCH, H, W, VN = 16, 480, 640, 9
 N_REQUESTS = 3
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -944,6 +966,249 @@ def check_f32_step_against_cpu(dev, images, masks, hcoords, cfg, ckpt):
     assert rel[worst] < 3e-2 and total < 5e-3
 
 
+def rate_tolerance(ref) -> float:
+    """Phase (h)'s tolerance on a rate: the largest spread (max - min) of
+    any rate of the JAX reference over its RANSAC seeds, and never less
+    than two images of the subset."""
+    spread = max(max(r[m] for r in runs) - min(r[m] for r in runs)
+                 for runs in ref["runs"].values()
+                 for m in ("proj", "add", "cm"))
+    return max(spread, 2.0 / len(ref["indices"]))
+
+
+def eval_draws(b, params, uncertainty, tail_depth, dev):
+    """One batch's draws for TrainLoop.eval_pipeline's fwd, from a CPU
+    generator, on ``dev``."""
+    import torch
+    g = torch.Generator().manual_seed(7)
+    hw = (H, W) if tail_depth == 0 else (H // 2, W // 2)
+    d = {"noise": torch.rand((b,) + hw, generator=g),
+         "pair_u": torch.rand((b, params.hyp_num, 2), generator=g)}
+    if uncertainty:
+        d["cov_pair_u"] = torch.rand((b, params.uncertainty_hyp_num, 2),
+                                     generator=g)
+        if tail_depth == 0:
+            d["cov_noise"] = torch.rand((b, H, W), generator=g)
+    return {k: v.to(dev) for k, v in d.items()}
+
+
+def eval_loop(bf16, device):
+    """A TrainLoop of the synthetic recipe in the given dtype on ``device``
+    and its state with the duck checkpoint's weights."""
+    from pvnet_tpu_torch.config import TrainConfig
+    from pvnet_tpu_torch.train.loop import TrainLoop
+    cfg = TrainConfig.from_json(os.path.join(REPO, "configs",
+                                             "synthetic_train.json"))
+    cfg.bf16 = bf16
+    loop = TrainLoop(cfg, model_dir="", device=device)
+    return loop, loop.init_state(CKPT)
+
+
+def eval_split():
+    """Phase (h)'s 64 images, generated by the port and checked against
+    the JAX renders' hashes; (reference, split, seconds)."""
+    import hashlib
+    import numpy as np
+    from pvnet_tpu_torch.data.synthetic import (evaluation_order,
+                                                generate_synthetic_linemod)
+    with open(EVAL_REFERENCE) as f:
+        ref = json.load(f)
+    sp = ref["split"]
+    order = evaluation_order(sp["num_images"])[:len(ref["indices"])]
+    assert order.tolist() == ref["indices"], "split arithmetic changed"
+    workers = min(8, len(os.sched_getaffinity(0)))
+    t0 = time.time()
+    split = generate_synthetic_linemod(
+        sp["num_images"], seed=sp["seed"], occluder_prob=sp["occluder_prob"],
+        max_clutter=sp["max_clutter"], render=order, workers=workers)
+    gen_s = time.time() - t0
+    perm = np.searchsorted(split["index"], order)   # -> evaluation order
+    for k in ("images", "masks", "poses", "index"):
+        split[k] = split[k][perm]
+    for k, want in ref["sha256"].items():
+        got = hashlib.sha256(np.ascontiguousarray(split[k]).tobytes())
+        assert got.hexdigest() == want, \
+            f"generated {k} differ from the JAX package's renders"
+    n = len(split["images"])
+    print(f"generated images {order[0]}-{order[-1]} of the split (the first "
+          f"{n} the test half evaluates) in {gen_s:.2f} s with {workers} "
+          f"workers; images, masks and poses bit-equal to the JAX renders "
+          f"(sha256); visible target px median "
+          f"{int(np.median(split['masks'].reshape(n, -1).sum(1)))}",
+          flush=True)
+    return ref, split, gen_s
+
+
+def eval_rates(dev, split, ref) -> float:
+    """Phase (h)'s six evaluations on the card, the kernels' launches in
+    them, and the float32 rates against the JAX reference; returns the
+    evaluations' seconds."""
+    import torch
+    from pvnet_tpu_torch.data.dataset import eval_batches
+    from pvnet_tpu_torch.eval.evaluator import Evaluator
+    from pvnet_tpu_torch.ops import select_kernel, voting
+
+    n = len(split["images"])
+    tol = rate_tolerance(ref)
+    for name in ("stratified_select_cmajor", "stratified_select"):
+        getattr(select_kernel, name).launches = 0
+    voting.count_inliers.launches = 0
+    rates, eval_s = {}, 0.0
+    for bf16, tail_depth in ((False, 3), (False, 0), (True, 0)):
+        loop, state = eval_loop(bf16, dev)
+        for unc in (False, True):
+            ev = Evaluator(loop.object_meta(split), device=dev)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            loop.validate(state, eval_batches(split, loop.cfg.test_batch_size),
+                          0, evaluate_pose=True, uncertainty=unc,
+                          tail_depth=tail_depth, evaluator=ev)
+            torch.cuda.synchronize()
+            secs = time.time() - t1
+            eval_s += secs
+            key = (f"{'bf16' if bf16 else 'f32'} tail_depth {tail_depth} "
+                   f"{'uncertainty' if unc else 'plain'}")
+            rates[key] = ev.average_precision(verbose=False)
+            print(f"(h) {key}: proj {rates[key][0]:.4f} add "
+                  f"{rates[key][1]:.4f} 5cm5deg {rates[key][2]:.4f} "
+                  f"({n} images in {secs:.2f} s, {n / secs:.1f} images/s)",
+                  flush=True)
+    launches = {"stratified_select_cmajor":
+                select_kernel.stratified_select_cmajor.launches,
+                "stratified_select": select_kernel.stratified_select.launches,
+                "count_inliers": voting.count_inliers.launches}
+    print(f"(h) kernel launches during the evaluations: {launches}",
+          flush=True)
+    assert all(v > 0 for v in launches.values()), launches
+
+    for mode in ("plain", "uncertainty"):
+        runs = ref["runs"][mode]
+        jax_rates = [[r[m] for r in runs] for m in ("proj", "add", "cm")]
+        print(f"(h) JAX reference {mode} (CPU, f32, tail_depth "
+              f"{ref['tail_depth']}, seeds {[r['seed'] for r in runs]}): "
+              f"proj {jax_rates[0]} add {jax_rates[1]} 5cm5deg "
+              f"{jax_rates[2]}; README (full split, TPU, bf16, JPEG "
+              f"inputs): {ref['readme'][mode]}; tolerance {tol:.4f}",
+              flush=True)
+        for td in (3, 0):
+            got = rates[f"f32 tail_depth {td} {mode}"]
+            for m, g, js in zip(("proj", "add", "cm"), got, jax_rates):
+                assert min(js) - tol <= g <= max(js) + tol, \
+                    f"f32 tail_depth {td} {mode} {m} {g} outside " \
+                    f"[{min(js) - tol}, {max(js) + tol}]"
+    return eval_s
+
+
+def eval_card_vs_cpu(dev, split):
+    """Two of phase (h)'s images evaluated on the card and on the CPU with
+    the same draws (float32, the port's default tail_depth 0): from the
+    same fields (the card's FCN), within (d)'s tolerances; and each side
+    with its own FCN, within the tolerances of the CPU tests
+    (tests/test_torch_pipeline.py: fields ~1e-6 apart move a boundary
+    pixel, and with it the vote, by up to ~1 px)."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.data.dataset import eval_batches
+    from pvnet_tpu_torch.eval import metrics as M
+    from pvnet_tpu_torch.eval.evaluator import Evaluator
+    from pvnet_tpu_torch.ops.geometry import rotation_angle_deg
+
+    cpu = torch.device("cpu")
+    sub = {k: split[k][:2] if k in ("images", "masks", "poses", "index")
+           else split[k] for k in split}
+    batch = next(eval_batches(sub, 2))
+    params = pl.VoteParams()
+    loops = {where: eval_loop(False, where) for where in (dev, cpu)}
+    with torch.no_grad():
+        model = loops[dev][1].model.eval()
+        mask, vertex = pl.predict_fields(model, pl.normalize_images(
+            torch.from_numpy(batch["image"]).to(dev)))
+
+    def evaluate(where, unc, own_fcn):
+        loop, state = loops[where]
+        draws = eval_draws(2, params, unc, 0, where)
+        if own_fcn:
+            kp = loop.eval_pipeline((H, W), unc)(
+                state.model, pl.normalize_images(
+                    torch.from_numpy(batch["image"]).to(where)), **draws)
+        elif unc:
+            kp = pl.keypoints_with_covariance(
+                mask.to(where), vertex.to(where), params, draws["noise"],
+                draws["pair_u"], draws["cov_noise"], draws["cov_pair_u"])
+        else:
+            kp = pl.keypoints_from_fields(mask.to(where), vertex.to(where),
+                                          params, draws["noise"],
+                                          draws["pair_u"])
+        ev = Evaluator(loop.object_meta(split), device=where)
+        pose = (ev.evaluate_uncertainty_batch(*kp, batch["pose"], batch["K"])
+                if unc else ev.evaluate_batch(kp, batch["pose"], batch["K"]))
+        pp = torch.as_tensor(pose)
+        trans_cm, rot_deg = M.cm_degree_errors(
+            pp, torch.as_tensor(batch["pose"]))
+        return pp, ev, trans_cm.numpy(), rot_deg.numpy()
+
+    # (d)'s tolerances on poses from the same fields, 0.05 deg / 1 mm, and
+    # what follows from them for the errors against ground truth: ADD by
+    # the translation plus 0.05 deg over the object's 0.18 m, proj by
+    # ~1.5 px for 1 mm at 0.4 m and f = 572 px; with each side's own FCN,
+    # test_torch_pipeline.py's 1 deg / 15 mm and what follows from those
+    bounds = {False: (0.05, 1e-3, 1.2e-3, 2.0), True: (1.0, 0.015, 0.018,
+                                                       25.0)}
+    for own_fcn in (False, True):
+        for unc in (False, True):
+            (pg_, eg, tg, rg), (pc_, ec, tc, rc) = (
+                evaluate(where, unc, own_fcn) for where in (dev, cpu))
+            rot_diff = float(rotation_angle_deg(pg_[:, :, :3],
+                                                pc_[:, :, :3]).max())
+            t_diff = float((pg_[:, :, 3] - pc_[:, :, 3]).norm(dim=-1).max())
+            add_diff = float(np.abs(np.subtract(eg.add_dists,
+                                                ec.add_dists)).max())
+            proj_diff = float(np.abs(np.subtract(eg.proj_mean_diffs,
+                                                 ec.proj_mean_diffs)).max())
+            print(f"(h) 2 images card vs CPU, same draws, "
+                  f"{'each its own FCN' if own_fcn else 'same fields'}, "
+                  f"{'uncertainty' if unc else 'plain'}: poses max diff "
+                  f"{rot_diff:.3e} deg, {t_diff:.3e} m; ADD {add_diff:.3e} "
+                  f"m, proj {proj_diff:.3e} px, trans "
+                  f"{float(np.abs(tg - tc).max()):.3e} cm, rot "
+                  f"{float(np.abs(rg - rc).max()):.3e} deg; errors vs GT "
+                  f"(card): ADD {np.round(eg.add_dists, 5).tolist()} m, "
+                  f"proj {np.round(eg.proj_mean_diffs, 3).tolist()} px",
+                  flush=True)
+            rot_tol, t_tol, add_tol, proj_tol = bounds[own_fcn]
+            assert rot_diff < rot_tol and t_diff < t_tol
+            assert add_diff < add_tol and proj_diff < proj_tol
+            assert np.abs(tg - tc).max() < 100 * t_tol
+            assert np.abs(rg - rc).max() < rot_tol
+            thresholds = ((eg.add_recorder, ec.add_recorder, eg.add_dists,
+                           0.1 * float(split["diameter"])),
+                          (eg.projection_2d_recorder,
+                           ec.projection_2d_recorder, eg.proj_mean_diffs,
+                           5.0),
+                          (eg.cm_degree_5_recorder, ec.cm_degree_5_recorder,
+                           None, None))
+            for rec_g, rec_c, vals, thr in thresholds:
+                for i, (a, b) in enumerate(zip(rec_g, rec_c)):
+                    if a == b:
+                        continue
+                    near = (abs(vals[i] / thr - 1) < 1e-3 if thr else
+                            abs(tg[i] / 5.0 - 1) < 1e-3
+                            or abs(rg[i] / 5.0 - 1) < 1e-3)
+                    assert near, f"card and CPU disagree on image {i}'s pass"
+
+
+def run_evaluation(dev):
+    """Phase (h)."""
+    ref, split, gen_s = eval_split()
+    eval_s = eval_rates(dev, split, ref)
+    eval_card_vs_cpu(dev, split)
+    n = len(split["images"])
+    print(f"(h) generation {gen_s:.2f} s, evaluation {eval_s:.2f} s "
+          f"({6 * n / eval_s:.1f} images/s over the six passes)",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -982,6 +1247,7 @@ def main() -> int:
     latencies = phase("(d) serving", run_pipeline, dev, fixture, kernels)
     phase("(g) packed serving", run_packed, dev, fixture, kernels, latencies)
     phase("(f) training", run_training, dev, kernels)
+    phase("(h) evaluation", run_evaluation, dev)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -9,7 +9,8 @@ Levenberg-Marquardt pose solve, optionally weighted by each keypoint's
 hypothesis covariance. And training on a device-resident set:
 augmentation on the device (its separable warp shifts rows with a CUDA
 kernel), vertex targets, the ResNet18-8s forward/backward under bf16
-autocast, and Adam.
+autocast, and Adam. And pose evaluation (ADD(-S), 2D projection, 5cm5deg)
+on a synthetic occluded split that the port generates itself.
 
 Module names mirror ``pvnet_tpu`` so each function's JAX counterpart is
 found under the same path. The package imports ``torch`` and ``numpy``
@@ -19,11 +20,14 @@ Subpackages
 -----------
 - ``pvnet_tpu_torch.models`` : PVNet ResNet18-8s.
 - ``pvnet_tpu_torch.ops``    : geometry, voting, PnP, the packed tail, row
-  shifts and the kernel wrappers.
+  shifts, the kernel wrappers, and (numpy) FPS and the mesh rasterizer.
 - ``pvnet_tpu_torch.data``   : device augmentation, vertex targets, the
-  batch sampler.
+  batch sampler, PLY meshes and the synthetic split generator.
+- ``pvnet_tpu_torch.eval``   : pose metrics and the accumulating
+  evaluator.
 - ``pvnet_tpu_torch.train``  : losses, the train step, checkpoints, the
-  recorder, the loop; ``python -m pvnet_tpu_torch.train`` trains.
+  recorder, the loop and its validation pass; ``python -m
+  pvnet_tpu_torch.train`` trains, and evaluates with ``--test_model``.
 - ``pvnet_tpu_torch.utils``  : the flax-msgpack checkpoint reader and the
   weight mapping both ways.
 - ``pvnet_tpu_torch.csrc``   : the CUDA C++ kernel sources.

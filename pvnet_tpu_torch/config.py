@@ -20,6 +20,25 @@ LINEMOD_K = np.array(
      [0.0, 573.57043, 242.04899],
      [0.0, 0.0, 1.0]], dtype=np.float32)
 
+BLENDER_K = np.array(
+    [[700.0, 0.0, 320.0],
+     [0.0, 700.0, 240.0],
+     [0.0, 0.0, 1.0]], dtype=np.float32)
+
+PASCAL_K = np.array(
+    [[-3000.0, 0.0, 0.0],
+     [0.0, 3000.0, 0.0],
+     [0.0, 0.0, 1.0]], dtype=np.float32)
+
+INTRINSIC_MATRICES = {
+    "linemod": LINEMOD_K,
+    "blender": BLENDER_K,
+    "pascal": PASCAL_K,
+}
+
+# classes evaluated with ADD-S (ref lib/utils/config.py:70)
+SYMMETRIC_CLS_NAMES = ["glue", "eggbox"]
+
 # ImageNet normalization used by the input transform
 # (ref lib/datasets/linemod_dataset.py:185-195).
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)

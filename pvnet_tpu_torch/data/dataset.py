@@ -1,14 +1,16 @@
-"""Training data on the host: the multi-resolution batch sampler, copied
-from pvnet_tpu/data/dataset.py (``ImageSizeBatchSampler``, pure numpy), and
-the reader of a training set stored as one .npz.
+"""Data on the host: the multi-resolution batch sampler, copied from
+pvnet_tpu/data/dataset.py (``ImageSizeBatchSampler``, pure numpy), the
+reader of a training set stored as one .npz, and the batches of an
+evaluation split held as arrays.
 
 The rest of that module (``PoseDataset``, ``Prefetcher``, reading the
 LINEMOD layout from disk) is not ported yet: the port trains from arrays
-held on the device (train/loop.TrainLoop.build_device_dataset).
+held on the device (train/loop.TrainLoop.build_device_dataset) and
+evaluates arrays (:func:`eval_batches`).
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -69,6 +71,18 @@ class ImageSizeBatchSampler:
         return (n + self.batch_size - 1) // self.batch_size
 
 
+def keypoint_targets(poses: np.ndarray, points_3d: np.ndarray,
+                     K: np.ndarray) -> np.ndarray:
+    """hcoords float32 [n, k, 3]: the projections of points_3d [k, 3] under
+    each pose [n, 3, 4] with K [3, 3], homogeneous (the keypoint fields of
+    the JAX package's image records, data/linemod._project_record)."""
+    kp = np.stack([project_np(points_3d.astype(np.float64),
+                              pose.astype(np.float64), K.astype(np.float64))
+                   for pose in poses])
+    return np.concatenate([kp, np.ones(kp.shape[:2] + (1,))],
+                          -1).astype(np.float32)
+
+
 def load_training_set(path: str) -> Tuple[np.ndarray, np.ndarray,
                                           np.ndarray]:
     """(images uint8 [n, h, w, 3], masks uint8 [n, h, w], hcoords float32
@@ -77,9 +91,27 @@ def load_training_set(path: str) -> Tuple[np.ndarray, np.ndarray,
     keypoint targets are the projections of points_3d, homogeneous."""
     with np.load(path) as z:
         images, masks = z["images"], z["masks"]
-        poses, pts, K = z["poses"], z["points_3d"], z["K"]
-    kp = np.stack([project_np(pts.astype(np.float64), pose.astype(np.float64),
-                              K.astype(np.float64)) for pose in poses])
-    hcoords = np.concatenate([kp, np.ones(kp.shape[:2] + (1,))], -1)
-    return (images.astype(np.uint8), masks.astype(np.uint8),
-            hcoords.astype(np.float32))
+        hcoords = keypoint_targets(z["poses"], z["points_3d"], z["K"])
+    return images.astype(np.uint8), masks.astype(np.uint8), hcoords
+
+
+def eval_batches(split: Dict[str, np.ndarray], batch_size: int
+                 ) -> Iterator[Dict[str, np.ndarray]]:
+    """Validation batches of a split in the fixture's layout (images,
+    masks, poses, points_3d and K [3, 3], or per image [n, 3, 3]), in
+    order, the last one short: what the JAX package's unaugmented
+    PoseDataset and unshuffled sampler yield, with the image still uint8.
+    Each batch: image uint8 [b, h, w, 3], mask uint8 [b, h, w], hcoords
+    [b, k, 3], pose [b, 3, 4], K [b, 3, 3]."""
+    n = len(split["images"])
+    K = np.asarray(split["K"], np.float32)
+    Ks = np.broadcast_to(K, (n, 3, 3)) if K.ndim == 2 else K
+    for i in range(0, n, batch_size):
+        sl = slice(i, i + batch_size)
+        poses = np.asarray(split["poses"][sl], np.float32)
+        hcoords = np.stack([keypoint_targets(poses[j:j + 1],
+                                             split["points_3d"], Ks[i + j])[0]
+                            for j in range(len(poses))])
+        yield {"image": split["images"][sl], "mask": split["masks"][sl],
+               "hcoords": hcoords, "pose": poses,
+               "K": np.ascontiguousarray(Ks[sl])}

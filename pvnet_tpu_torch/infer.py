@@ -27,15 +27,16 @@ from __future__ import annotations
 import argparse
 import glob as globmod
 import json
+import os
 import sys
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pvnet_tpu_torch import pipeline as pl_mod
-from pvnet_tpu_torch.config import LINEMOD_K
+from pvnet_tpu_torch.config import INTRINSIC_MATRICES
 from pvnet_tpu_torch.models.pvnet import build_model
 from pvnet_tpu_torch.utils.weights import load_weights
 
@@ -57,11 +58,32 @@ def load_images(spec: str) -> Tuple[np.ndarray, List[str]]:
             paths)
 
 
-def load_points_3d(spec: str) -> np.ndarray:
+def load_points_3d(spec: str, center_3d: Optional[str] = None
+                   ) -> np.ndarray:
+    """[k, 3] keypoints from ``spec``; with ``center_3d`` (a txt of the
+    object centre, 1x3) the centre is appended as the last keypoint, as
+    tools/infer.py does."""
     if spec.endswith(".npz"):
         with np.load(spec) as z:
-            return z["points_3d"].astype(np.float32)
-    return np.loadtxt(spec).astype(np.float32)
+            pts = z["points_3d"].astype(np.float32)
+    else:
+        pts = np.loadtxt(spec).astype(np.float32)
+    if center_3d:
+        pts = np.concatenate(
+            [pts, np.loadtxt(center_3d).reshape(1, 3)], 0).astype(np.float32)
+    return pts
+
+
+def resolve_K(spec: str) -> np.ndarray:
+    """Intrinsics [3, 3] float32: an existing txt file first, otherwise a
+    name in config.INTRINSIC_MATRICES (linemod, blender, pascal), the
+    lookup order of tools/infer.py."""
+    if os.path.exists(spec):
+        return np.loadtxt(spec).astype(np.float32)
+    if spec not in INTRINSIC_MATRICES:
+        raise SystemExit(f"--K {spec!r} is neither a file nor one of "
+                         f"{sorted(INTRINSIC_MATRICES)}")
+    return INTRINSIC_MATRICES[spec].astype(np.float32)
 
 
 def load_model(checkpoint: str, vn: int, device) -> torch.nn.Module:
@@ -104,8 +126,12 @@ def parse_args(argv=None):
     p.add_argument("--points_3d", required=True,
                    help="txt of the object's 3D keypoints, or an .npz "
                         "with a points_3d key")
+    p.add_argument("--center_3d", default=None,
+                   help="optional txt with the object centre (1x3), "
+                        "appended as the last keypoint")
     p.add_argument("--K", default="linemod",
-                   help="'linemod' or a txt file with the 3x3 intrinsics")
+                   help="a txt file with the 3x3 intrinsics, or a named "
+                        "matrix: " + ", ".join(INTRINSIC_MATRICES))
     p.add_argument("--device", default="cuda")
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--tail_depth", type=int, default=0, choices=(0, 1, 2, 3),
@@ -129,8 +155,8 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     imgs, names = load_images(args.images)
-    pts3d = load_points_3d(args.points_3d)
-    K = LINEMOD_K if args.K == "linemod" else np.loadtxt(args.K)
+    pts3d = load_points_3d(args.points_3d, args.center_3d)
+    K = resolve_K(args.K)
     n, h, w = imgs.shape[:3]
     print(f"{n} images at {h}x{w}; vn={len(pts3d)}; device {device}; "
           f"tail_depth {args.tail_depth}; uncertainty {args.uncertainty}",
@@ -138,7 +164,7 @@ def main(argv=None) -> int:
 
     model = load_model(args.checkpoint, len(pts3d), device)
     pts_t = torch.as_tensor(pts3d, device=device)
-    K_t = torch.as_tensor(np.asarray(K, np.float32), device=device)
+    K_t = torch.as_tensor(K, device=device)
     params = pl_mod.VoteParams()
     if args.hyp_num:
         params = params._replace(hyp_num=args.hyp_num)

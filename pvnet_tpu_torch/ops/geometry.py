@@ -1,4 +1,5 @@
-"""Pinhole-camera / SO(3) geometry (the subset the inference path uses).
+"""Pinhole-camera / SO(3) geometry (the subset inference and evaluation
+use).
 
 PyTorch port of pvnet_tpu/ops/geometry.py. Every function broadcasts over
 leading batch dimensions.
@@ -24,6 +25,34 @@ def project(pts: torch.Tensor, pose: torch.Tensor, K: torch.Tensor,
     z = torch.where(z.abs() < eps, torch.where(z < 0, -eps, eps), z)
     uvw = cam @ K.transpose(-1, -2)
     return uvw[..., :2] / z
+
+
+def find_nearest_point_distance(ref_pts: torch.Tensor, que_pts: torch.Tensor,
+                                tile: int = 4096) -> torch.Tensor:
+    """For each query point [..., n_que, d], the Euclidean distance to its
+    nearest reference point [..., n_ref, d] -> [..., n_que] (ADD-S; the
+    reference's brute-force CUDA search, ref nearest_neighborhood.cu).
+
+    Where n_ref > tile the reference axis is walked in tiles of ``tile``
+    (the last padded with +inf), so a real LINEMOD mesh never builds an
+    [n_que, n_ref] buffer larger than [n_que, tile]."""
+    n_ref = ref_pts.shape[-2]
+    if n_ref <= tile:
+        d2 = ((que_pts[..., :, None, :] - ref_pts[..., None, :, :]) ** 2
+              ).sum(-1)
+        return torch.sqrt(d2.amin(-1))
+    pad = (-n_ref) % tile
+    ref_padded = torch.cat(
+        [ref_pts, ref_pts.new_full(ref_pts.shape[:-2]
+                                   + (pad, ref_pts.shape[-1]), torch.inf)],
+        dim=-2)
+    best = que_pts.new_full(que_pts.shape[:-1], torch.inf)
+    for start in range(0, ref_padded.shape[-2], tile):
+        ref_tile = ref_padded[..., start:start + tile, :]
+        d2 = ((que_pts[..., :, None, :] - ref_tile[..., None, :, :]) ** 2
+              ).sum(-1)
+        best = torch.minimum(best, d2.amin(-1))
+    return torch.sqrt(best)
 
 
 def rodrigues(w: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,9 @@ lib/utils/evaluation_utils.py:19-52, and of its Ceres
 ``uncertainty_pnp``, ref extend_utils.py:63-114). Every
 function takes a leading batch dimension written out where the JAX code
 uses ``vmap``; all solvers run in float32 on conditioned (centred /
-normalized) points.
+normalized) points. K is one [3, 3] matrix for the whole batch or one per
+problem, [N, 3, 3] (the JAX package's ``*_batch_K`` forms, for per-image
+intrinsics), broadcast through the same code.
 
 The LM residual matches the reference's Ceres cost
 (ref uncertainty_pnp.cpp:25-31): r = [wxx*dx + wxy*dy, wxy*dx + wyy*dy].
@@ -39,6 +41,13 @@ def _repeat(x: torch.Tensor, k: int) -> torch.Tensor:
     """[N, ...] -> [N*k, ...], each problem repeated k times in a row."""
     return x[:, None].expand(x.shape[0], k, *x.shape[1:]).reshape(
         x.shape[0] * k, *x.shape[1:])
+
+
+def _intrinsics(K: torch.Tensor):
+    """(fx, fy, px, py) of K [3, 3] or [N, 3, 3], each shaped to broadcast
+    against per-point tensors [N, n]."""
+    return (K[..., 0, 0, None], K[..., 1, 1, None], K[..., 0, 2, None],
+            K[..., 1, 2, None])
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +211,7 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
     Args:
       pts3d: [N, n, 3] world points.
       pts2d: [N, n, 2] pixel observations.
-      K:     [3, 3] intrinsics.
+      K:     [3, 3] or [N, 3, 3] intrinsics.
       weights: optional [N, n] non-negative per-point weights.
 
     Returns:
@@ -215,7 +224,7 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
     ctrl_w = _control_points(pts3d, w)                      # [N, 4, 3]
     alphas = _barycentric(pts3d, ctrl_w)                    # [N, n, 4]
 
-    fx, fy, px, py = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    fx, fy, px, py = _intrinsics(K)
     u, v = pts2d[..., 0], pts2d[..., 1]
     zero = torch.zeros_like(u)
     row_u = torch.stack([fx.expand_as(u), zero, px - u], dim=-1)  # [N, n, 3]
@@ -260,7 +269,8 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
 
     pose_h = _homography_init(pts3d, pts2d, K, w)
     cands = torch.cat([pose_seeds, pose_h[:, None]], dim=1)  # [N, 6, 3, 4]
-    err = project(pts3d[:, None], cands, K) - pts2d[:, None]
+    err = project(pts3d[:, None], cands, K if K.ndim == 2 else K[:, None]) \
+        - pts2d[:, None]
     costs = (w[:, None] * (err * err).sum(-1)).sum(-1)      # [N, 6]
     costs = torch.where(torch.isnan(costs), torch.inf, costs)
     best = torch.argmin(costs, dim=1)
@@ -278,8 +288,9 @@ def _residuals(pose6: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
     R = rodrigues(pose6[:, :3])
     cam = pts3d @ R.transpose(-1, -2) + pose6[:, None, 3:]
     z = cam[..., 2].clamp(min=1e-5)
-    proj_x = K[0, 0] * cam[..., 0] / z + K[0, 2]
-    proj_y = K[1, 1] * cam[..., 1] / z + K[1, 2]
+    fx, fy, px, py = _intrinsics(K)
+    proj_x = fx * cam[..., 0] / z + px
+    proj_y = fy * cam[..., 1] / z + py
     dx = proj_x - pts2d[..., 0]
     dy = proj_y - pts2d[..., 1]
     r0 = w3[..., 0] * dx + w3[..., 1] * dy
@@ -354,7 +365,8 @@ def _lm_multi_start(pose0: torch.Tensor, pts3d: torch.Tensor,
     ts = (t0 + (R0 @ c[..., None])[..., 0])[:, None] \
         - (Rs @ c[:, None, :, None])[..., 0]                # [N, 4, 3]
     cands = torch.cat([Rs, ts[..., None]], dim=-1).reshape(N * 4, 3, 4)
-    poses, costs = lm_refine(cands, _repeat(pts3d, 4), _repeat(pts2d, 4), K,
+    poses, costs = lm_refine(cands, _repeat(pts3d, 4), _repeat(pts2d, 4),
+                             K if K.ndim == 2 else _repeat(K, 4),
                              _repeat(w3, 4), iters)
     best = torch.argmin(costs.reshape(N, 4), dim=1)
     return poses.reshape(N, 4, 3, 4)[torch.arange(N, device=poses.device),
@@ -365,8 +377,9 @@ def pnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
         iters: int = 16) -> torch.Tensor:
     """Plain PnP, batched: EPnP init + identity-weight multi-start LM.
 
-    pts3d [N, n, 3], pts2d [N, n, 2], K [3, 3] -> [N, 3, 4]. Functional
-    equivalent of the reference's ``pnp()`` (cv2.SOLVEPNP_ITERATIVE)."""
+    pts3d [N, n, 3], pts2d [N, n, 2], K [3, 3] or [N, 3, 3] -> [N, 3, 4].
+    Functional equivalent of the reference's ``pnp()``
+    (cv2.SOLVEPNP_ITERATIVE)."""
     w3 = pts3d.new_tensor([1.0, 0.0, 1.0]).expand(pts3d.shape)
     pose0 = epnp(pts3d, pts2d, K)
     return _lm_multi_start(pose0, pts3d, pts2d, K, w3, iters)
@@ -375,7 +388,8 @@ def pnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
 def pnp_batch(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
               iters: int = 16) -> torch.Tensor:
     """One object's keypoints pts3d [n, 3] shared by a batch of
-    observations pts2d [b, n, 2]; K [3, 3]. Returns poses [b, 3, 4]."""
+    observations pts2d [b, n, 2]; K [3, 3] or one per image [b, 3, 3].
+    Returns poses [b, 3, 4]."""
     b = pts2d.shape[0]
     return pnp(pts3d.expand(b, *pts3d.shape), pts2d, K, iters)
 
@@ -391,7 +405,7 @@ def uncertainty_pnp(pts2d: torch.Tensor, weights: torch.Tensor,
         typically inv_sqrtm_2x2 of the voting covariance (ref
         evaluation_utils.py:172-181); degenerate keypoints carry zeros.
       pts3d:   [N, n, 3] canonical 3D keypoints.
-      K:       [3, 3].
+      K:       [3, 3] or [N, 3, 3].
     Returns [N, 3, 4]: EPnP weighted by each matrix's trace, then the
     weighted multi-start LM."""
     pose0 = epnp(pts3d, pts2d, K, weights=weights[..., 0] + weights[..., 2])
@@ -403,7 +417,7 @@ def uncertainty_pnp_batch(pts2d: torch.Tensor, weights: torch.Tensor,
                           iters: int = 16) -> torch.Tensor:
     """:func:`uncertainty_pnp` for one object's keypoints pts3d [n, 3]
     shared by a batch of observations pts2d [b, n, 2] with weights
-    [b, n, 3]; K [3, 3]. Returns poses [b, 3, 4]."""
+    [b, n, 3]; K [3, 3] or [b, 3, 3]. Returns poses [b, 3, 4]."""
     b = pts2d.shape[0]
     return uncertainty_pnp(pts2d, weights, pts3d.expand(b, *pts3d.shape), K,
                            iters)

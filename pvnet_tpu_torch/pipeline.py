@@ -98,9 +98,10 @@ def poses_from_keypoints(points_3d: torch.Tensor, kps_2d: torch.Tensor,
                          covar: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Batched pose solve: points_3d [vn, 3], kps_2d [b, vn, 2], K [3, 3]
-    -> [b, 3, 4]. ``covar`` [b, vn, 2, 2] selects the uncertainty-weighted
-    solver, weighting each keypoint by covar^{-1/2}; keypoints whose
-    covariance is degenerate (var_x < 1e-6) or NaN get weight 0."""
+    or one per image [b, 3, 3] -> [b, 3, 4]. ``covar`` [b, vn, 2, 2]
+    selects the uncertainty-weighted solver, weighting each keypoint by
+    covar^{-1/2}; keypoints whose covariance is degenerate (var_x < 1e-6)
+    or NaN get weight 0."""
     if covar is None:
         return pnp_mod.pnp_batch(points_3d, kps_2d, K)
     W = inv_sqrtm_2x2(covar)
@@ -113,7 +114,8 @@ def poses_from_keypoints(points_3d: torch.Tensor, kps_2d: torch.Tensor,
 def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
                           max_num: int, noise: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None,
-                          dtype=torch.bfloat16, tail_depth: int = 1
+                          dtype=torch.bfloat16, tail_depth: int = 1,
+                          fcn_bf16: bool = False
                           ) -> voting.ForegroundSample:
     """Foreground sample through the packed inference tail.
 
@@ -122,24 +124,79 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
     the rest of the decoder on half-resolution packed lattices
     (ops/packed_tail.py) and samples the packed field directly through
     kernel K2; the full-resolution seg/ver tensors never exist.
-    ``noise`` [b, h/2, w/2] is the selection's optional draw."""
+    ``noise`` [b, h/2, w/2] is the selection's optional draw. fcn_bf16=True
+    runs the FCN stages before the tail under bfloat16 autocast (a bf16
+    recipe's model); the tail computes in ``dtype``."""
+    if tail_depth not in (1, 2, 3):
+        raise ValueError(f"tail_depth must be 1, 2 or 3; got {tail_depth}")
     x = image.permute(0, 3, 1, 2).contiguous()
+    features = {3: "return_8s_features", 2: "return_4s_features",
+                1: "return_2s_features"}[tail_depth]
+    with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                        enabled=fcn_bf16):
+        fm = model(x, **{features: True})
     if tail_depth == 3:
-        fm8, x4s, x2s = model(x, return_8s_features=True)
+        fm8, x4s, x2s = fm
         packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
             model, fm8, x4s, x2s, x, dtype=dtype)
     elif tail_depth == 2:
-        fm4, x2s = model(x, return_4s_features=True)
+        fm4, x2s = fm
         packed, fgcnt = packed_tail.packed_tail_deep_from_model(
             model, fm4, x2s, x, dtype=dtype)
-    elif tail_depth == 1:
-        fm2 = model(x, return_2s_features=True)
-        packed, fgcnt = packed_tail.packed_tail_from_model(model, fm2, x,
-                                                           dtype=dtype)
     else:
-        raise ValueError(f"tail_depth must be 1, 2 or 3; got {tail_depth}")
+        packed, fgcnt = packed_tail.packed_tail_from_model(model, fm, x,
+                                                           dtype=dtype)
     return voting.sample_foreground_packed(packed, fgcnt, max_num, noise,
                                            generator)
+
+
+@torch.no_grad()
+def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
+                       params: VoteParams = VoteParams(),
+                       noise: Optional[torch.Tensor] = None,
+                       pair_u: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       uncertainty: bool = False, fused_tail: bool = False,
+                       tail_depth: int = 1, tail_dtype=torch.bfloat16,
+                       cov_pair_u: Optional[torch.Tensor] = None,
+                       cov_noise: Optional[torch.Tensor] = None,
+                       fcn_bf16: bool = False
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                  torch.Tensor]:
+    """Normalized images [b, h, w, 3] -> (keypoints [b, vn, 2], their
+    covariance [b, vn, 2, 2] or None, foreground pixels [b] int32): the
+    fields (or the packed tail), voting and, with uncertainty, the
+    hypothesis covariance. See :func:`estimate_poses` for the options and
+    draws; fcn_bf16=True runs the FCN under bfloat16 autocast (a bf16
+    recipe's model) and votes on its output in float32."""
+    if fused_tail:
+        fg = fused_tail_foreground(model, images, params.max_num, noise,
+                                   generator, tail_dtype, tail_depth,
+                                   fcn_bf16)
+        kps = voting.ransac_voting_v3_from_fg(
+            fg, params.hyp_num, params.inlier_thresh, params.min_num,
+            pair_u, generator)
+        cov = None
+        if uncertainty:
+            _, cov = voting.estimate_voting_distribution_from_fg(
+                fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
+                cov_pair_u, generator)
+        fg_pixels = fg.total
+    else:
+        with torch.autocast(images.device.type, dtype=torch.bfloat16,
+                            enabled=fcn_bf16):
+            mask, vertex = predict_fields(model, images)
+        vertex = vertex.float()
+        if uncertainty:
+            kps, cov = keypoints_with_covariance(
+                mask, vertex, params, noise, pair_u, cov_noise, cov_pair_u,
+                generator)
+        else:
+            kps = keypoints_from_fields(mask, vertex, params, noise, pair_u,
+                                        generator)
+            cov = None
+        fg_pixels = (mask != 0).flatten(1).sum(1).to(torch.int32)
+    return kps, cov, fg_pixels
 
 
 @torch.no_grad()
@@ -164,29 +221,9 @@ def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
     optional (see ops/voting.py): ``noise`` and ``pair_u`` for the voting,
     ``cov_pair_u`` for the covariance pass, and on the plain path, which
     samples the foreground a second time for it, ``cov_noise``."""
-    if fused_tail:
-        fg = fused_tail_foreground(model, images, params.max_num, noise,
-                                   generator, tail_dtype, tail_depth)
-        kps = voting.ransac_voting_v3_from_fg(
-            fg, params.hyp_num, params.inlier_thresh, params.min_num,
-            pair_u, generator)
-        cov = None
-        if uncertainty:
-            _, cov = voting.estimate_voting_distribution_from_fg(
-                fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
-                cov_pair_u, generator)
-        fg_pixels = fg.total
-    else:
-        mask, vertex = predict_fields(model, images)
-        if uncertainty:
-            kps, cov = keypoints_with_covariance(
-                mask, vertex, params, noise, pair_u, cov_noise, cov_pair_u,
-                generator)
-        else:
-            kps = keypoints_from_fields(mask, vertex, params, noise, pair_u,
-                                        generator)
-            cov = None
-        fg_pixels = (mask != 0).flatten(1).sum(1).to(torch.int32)
+    kps, cov, fg_pixels = estimate_keypoints(
+        model, images, params, noise, pair_u, generator, uncertainty,
+        fused_tail, tail_depth, tail_dtype, cov_pair_u, cov_noise)
     pose = poses_from_keypoints(points_3d, kps, K, covar=cov)
     return PoseEstimate(pose, kps, fg_pixels)
 

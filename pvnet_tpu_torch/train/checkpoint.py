@@ -66,11 +66,13 @@ def load_model(state: TrainState, model_dir: str, epoch: int = -1
     return state, ckpt["epoch"] + 1
 
 
-def load_net(state: TrainState, model_dir: str) -> Tuple[TrainState, int]:
-    """Restore the latest network weights only, keeping the optimizer —
-    the reference's eval-time loader (ref net_utils.py:110-122). Returns
-    (state, epoch + 1), or (state, 0) when there is no checkpoint."""
-    ckpt = _read(model_dir, -1)
+def load_net(state: TrainState, model_dir: str, epoch: int = -1
+             ) -> Tuple[TrainState, int]:
+    """Restore the network weights of ``epoch`` (-1: the latest) only,
+    keeping the optimizer — the reference's eval-time loader (ref
+    net_utils.py:110-122). Returns (state, epoch + 1), or (state, 0) when
+    there is no checkpoint."""
+    ckpt = _read(model_dir, epoch)
     if ckpt is None:
         return state, 0
     state.model.load_state_dict(ckpt["net"])

@@ -1,27 +1,32 @@
-"""The device-data training loop (ref tools/train_linemod.py:132-175,
-305-347).
+"""The device-data training loop and the validation pass (ref
+tools/train_linemod.py:132-253, 305-347).
 
 Port of the ``device_data`` path of pvnet_tpu/train/loop.py (``TrainLoop``):
 the whole training set lives on the device as uint8 frames, each step
 gathers its minibatch there by index, augments it there, and trains; only
 the index vector and the random draws' seed come from the host. Per epoch:
 the learning rate from the schedule, the steps, a scalar record every
-``loss_rec_step`` steps, and a checkpoint.
+``loss_rec_step`` steps, a checkpoint, and on the JAX loop's schedule the
+validation pass (loss meters, and pose evaluation: FCN -> voting -> PnP ->
+ADD(-S) / 2D-projection / 5cm5deg, :meth:`TrainLoop.validate`).
 
 Not ported yet: the host-augmentation and host-batch paths (``PoseDataset``,
-``Prefetcher``), the per-epoch validation pass and pose evaluation, ImageNet
-backbone initialization, and int8 calibration.
+``Prefetcher``), ImageNet backbone initialization, int8 calibration and
+the intermediate-result dumps of ``--save_inter_result``.
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pvnet_tpu_torch.config import TrainConfig, VOTE_TYPE_TO_NUM
-from pvnet_tpu_torch.data.dataset import ImageSizeBatchSampler
+from pvnet_tpu_torch import pipeline as pl_mod
+from pvnet_tpu_torch.config import (LINEMOD_K, SYMMETRIC_CLS_NAMES,
+                                    TrainConfig, VOTE_TYPE_TO_NUM)
+from pvnet_tpu_torch.data.dataset import ImageSizeBatchSampler, eval_batches
+from pvnet_tpu_torch.eval.evaluator import Evaluator, ObjectMeta
 from pvnet_tpu_torch.models.pvnet import build_model
 from pvnet_tpu_torch.models.resnet import init_weights
 from pvnet_tpu_torch.train import trainer as trainer_mod
@@ -132,13 +137,126 @@ class TrainLoop:
               f"({steps} steps)", flush=True)
         return state, steps
 
+    # -- validation -------------------------------------------------------
+    def eval_pipeline(self, hw: Tuple[int, int], uncertainty: bool,
+                      vote_params: Optional[pl_mod.VoteParams] = None,
+                      tail_depth: int = 0) -> Callable:
+        """The forward + vote of the pose evaluation for images of size
+        ``hw``: fwd(model, image, generator, **draws) -> keypoints
+        [b, vn, 2], or (mean, cov [b, vn, 2, 2]) with uncertainty, on
+        normalized images [b, h, w, 3]. The FCN runs in the recipe's dtype
+        (bf16 autocast when cfg.bf16), voting in float32.
+
+        tail_depth 0 is the plain full-resolution path; 1-3 run the packed
+        tail of that depth (pipeline.fused_tail_foreground) in the recipe's
+        dtype, and fall back to 0 where h or w is not a multiple of 8 (the
+        truncated split's crops), as the JAX loop does. ``draws`` are the
+        optional noise / pair_u / cov_noise / cov_pair_u of
+        pipeline.estimate_keypoints."""
+        if tail_depth > 0 and (hw[0] % 8 or hw[1] % 8):
+            tail_depth = 0
+        params = vote_params or pl_mod.VoteParams()
+        bf16 = self.cfg.bf16
+
+        def fwd(model, image, generator=None, **draws):
+            model.eval()        # frozen BatchNorm statistics (train=False)
+            kps, cov, _ = pl_mod.estimate_keypoints(
+                model, image, params, generator=generator,
+                uncertainty=uncertainty, fused_tail=tail_depth > 0,
+                tail_depth=tail_depth,
+                tail_dtype=torch.bfloat16 if bf16 else torch.float32,
+                fcn_bf16=bf16, **draws)
+            return (kps, cov) if uncertainty else kps
+
+        return fwd
+
+    def validate(self, state, loader: Iterable[Dict[str, np.ndarray]],
+                 epoch: int, prefix: str = "val",
+                 evaluate_pose: bool = False, uncertainty: bool = False,
+                 use_camera_intrinsic: bool = False,
+                 evaluator: Optional[Evaluator] = None,
+                 vote_params: Optional[pl_mod.VoteParams] = None,
+                 tail_depth: int = 0,
+                 draws: Optional[Callable[..., Dict[str, torch.Tensor]]]
+                 = None) -> Dict[str, float]:
+        """(ref val() :177-253) The loss meters of every batch (trainer's
+        eval_step) and, with evaluate_pose, the poses of every image
+        through the evaluator; returns the averaged scalars, the three
+        rates among them.
+
+        ``loader`` yields batches of data.dataset.eval_batches. Poses use
+        LINEMOD_K for every image unless use_camera_intrinsic (then the
+        batch's own K). The draws come from a generator seeded 0 on the
+        loop's device, or from ``draws(bidx, b, h, w)`` where given (a
+        dict of tensors for :meth:`eval_pipeline`'s fwd)."""
+        meters = {k: AverageMeter() for k in _METRICS}
+        gen = torch.Generator(self.device).manual_seed(0)
+        begin = time.time()
+        for bidx, batch in enumerate(loader):
+            image = pl_mod.normalize_images(
+                torch.from_numpy(np.ascontiguousarray(batch["image"]))
+                .to(self.device))
+            dev = {"image": image.permute(0, 3, 1, 2).contiguous(),
+                   "mask": torch.from_numpy(np.asarray(batch["mask"],
+                                                       np.int32))
+                   .to(self.device),
+                   "hcoords": torch.from_numpy(batch["hcoords"])
+                   .to(self.device)}
+            metrics = trainer_mod.eval_step(
+                state, dev, self.cfg.vertex_loss_ratio,
+                self.cfg.motion_model, self.cfg.bf16)
+            for k, m in meters.items():
+                m.update(float(metrics[k]))
+
+            if evaluate_pose and evaluator is not None:
+                b, h, w = dev["mask"].shape
+                fwd = self.eval_pipeline((h, w), uncertainty, vote_params,
+                                         tail_depth)
+                Ks = (batch["K"] if use_camera_intrinsic
+                      else np.broadcast_to(LINEMOD_K, (b, 3, 3)))
+                extra = draws(bidx, b, h, w) if draws is not None else {}
+                out = fwd(state.model, image, gen, **extra)
+                if uncertainty:
+                    evaluator.evaluate_uncertainty_batch(*out, batch["pose"],
+                                                         Ks)
+                else:
+                    evaluator.evaluate_batch(out, batch["pose"], Ks)
+
+        losses = {f"{prefix}/scalar/{k}": m.avg for k, m in meters.items()}
+        if evaluate_pose and evaluator is not None:
+            proj, add, cm = evaluator.average_precision(verbose=True)
+            losses[f"{prefix}/scalar/projection_error"] = proj
+            losses[f"{prefix}/scalar/add"] = add
+            losses[f"{prefix}/scalar/cm"] = cm
+        self.recorder.rec_loss_batch(losses, epoch, epoch, prefix)
+        print(f"epoch {epoch} {prefix} cost {time.time() - begin:.1f} s",
+              flush=True)
+        return losses
+
+    def object_meta(self, split: Dict[str, np.ndarray],
+                    cls_name: str = "duck") -> ObjectMeta:
+        """The evaluator's metadata of a split's object (points_3d,
+        model_pts, diameter; ADD-S for the symmetric classes)."""
+        return ObjectMeta(
+            points_3d=np.asarray(split["points_3d"], np.float32),
+            model_pts=np.asarray(split["model_pts"], np.float32),
+            diameter=float(split["diameter"]),
+            symmetric=cls_name in SYMMETRIC_CLS_NAMES, name=cls_name)
+
     # -- orchestration ----------------------------------------------------
     def fit(self, images: np.ndarray, masks: np.ndarray, hcoords: np.ndarray,
             init: Optional[str] = None, epochs: Optional[int] = None,
-            max_steps: Optional[int] = None) -> trainer_mod.TrainState:
+            max_steps: Optional[int] = None,
+            val: Optional[Dict[str, np.ndarray]] = None
+            ) -> trainer_mod.TrainState:
         """Full training run with resume and a checkpoint per epoch
         (ref train_net() :305-347); stops after ``max_steps`` steps in all
-        when given, saving the epoch it stopped in."""
+        when given, saving the epoch it stopped in. With a validation split
+        ``val`` (the fixture's layout plus model_pts and diameter), the
+        validation pass runs on the JAX loop's schedule: with pose
+        evaluation every ``eval_inter`` epochs from ``eval_epoch_begin``
+        when cfg.eval_epoch, the loss meters alone every ``val_inter``
+        epochs and after the last epoch."""
         state = self.init_state(init)
         state, begin_epoch = self.resume(state)
         data = self.build_device_dataset(images, masks, hcoords)
@@ -158,6 +276,18 @@ class TrainLoop:
                                                       epoch, left)
             save_model(state, epoch, self.model_dir,
                        keep=self.cfg.checkpoint_keep)
+            do_eval = (self.cfg.eval_epoch
+                       and epoch % self.cfg.eval_inter == 0
+                       and epoch >= self.cfg.eval_epoch_begin)
+            if val is not None and (do_eval
+                                    or epoch % self.cfg.val_inter == 0
+                                    or epoch == end_epoch - 1):
+                self.validate(
+                    state, eval_batches(val, self.cfg.test_batch_size),
+                    epoch, evaluate_pose=do_eval,
+                    evaluator=(Evaluator(self.object_meta(val),
+                                         device=self.device)
+                               if do_eval else None))
             if left is not None:
                 left -= steps
                 if left <= 0:

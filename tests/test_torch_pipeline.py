@@ -269,17 +269,35 @@ def test_port_imports_and_infers_without_jax(tmp_path):
             f" {str(tmp_path / 'views.npz')!r}, '--images',"
             f" {str(tmp_path / 'views.npz')!r}, '--device', 'cpu',"
             " '--batch', '1', '--output', ")
+    # and the evaluation entry: --test_model on a 4-image split (its test
+    # half, 2 images at 480x640, generated, cached and evaluated)
+    test_model = ["train", "--test_model", "--synthetic",
+                  "--synthetic_images", "4", "--synthetic_occluder_prob",
+                  "0.5", "--synthetic_clutter", "2", "--init", CKPT,
+                  "--device", "cpu", "--data_dir", str(tmp_path / "data"),
+                  "--model_dir", str(tmp_path / "model")]
     code = (
         "import runpy\n"
         "import pvnet_tpu_torch.ops.voting, pvnet_tpu_torch.ops.pnp\n"
         "import pvnet_tpu_torch.pipeline, pvnet_tpu_torch.infer\n"
+        "import pvnet_tpu_torch.eval, pvnet_tpu_torch.data.synthetic\n"
         f"argv = {argv}{str(out3)!r}, '--tail_depth', '3',"
         " '--uncertainty']\n"
         "assert pvnet_tpu_torch.infer.main(argv[1:]) == 0\n"
+        f"sys.argv = {test_model!r}\n"
+        "try:\n"
+        "    runpy.run_module('pvnet_tpu_torch.train', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         f"sys.argv = {argv}{str(out)!r}]\n"
         "runpy.run_module('pvnet_tpu_torch.infer', run_name='__main__')\n")
     proc = _run_blocked(code, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
+    rates = json.loads(next(line for line in proc.stdout.splitlines()
+                            if line.startswith('{"images"')))
+    assert rates["images"] == 2 and rates["dtype"] == "bf16"
+    assert all(0.0 <= rates[k] <= 1.0 for k in ("proj", "add", "cm"))
+    assert list((tmp_path / "data").glob("synthetic_duck_4_*.npz"))
     for path in (out, out3):
         rows = [json.loads(line) for line in path.read_text().splitlines()]
         assert len(rows) == 2
