@@ -14,13 +14,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
     path's [16, 240, 320] score and [16, 240, 320, 80] field in float32
     and bfloat16, a=8, bb=16), K1 also at tn=1024 (a=32, bb=32), K1 and
     K2 also on a tie-heavy map (integer scores), K2 also at b=1 and b=64,
-    and K3 also at tn=500, hn=37 and vn=1 with invalid slots: exact
-    equality required (K1 and K2 bit for bit); time both with CUDA events,
-    the timed launches queued behind a sleep kernel so that the events
-    time the device: warm (the same inputs every launch, as the path
-    finds them in the L2 cache) and, for K1 and K2, cold (the score
-    rotated over copies that exceed the 50 MB L2); time an empty kernel
-    the same way (the launch floor);
+    and K3 also at tn=500, hn=37 and vn=1 with invalid slots; K3's bf16
+    mode (count_inliers_bf16) against its plain bf16 version at the same
+    shapes: exact equality required (K1 and K2 bit for bit); time both
+    with CUDA events, the timed launches queued behind a sleep kernel so
+    that the events time the device: warm (the same inputs every launch,
+    as the path finds them in the L2 cache) and cold (K1 and K2: the score
+    rotated over copies that exceed the 50 MB L2; K3 and its bf16 mode:
+    all inputs rotated); time an empty kernel the same way (the launch
+    floor);
 (c') hold the row-shift kernels K4 (shift_lanes) and K5 (shift_sublanes)
     against their plain versions at the training path's shapes (K4: pass V
     [64, 640, 480] and pass H [64, 480, 640]; K5: [64, 480, 640]), float32
@@ -28,6 +30,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
     [2, 2000, 41] in four dtypes: exact equality required; time kernel,
     plain version and torch.gather with a precomputed index (the library
     yardstick), K3's and K5's times beside those before their redesign;
+(c'') the int8 convolution route (ops/quant_conv.conv_int8_acc: gathered
+    taps through torch._int_mm) against its float64 plain version, int32
+    accumulators equal exactly, at every distinct quantized convolution
+    shape of the production preset at b=16, 480x640 (recorded from one
+    forward of the int8 model through the packed tail's int8 branch),
+    each timed beside cuDNN's bf16 and f32 convolution of the same shape;
 (d) the serving path: load assets/duck_ckpt.msgpack with the port's
     reader, full float32 (no TF32), and answer 3 requests of 16 images (the
     fixture assets/duck_views_480x640.npz tiled, with per-image brightness
@@ -79,8 +87,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
     the tolerances that follow, and equal pass/fail except within 1e-3
     (relative) of a threshold. Prints the seconds of generation and evaluation and the
     evaluation's images/s;
-(e) print the kernels' JSON line (K1 and K2 with their cold times), then,
-    as the last line, {"ok": true, "device": {...}}.
+(i) the production preset (tools/infer.py --cfg_file <recipe> --quant,
+    bench.py's preset): configs/synthetic_train.json (bf16 FCN and tail),
+    int8 stages 0-3 with static scales calibrated on a request's first 8
+    images, tail_depth 3, bf16 counts (impl='bf16'); 3 + 3 requests of 16
+    images through infer_batch without and with uncertainty. Checks:
+    finite poses; per variant K2 once per request, K3's bf16 mode once
+    (twice with uncertainty), K1 and K3's f32 mode never, the int8 route
+    once per quantized convolution (19 per request); view 0 within 5 cm /
+    5 deg; from the same packed field and draws the card path equals the
+    CPU path as in (g). Prints latency and stage ms beside (g)'s and (d)'s.
+    Then, on (h)'s 64 images, float32 with int8 static scales at
+    tail_depth 3, plain and uncertainty, with the scales the port
+    calibrates (TrainLoop.calibrate_quant on images 1228-1235) and with
+    JAX's (utils.weights.quant_from_flax), each over three RANSAC seeds as
+    the JAX reference: the mean of each rate over the seeds within the
+    reference's range over its three seeds widened by two images
+    (assets/duck_eval_occ64_int8.json); the bf16 preset's rates printed,
+    and the largest relative difference between the port's calibrated
+    scales and JAX's;
+(e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
+    bf16 mode with their cold times), then, as the last line,
+    {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -94,6 +122,9 @@ T_START = time.time()
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "assets", "duck_views_480x640.npz")
 EVAL_REFERENCE = os.path.join(REPO, "assets", "duck_eval_occ64.json")
+INT8_REFERENCE = os.path.join(REPO, "assets", "duck_eval_occ64_int8.json")
+RECIPE = os.path.join(REPO, "configs", "synthetic_train.json")
+QUANT_STAGES = (0, 1, 2, 3)
 CKPT = os.path.join(REPO, "assets", "duck_ckpt.msgpack")
 BATCH, H, W, VN = 16, 480, 640, 9
 N_REQUESTS = 3
@@ -111,6 +142,13 @@ INSTR_PER_S = 132 * 128 * 1.98e9
 # compares (d2 > eps; dot*|dot| > t2*d2*n2, which folds dot > 0 in) and
 # one predicated count; the |n|^2 and valid tests are per pixel
 K3_INSTR_PER_PAIR = 16
+# K3's bf16 mode per (hypothesis, valid pixel, keypoint) pair: 11 bf16
+# operations (dx, dy, two products and a sum for dot, two and one for d2,
+# dot^2, t2*d2, *n2) and 3 compares; at the bf16x2 rate (two lanes an
+# instruction) that is 2 * INSTR_PER_S operations a second
+K3_BF16_OPS_PER_PAIR = 14
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet, 700 W)
+INT8_OPS_PER_S = 1979e12
 # device times at the main-path shapes before each kernel's Hopper
 # redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table): K3
 # (kernel, back to back), K5, K1 and K2 (f32, bf16)
@@ -146,12 +184,19 @@ def cuda_ms(fn, iters: int = 50, head_start: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _nbytes(x) -> int:
+    """Bytes of a tensor, or of the tensors of a (nested) tuple."""
+    if isinstance(x, (tuple, list)):
+        return sum(_nbytes(t) for t in x)
+    return x.numel() * x.element_size()
+
+
 def cold_ms(fn, inputs) -> float:
-    """cuda_ms of fn(x) with x rotated over ``inputs``, whose bytes together
-    exceed the L2 cache, so that each launch reads its input from device
-    memory."""
+    """cuda_ms of fn(x) with x rotated over ``inputs`` (tensors, or tuples
+    of them), whose bytes together exceed the L2 cache, so that each launch
+    reads its input from device memory."""
     import itertools
-    nbytes = sum(x.numel() * x.element_size() for x in inputs)
+    nbytes = sum(_nbytes(x) for x in inputs)
     assert nbytes > L2_BYTES, nbytes
     it = itertools.cycle(inputs)
     return cuda_ms(lambda: fn(next(it)))
@@ -248,8 +293,9 @@ def check_kernels(dev, fixture):
     k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
     print(f"K1 bound {k1_bound:.4f} ms ({k1_bytes / 1e6:.2f} MB at 3.35 "
           f"TB/s); no single PyTorch call computes it", flush=True)
-    k3 = check_k3(dev, g, voting.sample_foreground(mask, field, 512,
-                                                   noise=noise))
+    fg = voting.sample_foreground(mask, field, 512, noise=noise)
+    k3 = check_k3(dev, g, fg)
+    k3_bf16 = check_k3_bf16(dev, g, fg)
     k2 = check_k2(dev, g)
     return [
         {"name": "stratified_select_cmajor", "route": "cuda",
@@ -259,6 +305,7 @@ def check_kernels(dev, fixture):
          "cold_ms": k1_cold, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes", "library_ms": None},
         k3,
+        k3_bf16,
         k2,
     ]
 
@@ -308,6 +355,9 @@ def check_k3(dev, g, fg):
     def run():
         return voting.count_inliers(fg, hyps, 0.99)
     ms, b2b = cuda_ms(run), cuda_ms(run, head_start=False)
+    copies = k3_copies(fg, hyps)
+    cold = cold_ms(lambda a: voting.count_inliers(a[0], a[1], 0.99), copies)
+    del copies
     plain_ms = cuda_ms(lambda: voting.count_inliers_plain(fg, hyps, 0.99))
     lib, counts = kernel_lib.library(), torch.empty_like(got)
     assert all(t.is_contiguous() for t in (*fg[:3], hyps))
@@ -323,7 +373,8 @@ def check_k3(dev, g, fg):
     print(f"K3 count_inliers [b={BATCH}, hn=512, vn={VN}, tn=512] (max "
           f"count {int(got.max())}; also exact at hn=1024, tn=500, hn=37, "
           f"vn=1 with invalid slots): kernel {ms:.4f} ms (before the "
-          f"redesign: {BEFORE_MS['K3']}), back to back {b2b:.4f} ms (before:"
+          f"redesign: {BEFORE_MS['K3']}), {cold:.4f} ms cold, back to back "
+          f"{b2b:.4f} ms (before:"
           f" {BEFORE_MS['K3 back to back']}), without the pixel split "
           f"{nosplit_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
           f"{bound:.4f} ms ({pairs / 1e6:.2f} M pairs x "
@@ -333,7 +384,74 @@ def check_k3(dev, g, fg):
     return {"name": "count_inliers", "route": "cuda",
             "source": "pvnet_tpu_torch/csrc/count_inliers.cu",
             "replaces": "pvnet_tpu/ops/voting.py:519",
-            "launches": None, "max_abs_err": err, "ms": ms,
+            "launches": None, "max_abs_err": err, "ms": ms, "cold_ms": cold,
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": None}
+
+
+def k3_copies(fg, hyps):
+    """Copies of a K3 launch's inputs whose bytes together exceed the L2
+    cache, for its cold time."""
+    n = L2_BYTES // _nbytes((fg, hyps)) + 2
+    return [(type(fg)(*(t.clone() for t in fg)), hyps.clone())
+            for _ in range(n)]
+
+
+def check_k3_bf16(dev, g, fg):
+    """K3's bf16 mode against its plain bf16 version, exactly: on the main
+    path's sample with hn=512 and the covariance pass's hn=1024, and on
+    K3's edge shapes of phase (c) (random samples with invalid slots at
+    tn=500, hn=37 and vn=1). Times warm and cold at the main-path shape,
+    and the plain version."""
+    import torch
+    from pvnet_tpu_torch.ops import voting
+
+    def exact(fg, hyps):
+        got = voting.count_inliers(fg, hyps, 0.99, impl="bf16")
+        want = voting.count_inliers_plain_bf16(fg, hyps, 0.99)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == torch.int32
+        err = float((got - want).abs().max())
+        assert err == 0.0 and torch.equal(got, want), \
+            f"K3 bf16 {tuple(hyps.shape)} disagrees with its plain version"
+        return got, err
+
+    hyps = voting.generate_hypotheses(fg, 512, generator=g)
+    got, err = exact(fg, hyps)
+    exact(fg, voting.generate_hypotheses(fg, 1024, generator=g))
+    for b, tn, vn, hn in ((BATCH, 500, VN, 512), (BATCH, 512, VN, 37),
+                          (4, 512, 1, 512)):
+        hyp = torch.rand((b, hn, vn, 2), generator=g, device=dev) * 140 - 20
+        exact(random_sample(dev, g, b, tn, vn), hyp)
+    f32 = voting.count_inliers(fg, hyps, 0.99)
+    same = float((got == f32).float().mean())
+
+    def run():
+        return voting.count_inliers(fg, hyps, 0.99, impl="bf16")
+    ms = cuda_ms(run)
+    copies = k3_copies(fg, hyps)
+    cold = cold_ms(lambda a: voting.count_inliers(a[0], a[1], 0.99,
+                                                  impl="bf16"), copies)
+    del copies
+    plain_ms = cuda_ms(lambda: voting.count_inliers_plain_bf16(fg, hyps,
+                                                               0.99))
+    pairs = int(fg.valid.sum()) * 512 * VN
+    nbytes = _nbytes((fg.coords, fg.dirs, fg.valid, hyps, got))
+    bound = max(pairs * K3_BF16_OPS_PER_PAIR / (2 * INSTR_PER_S),
+                nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"K3 count_inliers bf16 mode [b={BATCH}, hn=512, vn={VN}, tn=512]"
+          f" (equal to its plain version, also at hn=1024, tn=500, hn=37, "
+          f"vn=1 with invalid slots; {same * 100:.2f} % of its counts equal "
+          f"the f32 mode's): kernel {ms:.4f} ms warm, {cold:.4f} ms cold; "
+          f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({pairs / 1e6:.2f}"
+          f" M pairs x {K3_BF16_OPS_PER_PAIR} bf16 operations at "
+          f"{2 * INSTR_PER_S / 1e12:.1f} T/s, bf16x2); no single PyTorch "
+          f"call computes it", flush=True)
+    return {"name": "count_inliers_bf16", "route": "cuda",
+            "source": "pvnet_tpu_torch/csrc/count_inliers.cu",
+            "replaces": "pvnet_tpu/ops/voting.py:519",
+            "computes": "pvnet_tpu/ops/voting.py:610",
+            "launches": None, "max_abs_err": err, "ms": ms, "cold_ms": cold,
             "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations", "library_ms": None}
 
@@ -637,12 +755,14 @@ def run_pipeline(dev, fixture, kernels):
     print(f"stage ms (median of 3 requests of {BATCH} images): "
           + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
           + f"; sum {sum(med.values()):.3f}", flush=True)
-    return latencies
+    return latencies, med
 
 
-def packed_stage_ms(model, images_u8, pts, K, params, dev, uncertainty):
+def packed_stage_ms(model, images_u8, pts, K, params, dev, uncertainty,
+                    bf16=False, impl=None):
     """Per-stage milliseconds of one packed-path request (tail_depth 3,
-    float32), from CUDA events."""
+    float32, or with bf16 the FCN under bfloat16 autocast and a bfloat16
+    tail; ``impl`` the count's mode), from CUDA events."""
     import torch
     from pvnet_tpu_torch import pipeline as pl
     from pvnet_tpu_torch.ops import packed_tail, voting
@@ -656,16 +776,18 @@ def packed_stage_ms(model, images_u8, pts, K, params, dev, uncertainty):
         x = x.permute(0, 3, 1, 2).contiguous()
         torch.cuda.synchronize()
         ev[0].record()
-        fm8, x4s, x2s = model(x, return_8s_features=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+            fm8, x4s, x2s = model(x, return_8s_features=True)
         ev[1].record()
         packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
-            model, fm8, x4s, x2s, x, dtype=torch.float32)
+            model, fm8, x4s, x2s, x,
+            dtype=torch.bfloat16 if bf16 else torch.float32)
         ev[2].record()
         fg = voting.sample_foreground_packed(packed, fgcnt, params.max_num,
                                              generator=g)
         ev[3].record()
         hyps = voting.generate_hypotheses(fg, params.hyp_num, generator=g)
-        counts = voting.count_inliers(fg, hyps, params.inlier_thresh)
+        counts = voting.count_inliers(fg, hyps, params.inlier_thresh, impl)
         ev[4].record()
         kps = voting.vote_argmax_refine(fg, hyps, counts,
                                         params.inlier_thresh, params.min_num)
@@ -674,7 +796,7 @@ def packed_stage_ms(model, images_u8, pts, K, params, dev, uncertainty):
         if uncertainty:
             _, cov = voting.estimate_voting_distribution_from_fg(
                 fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
-                generator=g)
+                generator=g, impl=impl)
             ev[6].record()
         pl.poses_from_keypoints(pts, kps, K, covar=cov)
         ev[-1].record()
@@ -758,11 +880,37 @@ def run_packed(dev, fixture, kernels, plain_latencies):
 
     # the card path against the CPU path from the same packed field,
     # fgcnt and draws
-    noise = torch.rand((BATCH, H // 2, W // 2), generator=gen, device=dev)
-    pair_u = torch.rand((BATCH, params.hyp_num, 2), generator=gen,
-                        device=dev)
-    cov_u = torch.rand((BATCH, params.uncertainty_hyp_num, 2),
-                       generator=gen, device=dev)
+    packed_card_vs_cpu(packed, fgcnt, pts, K, params, gen, dev)
+
+    meds = {}
+    for unc in (False, True):
+        stages = [packed_stage_ms(model, request_images(views, r)[0], pts, K,
+                                  params, dev, unc) for r in range(3)]
+        med = {k: sorted(s[k] for s in stages)[1] for k in stages[0]}
+        print(f"packed path stage ms, uncertainty={unc} (median of 3 "
+              f"requests of {BATCH} images): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+              + f"; sum {sum(med.values()):.3f}", flush=True)
+        meds[unc] = med
+    return meds
+
+
+def packed_card_vs_cpu(packed, fgcnt, pts, K, params, gen, dev, impl=None,
+                       what="packed"):
+    """From the same packed field, fgcnt and draws, the card path equals
+    the CPU path in selection, hypotheses and counts (the voting's and the
+    covariance pass's, in the count mode ``impl``), keypoints within
+    1e-2 px, poses (plain and uncertainty) within 0.05 deg / 1 mm."""
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.ops import voting
+
+    b = packed.shape[0]
+    noise = torch.rand((b,) + tuple(packed.shape[1:3]), generator=gen,
+                       device=dev)
+    pair_u = torch.rand((b, params.hyp_num, 2), generator=gen, device=dev)
+    cov_u = torch.rand((b, params.uncertainty_hyp_num, 2), generator=gen,
+                       device=dev)
     outs = []
     with torch.no_grad():
         for where in (dev, torch.device("cpu")):
@@ -771,17 +919,18 @@ def run_packed(dev, fixture, kernels, plain_latencies):
                 noise=noise.to(where))
             hyps = voting.generate_hypotheses(fg, params.hyp_num,
                                               pair_u=pair_u.to(where))
-            counts = voting.count_inliers(fg, hyps, params.inlier_thresh)
+            counts = voting.count_inliers(fg, hyps, params.inlier_thresh,
+                                          impl)
             kps = voting.vote_argmax_refine(fg, hyps, counts,
                                             params.inlier_thresh,
                                             params.min_num)
             cov_hyps = voting.generate_hypotheses(
                 fg, params.uncertainty_hyp_num, pair_u=cov_u.to(where))
             cov_counts = voting.count_inliers(fg, cov_hyps,
-                                              params.inlier_thresh)
+                                              params.inlier_thresh, impl)
             _, cov = voting.estimate_voting_distribution_from_fg(
                 fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
-                pair_u=cov_u.to(where))
+                pair_u=cov_u.to(where), impl=impl)
             p_w, K_w = pts.to(where), K.to(where)
             outs.append([t.cpu() for t in (
                 *fg, hyps, counts, cov_hyps, cov_counts, kps,
@@ -790,7 +939,7 @@ def run_packed(dev, fixture, kernels, plain_latencies):
     names = ("coords", "dirs", "valid", "count", "total", "hyps", "counts",
              "covariance hyps", "covariance counts")
     for name, x, y in zip(names, outs[0], outs[1]):
-        assert torch.equal(x, y), f"packed card path != CPU path on {name}"
+        assert torch.equal(x, y), f"{what} card path != CPU path on {name}"
     kp_diff = float((outs[0][9] - outs[1][9]).abs().max())
     diffs = []
     for i in (10, 11):
@@ -801,22 +950,14 @@ def run_packed(dev, fixture, kernels, plain_latencies):
         ang = torch.rad2deg(2 * torch.asin((chord / 8 ** 0.5).clamp(max=1)))
         diffs.append((float(ang.max()),
                       float((pg[:, :, 3] - pc[:, :, 3]).abs().max())))
-    print(f"packed card path vs CPU path, same field and draws: selection, "
+    print(f"{what} card path vs CPU path, same field and draws"
+          f"{'' if impl is None else ', ' + impl + ' counts'}: selection, "
           f"hypotheses and counts (both passes) equal; keypoints max diff "
           f"{kp_diff:.3e} px; poses max diff {diffs[0][0]:.3e} deg, "
           f"{diffs[0][1]:.3e} m; uncertainty poses {diffs[1][0]:.3e} deg, "
           f"{diffs[1][1]:.3e} m", flush=True)
     assert kp_diff < 1e-2
     assert all(r < 0.05 and t < 1e-3 for r, t in diffs), diffs
-
-    for unc in (False, True):
-        stages = [packed_stage_ms(model, request_images(views, r)[0], pts, K,
-                                  params, dev, unc) for r in range(3)]
-        med = {k: sorted(s[k] for s in stages)[1] for k in stages[0]}
-        print(f"packed path stage ms, uncertainty={unc} (median of 3 "
-              f"requests of {BATCH} images): "
-              + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
-              + f"; sum {sum(med.values()):.3f}", flush=True)
 
 
 def run_training(dev, kernels):
@@ -992,14 +1133,16 @@ def eval_draws(b, params, uncertainty, tail_depth, dev):
     return {k: v.to(dev) for k, v in d.items()}
 
 
-def eval_loop(bf16, device):
-    """A TrainLoop of the synthetic recipe in the given dtype on ``device``
-    and its state with the duck checkpoint's weights."""
+def eval_loop(bf16, device, **recipe):
+    """A TrainLoop of the synthetic recipe in the given dtype (and the
+    recipe fields ``recipe``) on ``device`` and its state with the duck
+    checkpoint's weights."""
     from pvnet_tpu_torch.config import TrainConfig
     from pvnet_tpu_torch.train.loop import TrainLoop
-    cfg = TrainConfig.from_json(os.path.join(REPO, "configs",
-                                             "synthetic_train.json"))
+    cfg = TrainConfig.from_json(RECIPE)
     cfg.bf16 = bf16
+    for k, v in recipe.items():
+        setattr(cfg, k, v)
     loop = TrainLoop(cfg, model_dir="", device=device)
     return loop, loop.init_state(CKPT)
 
@@ -1207,6 +1350,313 @@ def run_evaluation(dev):
     print(f"(h) generation {gen_s:.2f} s, evaluation {eval_s:.2f} s "
           f"({6 * n / eval_s:.1f} images/s over the six passes)",
           flush=True)
+    return split
+
+
+def check_int8_route(dev, fixture):
+    """Phase (c''): the int8 convolution route (gathered taps through
+    torch._int_mm) against its float64 plain version, int32 accumulators
+    equal exactly, at every distinct quantized convolution shape of the
+    preset at b=16, 480x640: recorded from one forward of the int8 model
+    (stages 0-3) through the packed tail with its int8 branch. Each timed
+    beside cuDNN's bf16 and f32 (TF32 off) convolution of the same shape,
+    the library yardsticks, and the whole conv2d_int8 (scale, quantize,
+    route, dequantize) from a bf16 input."""
+    import torch
+    import torch.nn.functional as F
+    from pvnet_tpu_torch import infer, pipeline as pl
+    from pvnet_tpu_torch.config import TrainConfig
+    from pvnet_tpu_torch.ops import quant_conv as Q
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = infer.load_model(CKPT, VN, dev, TrainConfig.from_json(RECIPE),
+                             quant_stages=QUANT_STAGES, quant_mode="dynamic")
+    x = pl.normalize_images(torch.from_numpy(
+        request_images(fixture["images"], -3)[0]).to(dev))
+    shapes, route = {}, Q.conv_int8_acc
+
+    def record(q, w_q, stride=1, padding=0, dilation=1):
+        key = (tuple(q.shape), tuple(w_q.shape), Q._pair(stride),
+               Q._pair(padding), Q._pair(dilation))
+        shapes.setdefault(key, 0)
+        shapes[key] += 1
+        return route(q, w_q, stride, padding, dilation)
+
+    # the route counts its launches on the module's conv_int8_acc, which
+    # is ``record`` while it records
+    record.launches = 0
+    Q.conv_int8_acc = record
+    try:
+        with torch.no_grad():
+            pl.fused_tail_foreground(model, x, 512, dtype=torch.bfloat16,
+                                     tail_depth=3, fcn_bf16=True,
+                                     tail_quant=True)
+    finally:
+        Q.conv_int8_acc = route
+    del model, x
+    g = torch.Generator(device=dev).manual_seed(11)
+    entries = []
+    for (qs, ws, stride, pad, dil), uses in shapes.items():
+        q = torch.randint(-127, 128, qs, generator=g, device=dev,
+                          dtype=torch.int8)
+        w_q = torch.randint(-127, 128, ws, generator=g, device=dev,
+                            dtype=torch.int8)
+        t0 = time.time()
+        want = Q.conv_int8_acc_plain(q, w_q, stride, pad, dil)
+        torch.cuda.synchronize()
+        plain_s = time.time() - t0
+        got = route(q, w_q, stride, pad, dil)
+        assert got.dtype == torch.int32 and torch.equal(got, want), \
+            f"int8 route {qs} x {ws} disagrees with its plain version"
+        del want
+        xb = (q.float() * 0.01).to(torch.bfloat16)
+        wf = w_q.float() * 0.01
+        args = (stride, pad, dil)
+        route_ms = cuda_ms(lambda: route(q, w_q, *args), iters=10)
+        qconv_ms = cuda_ms(lambda: Q.conv2d_int8(xb, wf, *args), iters=10)
+        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wf.to(torch.bfloat16), None,
+                                           *args), iters=10)
+        xf = xb.float()
+        f32_ms = cuda_ms(lambda: F.conv2d(xf, wf, None, *args), iters=10)
+        m, n = got.shape[0] * got.shape[2] * got.shape[3], ws[0]
+        k = ws[1] * ws[2] * ws[3]
+        ops = 2 * m * n * k
+        nbytes = q.numel() + w_q.numel() + got.numel() * 4
+        bound = max(ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        print(f"int8 route {list(qs)} * {list(ws)} stride {stride[0]} pad "
+              f"{pad[0]} dilation {dil[0]} (M={m}, K={k}, N={n}; {uses} "
+              f"per forward): equal to float64 plain ({plain_s:.2f} s); "
+              f"route {route_ms:.4f} ms, conv2d_int8 {qconv_ms:.4f} ms; "
+              f"cuDNN bf16 {bf16_ms:.4f} ms, f32 {f32_ms:.4f} ms; bound "
+              f"{bound:.4f} ms ({ops / 1e12:.3f} T int8 ops at 1979 T/s, "
+              f"{nbytes / 1e6:.1f} MB)", flush=True)
+        entries.append({"input": list(qs), "weight": list(ws),
+                        "stride": stride[0], "padding": pad[0],
+                        "dilation": dil[0], "per_forward": uses,
+                        "max_abs_err": 0.0, "route_ms": route_ms,
+                        "conv2d_int8_ms": qconv_ms, "cudnn_bf16_ms": bf16_ms,
+                        "cudnn_f32_ms": f32_ms, "bound_ms": bound})
+        del q, w_q, got, xb, wf, xf
+    torch.cuda.empty_cache()
+    return entries
+
+
+def preset_model(dev, views):
+    """The production preset's model: configs/synthetic_train.json (bf16),
+    int8 stages 0-3 with static scales calibrated on a request's first 8
+    images, as ``python -m pvnet_tpu_torch.infer --cfg_file ... --quant``
+    builds it."""
+    from pvnet_tpu_torch import infer
+    from pvnet_tpu_torch.config import TrainConfig
+    cfg = TrainConfig.from_json(RECIPE)
+    assert cfg.bf16
+    model = infer.load_model(CKPT, VN, dev, cfg, quant_stages=QUANT_STAGES,
+                             quant_mode="static")
+    n = infer.calibrate_static(model, request_images(views, 0)[0], bf16=True)
+    assert n == 8
+    return model
+
+
+def run_preset(dev, fixture, kernels, plain_stages, packed_stages, split):
+    """Phase (i): the production preset (see the module docstring)."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import infer, pipeline as pl
+    from pvnet_tpu_torch.ops import packed_tail, quant_conv, select_kernel
+    from pvnet_tpu_torch.ops import voting
+
+    views = fixture["images"]
+    model = preset_model(dev, views)
+    n_qconv = len(quant_conv.quant_convs(model))
+    pts = torch.as_tensor(fixture["points_3d"], device=dev)
+    K = torch.as_tensor(fixture["K"], device=dev)
+    params = pl.VoteParams()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    counters = {"stratified_select": select_kernel.stratified_select,
+                "stratified_select_cmajor":
+                select_kernel.stratified_select_cmajor,
+                "count_inliers": voting.count_inliers,
+                "count_inliers_bf16": voting.count_inliers_bf16,
+                "int8 route": quant_conv.conv_int8_acc}
+    preset = dict(tail_depth=3, bf16=True, impl="bf16")
+    bf16_launches = 0
+    for unc in (False, True):
+        infer.infer_batch(model, request_images(views, -2)[0], pts, K,
+                          params, gen, uncertainty=unc, **preset)
+        torch.cuda.synchronize()                # warm-up, not counted
+        for fn in counters.values():
+            fn.launches = 0
+        results, lat = [], []
+        for r in range(N_REQUESTS):
+            imgs, idx = request_images(views, r)
+            t0 = time.perf_counter()
+            est = infer.infer_batch(model, imgs, pts, K, params, gen,
+                                    uncertainty=unc, **preset)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            results.append((est, idx))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"(i) preset (bf16, int8 stages 0-3 static, tail_depth 3, "
+              f"bf16 counts), uncertainty={unc}: {N_REQUESTS} requests of "
+              f"{BATCH} images at {H}x{W}: latency ms "
+              f"{[round(x, 3) for x in lat]}; kernel launches {launches}",
+              flush=True)
+        assert launches == {
+            "stratified_select": N_REQUESTS, "stratified_select_cmajor": 0,
+            "count_inliers": 0, "count_inliers_bf16": N_REQUESTS * (1 + unc),
+            "int8 route": N_REQUESTS * n_qconv}, launches
+        bf16_launches += launches["count_inliers_bf16"]
+        for est, _ in results:
+            assert (est.fg_pixels > 0).all()
+        check_poses(results, fixture)
+    for k in kernels:
+        if k["name"] == "count_inliers_bf16":       # on this path only
+            k["launches"] = bf16_launches
+
+    # the card path against the CPU path from the same packed field
+    with torch.no_grad():
+        x = pl.normalize_images(torch.from_numpy(
+            request_images(views, 0)[0]).to(dev))
+        x = x.permute(0, 3, 1, 2).contiguous()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            fg_feats = model(x, return_8s_features=True)
+        packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
+            model, *fg_feats, x, dtype=torch.bfloat16)
+        del fg_feats
+    packed_card_vs_cpu(packed, fgcnt, pts, K, params, gen, dev, impl="bf16",
+                       what="(i) preset")
+    del packed, fgcnt
+
+    meds = {}
+    for unc in (False, True):
+        stages = [packed_stage_ms(model, request_images(views, r)[0], pts, K,
+                                  params, dev, unc, bf16=True, impl="bf16")
+                  for r in range(3)]
+        meds[unc] = {k: sorted(s[k] for s in stages)[1] for k in stages[0]}
+        print(f"(i) preset stage ms, uncertainty={unc} (median of 3 requests "
+              f"of {BATCH} images), beside (g) f32 packed: "
+              + ", ".join(f"{k} {v:.3f} ({packed_stages[unc][k]:.3f})"
+                          for k, v in meds[unc].items())
+              + f"; sum {sum(meds[unc].values()):.3f} "
+              f"({sum(packed_stages[unc].values()):.3f}); plain (d) sum "
+              f"{sum(plain_stages.values()):.3f}, its fcn "
+              f"{plain_stages['fcn']:.3f}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    preset_rates(dev, split)
+
+
+def seeded_draws(seed: int, dev, params, uncertainty: bool):
+    """TrainLoop.validate's ``draws`` at tail_depth 3 for RANSAC seed
+    ``seed``: each batch's selection noise and pair draws from a CPU
+    generator seeded (seed, batch), on ``dev``."""
+    import torch
+
+    def draws(bidx, b, h, w):
+        g = torch.Generator().manual_seed(1000 * seed + bidx)
+        d = {"noise": torch.rand((b, h // 2, w // 2), generator=g),
+             "pair_u": torch.rand((b, params.hyp_num, 2), generator=g)}
+        if uncertainty:
+            d["cov_pair_u"] = torch.rand(
+                (b, params.uncertainty_hyp_num, 2), generator=g)
+        return {k: v.to(dev) for k, v in d.items()}
+    return draws
+
+
+def preset_rates(dev, split):
+    """Phase (i) on phase (h)'s 64 images: float32 with int8 static scales
+    at tail_depth 3, plain and uncertainty, once with the scales the port
+    calibrates (TrainLoop.calibrate_quant on its first batch of 8, images
+    1228-1235) and once with JAX's (utils.weights.quant_from_flax), each
+    with three RANSAC seeds as the JAX reference has (seed 0 is validate's
+    own generator, 1 and 2 seeded_draws); the mean of each rate over the
+    three seeds within the JAX reference's range over its three seeds,
+    widened by two images (assets/duck_eval_occ64_int8.json). A single
+    seed's rate is not held alone: one seed moves ADD by up to 7 of the 64
+    images here, the float model's too (tools/int8_rate_sensitivity_torch.py).
+    The bf16 preset's rates (bf16 counts, seed 0) printed; the port's
+    calibrated scales against JAX's."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.data.dataset import eval_batches
+    from pvnet_tpu_torch.eval.evaluator import Evaluator
+    from pvnet_tpu_torch.utils.weights import (_flatten,
+                                               flax_quant_from_model,
+                                               quant_from_flax)
+
+    with open(INT8_REFERENCE) as f:
+        ref = json.load(f)
+    assert ref["indices"] == [int(i) for i in split["index"]], \
+        "phase (h)'s images are not the int8 reference's"
+    n = len(split["images"])
+    tol = 2.0 / n
+    params = pl.VoteParams()
+    theirs = ref["quant"]["act_absmax"]
+
+    def evaluate(loop, state, unc, impl=None, seed=0):
+        ev = Evaluator(loop.object_meta(split), device=dev)
+        loop.validate(state, eval_batches(split, loop.cfg.test_batch_size),
+                      0, evaluate_pose=True, uncertainty=unc, tail_depth=3,
+                      vote_impl=impl, evaluator=ev,
+                      draws=None if seed == 0 else seeded_draws(
+                          seed, dev, params, unc))
+        return ev.average_precision(verbose=False)
+
+    def calibrated(bf16):
+        loop, state = eval_loop(bf16, dev, quant_stages=QUANT_STAGES,
+                                quant_mode="static")
+        loop.calibrate_quant(state, eval_batches(
+            split, loop.cfg.test_batch_size), num_batches=1)
+        return loop, state
+
+    loop, state = calibrated(False)
+    ours = {k[:-len("/act_absmax")]: float(v) for k, v in
+            _flatten(flax_quant_from_model(state.model)).items()}
+    assert set(ours) == set(theirs)
+    rel = {k: abs(ours[k] - theirs[k]) / theirs[k] for k in ours}
+    worst = max(rel, key=rel.get)
+    print(f"(i) calibrated act_absmax (f32, images "
+          f"{ref['quant']['calibration_indices'][0]}-"
+          f"{ref['quant']['calibration_indices'][-1]}) vs JAX's: largest "
+          f"relative difference {rel[worst]:.3e} at {worst}; first conv "
+          f"{rel[min(rel)]:.3e}", flush=True)
+    for scales in ("port", "JAX"):
+        if scales == "JAX":
+            quant_from_flax(state.model, {f"{k}/act_absmax": v
+                                          for k, v in theirs.items()})
+        for unc in (False, True):
+            mode = "uncertainty" if unc else "plain"
+            runs = ref["runs"][mode]
+            t1 = time.time()
+            got = np.array([evaluate(loop, state, unc, seed=s)
+                            for s in (0, 1, 2)])
+            secs = time.time() - t1
+            mean = got.mean(0)
+            print(f"(i) f32 + int8 static ({scales}'s scales), tail_depth "
+                  f"3, f32 counts, {mode}, seeds 0/1/2 ({3 * n} images in "
+                  f"{secs:.2f} s):", flush=True)
+            for j, m in enumerate(("proj", "add", "cm")):
+                js = [r[m] for r in runs]
+                print(f"(i)   {m}: {[round(x * n) for x in got[:, j]]} of "
+                      f"{n}, mean {mean[j]:.4f}; JAX f32 + int8 static "
+                      f"(CPU) seeds {[r['seed'] for r in runs]}: "
+                      f"{[round(x * n) for x in js]}; tolerance {tol:.4f}",
+                      flush=True)
+                assert min(js) - tol <= mean[j] <= max(js) + tol, \
+                    f"int8 ({scales}'s scales) {mode} {m}: mean " \
+                    f"{mean[j]} outside [{min(js) - tol}, {max(js) + tol}]"
+    del loop, state
+    loop, state = calibrated(True)
+    for unc in (False, True):
+        got = evaluate(loop, state, unc, "bf16")
+        print(f"(i) bf16 preset + int8 static, tail_depth 3, bf16 counts, "
+              f"{'uncertainty' if unc else 'plain'}, seed 0: proj "
+              f"{got[0]:.4f} add {got[1]:.4f} 5cm5deg {got[2]:.4f}",
+              flush=True)
+    del loop, state
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1244,10 +1694,15 @@ def main() -> int:
         fixture = {k: z[k] for k in z.files}
     kernels = (phase("(c) K1, K2, K3", check_kernels, dev, fixture)
                + phase("(c') K4, K5", check_row_shift, dev))
-    latencies = phase("(d) serving", run_pipeline, dev, fixture, kernels)
-    phase("(g) packed serving", run_packed, dev, fixture, kernels, latencies)
+    int8_route = phase("(c'') int8 route", check_int8_route, dev, fixture)
+    latencies, plain_stages = phase("(d) serving", run_pipeline, dev,
+                                    fixture, kernels)
+    packed_stages = phase("(g) packed serving", run_packed, dev, fixture,
+                          kernels, latencies)
     phase("(f) training", run_training, dev, kernels)
-    phase("(h) evaluation", run_evaluation, dev)
+    split = phase("(h) evaluation", run_evaluation, dev)
+    phase("(i) preset", run_preset, dev, fixture, kernels, plain_stages,
+          packed_stages, split)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)
@@ -1255,6 +1710,7 @@ def main() -> int:
         if k["name"] != "shift_sublanes":     # K5: on no path of the system
             assert k["launches"] > 0, f"{k['name']} never launched on its path"
 
+    print(json.dumps({"int8_route": int8_route}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

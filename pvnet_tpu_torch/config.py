@@ -99,9 +99,11 @@ class TrainConfig:
 
     The port trains channel-major (PyTorch's own layout) on the
     device-resident data path only, so ``head_layout``, ``input_layout``,
-    ``device_aug``, ``device_data`` and the TPU knobs (``quant_*``,
-    ``mesh_shape``, ``cache_images``) are kept so that the JAX package's
-    recipes load unchanged, and are not read."""
+    ``device_aug``, ``device_data`` and the TPU knobs (``mesh_shape``,
+    ``cache_images``) are kept so that the JAX package's recipes load
+    unchanged, and are not read. The ``quant_*`` fields build the int8
+    inference model (:func:`model_kwargs`); ``quant_tail`` is the packed
+    tail's int8 branch."""
     model_name: str = "linemod_train"
     network: str = "resnet18_8s"
     head_layout: str = "NHWC"
@@ -172,6 +174,14 @@ class TrainConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def model_kwargs(cfg: TrainConfig) -> dict:
+    """``build_model`` keyword arguments of a recipe's int8 options (the
+    JAX TrainLoop's model_kw, pvnet_tpu/train/loop.py:66-70)."""
+    return {"quant_stages": tuple(cfg.quant_stages),
+            "quant_mode": cfg.quant_mode,
+            "quant_decoder": bool(cfg.quant_decoder)}
 
 
 # vote_type -> number of voted keypoints (ref tools/train_linemod.py:38-59)

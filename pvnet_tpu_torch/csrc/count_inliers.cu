@@ -42,6 +42,25 @@
 // that no multiply-add is contracted into an FMA: a contracted FMA rounds
 // differently and moves pixels that lie on the cosine boundary, and the
 // counts would then stop matching the plain version exactly.
+//
+// The bfloat16 mode (count_inliers_bf16_kernel, C entry
+// pvnet_count_inliers_bf16) computes what pvnet_tpu/ops/voting.py:
+// count_inliers_xla_bf16 computes (an XLA function there, a mode of K3
+// here): coordinates recentred in float32 on each image's foreground
+// centroid (computed by the caller) and rounded to bfloat16, the
+// difference form dx = hx - cx, dot = dx*nx + dy*ny, d2 = dx^2 + dy^2,
+// n2 = nx^2 + ny^2, and the test
+//   dot > 0 & dot^2 > t2*d2*n2 & d2 > eps2 & n2 > eps2 & valid
+// with every operation rounded to bfloat16 (computed in float32, whose
+// result of one bf16 operation rounds to the bf16 one, then rounded, as
+// PyTorch's eager bf16 operations do), so that it equals
+// voting.count_inliers_plain_bf16 bit for bit. A simple kernel: one
+// hypothesis per thread, pixels staged through shared memory a tile at a
+// time with their per-pixel terms (recentred bf16 coordinates, bf16 ray,
+// n2, or NaN for an excluded pixel so that the product test fails). Bound
+// by instructions as the float32 mode; each rounding costs a conversion
+// pair, about 36 instructions a pair.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -174,6 +193,68 @@ count_inliers_kernel(const float2* __restrict__ coords,
   }
 }
 
+// Round to the nearest bfloat16 (ties to even), back in a float.
+__device__ __forceinline__ float rb(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+constexpr int BF_THREADS = 128;
+
+__global__ void __launch_bounds__(BF_THREADS)
+count_inliers_bf16_kernel(const float2* __restrict__ coords,
+                          const float2* __restrict__ dirs,
+                          const uint8_t* __restrict__ valid,
+                          const float2* __restrict__ hyps,
+                          const float2* __restrict__ ctr,
+                          int* __restrict__ out, int vn, int tn, int hn,
+                          int htiles, float t2, float eps2) {
+  __shared__ float4 sp[BF_THREADS];   // (cx, cy, nx, ny), bf16 values
+  __shared__ float sn[BF_THREADS];    // n2, or NaN where excluded
+  const int g = blockIdx.x / htiles;          // image * vn + keypoint
+  const int h = (blockIdx.x - g * htiles) * BF_THREADS + threadIdx.x;
+  const int bi = g / vn;
+  const int v = g - bi * vn;
+  const float2 c0 = ctr[bi];
+
+  float hx = 0.f, hy = 0.f;
+  if (h < hn) {
+    const float2 hp = hyps[((size_t)bi * hn + h) * vn + v];
+    hx = rb(__fsub_rn(hp.x, c0.x));
+    hy = rb(__fsub_rn(hp.y, c0.y));
+  }
+  int cnt = 0;
+  for (int t0 = 0; t0 < tn; t0 += BF_THREADS) {
+    const int t = t0 + (int)threadIdx.x;
+    if (t < tn) {
+      const float2 c = coords[(size_t)bi * tn + t];
+      const float2 n = dirs[((size_t)bi * tn + t) * vn + v];
+      const float nx = rb(n.x), ny = rb(n.y);
+      const float n2 = rb(__fadd_rn(rb(__fmul_rn(nx, nx)),
+                                    rb(__fmul_rn(ny, ny))));
+      const bool ok = valid[(size_t)bi * tn + t] != 0 && n2 > eps2;
+      sp[threadIdx.x] = make_float4(rb(__fsub_rn(c.x, c0.x)),
+                                    rb(__fsub_rn(c.y, c0.y)), nx, ny);
+      sn[threadIdx.x] = ok ? n2 : __int_as_float(0x7fc00000);
+    }
+    __syncthreads();
+    const int m = min(BF_THREADS, tn - t0);
+    for (int u = 0; u < m; ++u) {
+      const float4 p = sp[u];
+      const float dx = rb(__fsub_rn(hx, p.x));
+      const float dy = rb(__fsub_rn(hy, p.y));
+      const float dot = rb(__fadd_rn(rb(__fmul_rn(dx, p.z)),
+                                     rb(__fmul_rn(dy, p.w))));
+      const float d2 = rb(__fadd_rn(rb(__fmul_rn(dx, dx)),
+                                    rb(__fmul_rn(dy, dy))));
+      const float lhs = rb(__fmul_rn(dot, dot));
+      const float rhs = rb(__fmul_rn(rb(__fmul_rn(t2, d2)), sn[u]));
+      cnt += (dot > 0.f) & (lhs > rhs) & (d2 > eps2);
+    }
+    __syncthreads();
+  }
+  if (h < hn) out[((size_t)bi * hn + h) * vn + v] = cnt;
+}
+
 // Blocks of count_inliers_kernel that one SM holds at once, and the SM
 // count, on the current device (cached per device).
 void device_slots(int* sms, int* per_sm) {
@@ -236,5 +317,28 @@ extern "C" int pvnet_count_inliers(const float* coords, const float* dirs,
       reinterpret_cast<const float2*>(dirs), valid,
       reinterpret_cast<const float2*>(hyps), counts, vn, tn, hn, htiles,
       chunk, t2, splits > 1);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 mode. coords, dirs, valid, hyps as pvnet_count_inliers;
+// ctr [b, 2] f32 each image's centroid; t2 = bf16(thresh^2) and
+// eps2 = bf16(1e-12), as floats. b, vn, hn, tn >= 1.
+extern "C" int pvnet_count_inliers_bf16(const float* coords,
+                                        const float* dirs,
+                                        const uint8_t* valid,
+                                        const float* hyps, const float* ctr,
+                                        int* counts, int b, int vn, int tn,
+                                        int hn, float t2, float eps2,
+                                        cudaStream_t stream) {
+  if (b < 1 || vn < 1 || tn < 1 || hn < 1) return (int)cudaErrorInvalidValue;
+  const int htiles = (hn + BF_THREADS - 1) / BF_THREADS;
+  const long long blocks = (long long)b * vn * htiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  count_inliers_bf16_kernel<<<(unsigned)blocks, BF_THREADS, 0, stream>>>(
+      reinterpret_cast<const float2*>(coords),
+      reinterpret_cast<const float2*>(dirs), valid,
+      reinterpret_cast<const float2*>(hyps),
+      reinterpret_cast<const float2*>(ctr), counts, vn, tn, hn, htiles, t2,
+      eps2);
   return (int)cudaGetLastError();
 }

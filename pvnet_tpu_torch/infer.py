@@ -10,12 +10,17 @@ pipeline in fixed-size batches, and writes one JSON line per image:
   python -m pvnet_tpu_torch.infer --checkpoint assets/duck_ckpt.msgpack \
       --points_3d assets/duck_views_480x640.npz \
       --images assets/duck_views_480x640.npz --device cuda --batch 16 \
-      --output poses.jsonl [--tail_depth 3] [--uncertainty]
+      --output poses.jsonl [--tail_depth 3] [--uncertainty] \
+      [--cfg_file configs/synthetic_train.json] [--quant]
 
 ``--tail_depth 1-3`` runs the packed-lattice decoder tail (the JAX CLI's
 default is 3; here it is 0, the plain decoder, which is the faster one on
 an H100, see PERF.md); ``--uncertainty`` weights the PnP by each
-keypoint's hypothesis covariance.
+keypoint's hypothesis covariance. ``--cfg_file`` takes the recipe's
+``network`` and ``bf16`` (the FCN under bfloat16 autocast and a bfloat16
+packed tail) and its ``quant_*`` options; ``--quant`` runs the backbone
+stages ``--quant_stages`` in int8 (ops/quant_conv.py), with static scales
+calibrated on the first 8 images by default, as tools/infer.py does.
 
 ``--images`` is an .npz (key ``images``) or .npy of uint8 [n, h, w, 3]; a
 glob of image files works only where PIL is installed. ``--points_3d`` is
@@ -36,8 +41,10 @@ import numpy as np
 import torch
 
 from pvnet_tpu_torch import pipeline as pl_mod
-from pvnet_tpu_torch.config import INTRINSIC_MATRICES
+from pvnet_tpu_torch.config import (INTRINSIC_MATRICES, TrainConfig,
+                                    model_kwargs)
 from pvnet_tpu_torch.models.pvnet import build_model
+from pvnet_tpu_torch.ops import quant_conv
 from pvnet_tpu_torch.utils.weights import load_weights
 
 
@@ -86,25 +93,68 @@ def resolve_K(spec: str) -> np.ndarray:
     return INTRINSIC_MATRICES[spec].astype(np.float32)
 
 
-def load_model(checkpoint: str, vn: int, device) -> torch.nn.Module:
+def load_model(checkpoint: str, vn: int, device,
+               cfg: Optional[TrainConfig] = None,
+               **model_kw) -> torch.nn.Module:
     """The PVNet of a flax msgpack checkpoint or of a ``.pth`` written by
-    the port's trainer, on ``device`` in eval mode."""
-    model = build_model("resnet18_8s", ver_dim=2 * vn, seg_dim=2)
+    the port's trainer, on ``device`` in eval mode, built as the recipe
+    ``cfg`` says (its network and int8 options; float32 ResNet18-8s
+    without one); ``model_kw`` overrides the recipe's options."""
+    cfg = cfg or TrainConfig()
+    model = build_model(cfg.network, ver_dim=2 * vn, seg_dim=2,
+                        **{**model_kwargs(cfg), **model_kw})
     load_weights(model, checkpoint)
     return model.to(device).eval()
+
+
+def quant_options(args, cfg: TrainConfig) -> dict:
+    """The int8 options of tools/infer.py (:129-138, :160): the CLI's when
+    --quant is given, else the recipe's; the decoder and the tail also when
+    the recipe asks. Returns build_model's quant_* keywords plus
+    ``tail_quant``."""
+    if args.quant:
+        stages = tuple(int(s) for s in args.quant_stages.split(","))
+        mode = args.quant_mode
+    else:
+        stages, mode = tuple(cfg.quant_stages), cfg.quant_mode
+    return {"quant_stages": stages,
+            # tools/infer.py passes quant_mode only with stages
+            "quant_mode": mode if stages else "dynamic",
+            "quant_decoder": bool(args.quant and args.quant_decoder)
+            or bool(cfg.quant_decoder),
+            "tail_quant": bool(args.quant and args.quant_tail)
+            or bool(cfg.quant_tail)}
+
+
+def calibrate_static(model: torch.nn.Module, images_u8: np.ndarray,
+                     bf16: bool = False) -> int:
+    """Calibrate the model's static int8 scales on the first min(8, n)
+    images, in one batch, in the serving dtype (tools/infer.py:177-190).
+    Returns the number of images used."""
+    n = min(8, len(images_u8))
+    device = next(model.parameters()).device
+    x = pl_mod.normalize_images(torch.from_numpy(
+        np.ascontiguousarray(images_u8[:n])).to(device))
+    with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+        quant_conv.calibrate(model, [x.permute(0, 3, 1, 2).contiguous()])
+    return n
 
 
 def infer_batch(model: torch.nn.Module, images_u8: np.ndarray,
                 points_3d: torch.Tensor, K: torch.Tensor,
                 params: pl_mod.VoteParams, generator: torch.Generator,
-                tail_depth: int = 0,
-                uncertainty: bool = False) -> pl_mod.PoseEstimate:
+                tail_depth: int = 0, uncertainty: bool = False,
+                bf16: bool = False, impl: Optional[str] = None,
+                tail_quant: bool = False) -> pl_mod.PoseEstimate:
     """One request: uint8 [b, h, w, 3] host images -> poses on the model's
     device (upload, normalization, FCN, voting, PnP).
 
     tail_depth 0 runs the plain decoder; 1-3 the packed-lattice tail of
-    that depth in float32 (pipeline.fused_tail_foreground; even image
-    dims). uncertainty=True adds the covariance pass and the
+    that depth (pipeline.fused_tail_foreground; even image dims), its
+    stage convolutions in int8 with ``tail_quant``. bf16 runs the FCN
+    under bfloat16 autocast and the tail in bfloat16 (a bf16 recipe), else
+    both in float32. ``impl`` is the inlier count's mode (None float32,
+    'bf16'). uncertainty=True adds the covariance pass and the
     uncertainty-weighted PnP."""
     device = points_3d.device
     x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
@@ -112,7 +162,8 @@ def infer_batch(model: torch.nn.Module, images_u8: np.ndarray,
         model, pl_mod.normalize_images(x), points_3d, K, params,
         generator=generator, uncertainty=uncertainty,
         fused_tail=tail_depth > 0, tail_depth=tail_depth,
-        tail_dtype=torch.float32)
+        tail_dtype=torch.bfloat16 if bf16 else torch.float32,
+        fcn_bf16=bf16, impl=impl, tail_quant=tail_quant)
 
 
 def parse_args(argv=None):
@@ -142,6 +193,26 @@ def parse_args(argv=None):
                         "covariance")
     p.add_argument("--hyp_num", type=int, default=None,
                    help="hypotheses per keypoint (default: VoteParams)")
+    p.add_argument("--cfg_file", default=None,
+                   help="training recipe JSON: network, bf16, quant_*")
+    p.add_argument("--quant", action="store_true",
+                   help="int8 PTQ of the backbone stages --quant_stages "
+                        "(ops/quant_conv.py; the checkpoint loads "
+                        "unchanged)")
+    p.add_argument("--quant_stages", default="0,1,2,3",
+                   help="comma-separated backbone stages (0 = layer1) "
+                        "to quantize with --quant (default: all four)")
+    p.add_argument("--quant_mode", default="static",
+                   choices=("dynamic", "static"),
+                   help="with --quant: 'static' (default) calibrates "
+                        "scalar activation scales on the first 8 images; "
+                        "'dynamic' takes each image's absmax")
+    p.add_argument("--quant_tail", action="store_true",
+                   help="with --quant: int8 packed-tail stage convolutions "
+                        "(per-image dynamic scales)")
+    p.add_argument("--quant_decoder", action="store_true",
+                   help="with --quant: int8 the decoder's fc and 8s "
+                        "convolutions")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="poses.jsonl")
     return p.parse_args(argv)
@@ -158,11 +229,20 @@ def main(argv=None) -> int:
     pts3d = load_points_3d(args.points_3d, args.center_3d)
     K = resolve_K(args.K)
     n, h, w = imgs.shape[:3]
+    cfg = (TrainConfig.from_json(args.cfg_file) if args.cfg_file
+           else TrainConfig())
+    quant = quant_options(args, cfg)
+    tail_quant = quant.pop("tail_quant")
     print(f"{n} images at {h}x{w}; vn={len(pts3d)}; device {device}; "
-          f"tail_depth {args.tail_depth}; uncertainty {args.uncertainty}",
-          flush=True)
+          f"tail_depth {args.tail_depth}; uncertainty {args.uncertainty}; "
+          f"{'bf16' if cfg.bf16 else 'float32'}; int8 stages "
+          f"{list(quant['quant_stages'])} ({quant['quant_mode']}), decoder "
+          f"{quant['quant_decoder']}, tail {tail_quant}", flush=True)
 
-    model = load_model(args.checkpoint, len(pts3d), device)
+    model = load_model(args.checkpoint, len(pts3d), device, cfg, **quant)
+    if quant["quant_stages"] and quant["quant_mode"] == "static":
+        k = calibrate_static(model, imgs, cfg.bf16)
+        print(f"calibrated static int8 scales on {k} images", flush=True)
     pts_t = torch.as_tensor(pts3d, device=device)
     K_t = torch.as_tensor(K, device=device)
     params = pl_mod.VoteParams()
@@ -175,7 +255,8 @@ def main(argv=None) -> int:
         for i in range(0, n, args.batch):
             est = infer_batch(model, imgs[i:i + args.batch], pts_t, K_t,
                               params, gen, tail_depth=args.tail_depth,
-                              uncertainty=args.uncertainty)
+                              uncertainty=args.uncertainty, bf16=cfg.bf16,
+                              tail_quant=tail_quant)
             poses = est.pose.cpu().numpy()
             kps = est.kps.cpu().numpy()
             fg = est.fg_pixels.cpu().numpy()

@@ -12,8 +12,11 @@ Outputs are channel-major — seg [b, seg_dim, h, w], ver [b, ver_dim, h, w]
 native layout. Module names follow the reference (resnet18_8s.fc,
 conv8s, conv4s, conv2s, convraw), so a reference state_dict loads as is.
 The feature-return flags of the JAX model feed the packed inference tail
-(ops/packed_tail.py). The TPU-only pieces (channel-major head conv, int8
-decoder, packed4 stem, PVNet2o) are not ported.
+(ops/packed_tail.py). ``quant_stages``, ``quant_mode`` and
+``quant_decoder`` are the JAX model's int8 options (ops/quant_conv.py):
+they change no parameter, so the same checkpoint loads either way. The
+TPU-only pieces (channel-major head conv, packed4 stem, PVNet2o) are not
+ported.
 
 For training, the JAX model's ``dtype=bfloat16`` with float32 parameters
 is the caller's ``torch.autocast(dtype=torch.bfloat16)`` around the
@@ -24,16 +27,19 @@ scratch applies the JAX model's with ``models.resnet.init_weights``
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from pvnet_tpu_torch.models.resnet import (_BN_EPS, BatchNorm2d,
                                           resnet18_backbone)
+from pvnet_tpu_torch.ops.quant_conv import QuantConv2d
 
 
-def _conv_bn_lrelu(cin: int, cout: int) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(cin, cout, 3, padding=1, bias=False),
+def _conv_bn_lrelu(cin: int, cout: int, conv=nn.Conv2d) -> nn.Sequential:
+    return nn.Sequential(conv(cin, cout, 3, padding=1, bias=False),
                          BatchNorm2d(cout, eps=_BN_EPS),
                          nn.LeakyReLU(0.1, inplace=True))
 
@@ -49,22 +55,31 @@ class PVNet(nn.Module):
       ver_dim: vector-field channels (2 * keypoint count).
       seg_dim: segmentation classes (2 for a single object).
       fcdim/s8dim/s4dim/s2dim/raw_dim: decoder widths.
+      quant_stages, quant_mode: backbone stages run in int8 at inference
+        (models/resnet.ResNetBackbone).
+      quant_decoder: the fc head's and the 8s stage's convolutions in int8
+        at inference, in ``quant_mode`` (JAX models/pvnet.py:114-123).
     """
 
     def __init__(self, ver_dim: int, seg_dim: int = 2, fcdim: int = 256,
                  s8dim: int = 128, s4dim: int = 64, s2dim: int = 32,
-                 raw_dim: int = 32):
+                 raw_dim: int = 32, quant_stages=(),
+                 quant_mode: str = "dynamic", quant_decoder: bool = False):
         super().__init__()
         self.ver_dim, self.seg_dim = ver_dim, seg_dim
-        backbone = resnet18_backbone(output_stride=8)
+        backbone = resnet18_backbone(output_stride=8,
+                                     quant_stages=tuple(quant_stages),
+                                     quant_mode=quant_mode)
+        dconv = (partial(QuantConv2d, mode=quant_mode) if quant_decoder
+                 else nn.Conv2d)
         # the fc head lives under the backbone module, as in the reference
         # (ref model_repository.py:21-26)
         backbone.fc = nn.Sequential(
-            nn.Conv2d(backbone.inplanes, fcdim, 3, padding=1, bias=False),
+            dconv(backbone.inplanes, fcdim, 3, padding=1, bias=False),
             BatchNorm2d(fcdim, eps=_BN_EPS),
             nn.ReLU(inplace=True))
         self.resnet18_8s = backbone
-        self.conv8s = _conv_bn_lrelu(128 + fcdim, s8dim)
+        self.conv8s = _conv_bn_lrelu(128 + fcdim, s8dim, dconv)
         self.conv4s = _conv_bn_lrelu(64 + s8dim, s4dim)
         self.conv2s = _conv_bn_lrelu(64 + s4dim, s2dim)
         self.convraw = nn.Sequential(
@@ -113,8 +128,9 @@ def pvnet_resnet18(ver_dim: int, seg_dim: int = 2, **kw) -> PVNet:
 
 def build_model(network: str, ver_dim: int, seg_dim: int = 2,
                 **kw) -> PVNet:
-    """Factory keyed by the recipe's ``network`` field. Only
-    'resnet18_8s' is ported so far."""
+    """Factory keyed by the recipe's ``network`` field; ``kw`` (decoder
+    widths, the quant options) goes to the model. Only 'resnet18_8s' is
+    ported so far."""
     factories = {"resnet18_8s": pvnet_resnet18}
     if network not in factories:
         raise ValueError(f"unknown network '{network}'; "

@@ -9,9 +9,10 @@ intermediate feature map for the decoder's skip connections.
 
 Module and parameter names follow the reference (conv1/bn1,
 layer{1..4}.{i}.conv{1,2}/bn{1,2}/downsample.{0,1}), so a reference
-state_dict loads without a converter. The TPU layout machinery of the JAX
-module (packed4 stem, channel-major input conv, space-to-batch, int8
-stages) is not ported.
+state_dict loads without a converter. ``quant_stages`` runs the listed
+stages' convolutions in int8 at inference (ops/quant_conv.py), as the JAX
+module's of the same name. The TPU layout machinery of the JAX module
+(packed4 stem, channel-major input conv, space-to-batch) is not ported.
 
 Training follows the JAX module: convolutions start He fan-out
 truncated-normal (:func:`init_weights`), and BatchNorm keeps flax's running
@@ -19,11 +20,14 @@ statistics (:class:`BatchNorm2d`).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from pvnet_tpu_torch.ops.quant_conv import QuantConv2d
 
 _BN_EPS = 1e-5
 # stddev of a standard normal truncated to [-2, 2] (flax variance_scaling)
@@ -73,24 +77,25 @@ def init_weights(model: nn.Module, generator: torch.Generator = None
 
 
 class BasicBlock(nn.Module):
-    """Two 3x3 convs + identity shortcut (ref resnet.py:41-70)."""
+    """Two 3x3 convs + identity shortcut (ref resnet.py:41-70). ``conv``
+    builds all three convolutions (nn.Conv2d, or QuantConv2d for an int8
+    stage)."""
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, conv=nn.Conv2d):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation,
-                               bias=False)
+        self.conv1 = conv(inplanes, planes, 3, stride=stride,
+                          padding=dilation, dilation=dilation, bias=False)
         self.bn1 = BatchNorm2d(planes, eps=_BN_EPS)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
-                               dilation=dilation, bias=False)
+        self.conv2 = conv(planes, planes, 3, padding=dilation,
+                          dilation=dilation, bias=False)
         self.bn2 = BatchNorm2d(planes, eps=_BN_EPS)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+                conv(inplanes, planes, 1, stride=stride, bias=False),
                 BatchNorm2d(planes, eps=_BN_EPS))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,10 +110,15 @@ class ResNetBackbone(nn.Module):
 
     forward(x [b, 3, h, w]) -> (x2s, x4s, x8s, x16s, x32s): feature maps at
     strides 2/4/8/8/8 for output_stride=8 (ref resnet.py:200-220).
+
+    quant_stages: 0-based stages (0 = layer1) whose convolutions, the 1x1
+    downsample included, are QuantConv2d in ``quant_mode``: int8 in eval
+    mode, float in training. The stem stays float.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
-                 output_stride: int = 8):
+                 output_stride: int = 8, quant_stages: Sequence[int] = (),
+                 quant_mode: str = "dynamic"):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=_BN_EPS)
@@ -126,11 +136,13 @@ class ResNetBackbone(nn.Module):
                     stride = 1
                 else:
                     current_stride *= stride
+            conv = (partial(QuantConv2d, mode=quant_mode)
+                    if stage in quant_stages else nn.Conv2d)
             blocks = []
             for i in range(n_blocks):
                 blocks.append(BasicBlock(inplanes, planes,
                                          stride=stride if i == 0 else 1,
-                                         dilation=dilation))
+                                         dilation=dilation, conv=conv))
                 inplanes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.inplanes = inplanes

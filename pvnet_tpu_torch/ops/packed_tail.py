@@ -38,9 +38,14 @@ of its input (built by one copy of the small pre-upsample tensor) and one
 copy into the packed order. Folded weights are OIHW; the JAX package's
 are HWIO.
 
-Not ported: the int8 ``quant=True`` branches, the opt-in blocked banded
-upsample (``PVNET_BLOCKED_UPSAMPLE``) and the packed-stem image refold
-(``_fold_direct_to_packed3``).
+``quant=True`` is the JAX package's int8 branch (ops/quant_conv.py,
+per-image dynamic activation scales only, as there): a packed stage runs
+both its convolutions in int8, the raw stage its feature term (the rgb
+term stays float, accumulated in float32); the stage then computes in
+float32 and emits ``dtype``.
+
+Not ported: the opt-in blocked banded upsample (``PVNET_BLOCKED_UPSAMPLE``)
+and the packed-stem image refold (``_fold_direct_to_packed3``).
 """
 from __future__ import annotations
 
@@ -50,6 +55,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from pvnet_tpu_torch.ops.quant_conv import conv2d_int8
 
 # ---------------------------------------------------------------------------
 # Constant matrices (numpy, as in the JAX package)
@@ -293,8 +300,8 @@ def _bn_lrelu(y: torch.Tensor, scale4: torch.Tensor, bias4: torch.Tensor,
 
 def run_packed_stage(fm: torch.Tensor, skip: torch.Tensor,
                      cp: PackedStageParams, alpha: float = 0.1,
-                     dtype=torch.bfloat16,
-                     fm_packed: bool = False) -> torch.Tensor:
+                     dtype=torch.bfloat16, fm_packed: bool = False,
+                     quant: bool = False) -> torch.Tensor:
     """One packed decoder stage.
 
     Args:
@@ -302,10 +309,15 @@ def run_packed_stage(fm: torch.Tensor, skip: torch.Tensor,
             or, with fm_packed=True, its packed form [b, 4c_fm, hc/2, wc/2]
             as a previous run_packed_stage emits it.
       skip: [b, c_skip, 2hc, 2wc] backbone skip at this stage's resolution.
+      quant: both convolutions in int8 (per-image scales), then float32.
     Returns the packed stage activation [b, 4cout, hc, wc] (channels_last,
     plain-grid phases, channel (p*2+q)*cout + ch) in ``dtype``."""
     up = (phase_upsample_from_packed if fm_packed
           else phase_upsample_packed)(fm, cp.ah, cp.aw, dtype)
+    if quant:
+        y = conv2d_int8(up, cp.w_fm) + conv2d_int8(skip, cp.w_skip,
+                                                   stride=2, padding=1)
+        return _bn_lrelu(y, cp.scale4, cp.bias4, alpha).to(dtype)
     y = F.conv2d(up, cp.w_fm.to(dtype))
     y = y + _conv_skip_direct(skip, cp.w_skip, dtype)
     return _bn_lrelu(y, cp.scale4, cp.bias4, alpha)
@@ -314,7 +326,7 @@ def run_packed_stage(fm: torch.Tensor, skip: torch.Tensor,
 def run_packed_tail(fm: torch.Tensor, image: torch.Tensor,
                     tp: PackedTailParams, alpha: float = 0.1,
                     dtype=torch.bfloat16, out_dtype=torch.float32,
-                    fm_packed: bool = False
+                    fm_packed: bool = False, quant: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Packed raw stage and head.
 
@@ -322,6 +334,9 @@ def run_packed_tail(fm: torch.Tensor, image: torch.Tensor,
       fm:    [b, s2dim, h2, w2] 2s-stage activation (pre-upsample), or,
              with fm_packed=True, its packed form [b, 4*s2dim, h2/2, w2/2].
       image: [b, 3, h, w] normalized input (h = 2*h2, w = 2*w2).
+      quant: the feature term in int8 (per-image scales), the rgb term in
+             float32 from ``dtype`` inputs, BatchNorm and LeakyReLU in
+             float32; the head in ``dtype`` as without.
     Returns:
       packed: [b, h2, w2, 4*hout] packed head field (NHWC, contiguous),
               sub-pixel (p, q) at channels (p*2+q)*hout, in ``out_dtype``.
@@ -329,9 +344,15 @@ def run_packed_tail(fm: torch.Tensor, image: torch.Tensor,
     """
     up = (phase_upsample_from_packed if fm_packed
           else phase_upsample_packed)(fm, tp.ah, tp.aw, dtype)
-    y = F.conv2d(up, tp.w_fm.to(dtype))
-    y = y + _conv_skip_direct(image, tp.w_im, dtype)
-    y = _bn_lrelu(y, tp.scale4, tp.bias4, alpha)
+    if quant:
+        y = conv2d_int8(up, tp.w_fm) + F.conv2d(
+            image.to(dtype).float(), tp.w_im.to(dtype).float(), stride=2,
+            padding=1)
+        y = _bn_lrelu(y, tp.scale4, tp.bias4, alpha).to(dtype)
+    else:
+        y = F.conv2d(up, tp.w_fm.to(dtype))
+        y = y + _conv_skip_direct(image, tp.w_im, dtype)
+        y = _bn_lrelu(y, tp.scale4, tp.bias4, alpha)
     # the head in the compute dtype, its bias added in float32
     packed = (y.permute(0, 2, 3, 1) @ tp.w_head4.to(dtype)).float() \
         + tp.b_head4                                        # [b,h2,w2,4h]
@@ -364,41 +385,47 @@ def _fold_tail(model, h: int, w: int, h2: int, w2: int) -> PackedTailParams:
 
 def packed_tail_from_model(model, fm: torch.Tensor, image: torch.Tensor,
                            alpha: float = 0.1, dtype=torch.bfloat16,
-                           out_dtype: Optional[torch.dtype] = None):
+                           out_dtype: Optional[torch.dtype] = None,
+                           quant: bool = False):
     """Depth 1: fold the raw stage (convraw) and run the 2s features fm
     (``model(x, return_2s_features=True)``) to the packed head field.
     Returns (packed, fgcnt) as :func:`run_packed_tail`; ``out_dtype``
-    defaults to ``dtype``."""
+    defaults to ``dtype``; ``quant`` as there (and in every stage of the
+    deeper drivers)."""
     tp = _fold_tail(model, *image.shape[2:], *fm.shape[2:])
-    return run_packed_tail(fm, image, tp, alpha, dtype, out_dtype or dtype)
+    return run_packed_tail(fm, image, tp, alpha, dtype, out_dtype or dtype,
+                           quant=quant)
 
 
 def packed_tail_deep_from_model(model, fm4: torch.Tensor, x2s: torch.Tensor,
                                 image: torch.Tensor, alpha: float = 0.1,
                                 dtype=torch.bfloat16,
-                                out_dtype: Optional[torch.dtype] = None):
+                                out_dtype: Optional[torch.dtype] = None,
+                                quant: bool = False):
     """Depth 2: also the 2s stage (conv2s) on the lattice, from
     ``model(x, return_4s_features=True)``."""
     h2, w2 = x2s.shape[2:]
     cp = _fold_stage(model.conv2s, fm4.shape[1], h2, w2)
-    fm2p = run_packed_stage(fm4, x2s, cp, alpha, dtype)
+    fm2p = run_packed_stage(fm4, x2s, cp, alpha, dtype, quant=quant)
     tp = _fold_tail(model, *image.shape[2:], h2, w2)
     return run_packed_tail(fm2p, image, tp, alpha, dtype, out_dtype or dtype,
-                           fm_packed=True)
+                           fm_packed=True, quant=quant)
 
 
 def packed_tail_deep3_from_model(model, fm8: torch.Tensor, x4s: torch.Tensor,
                                  x2s: torch.Tensor, image: torch.Tensor,
                                  alpha: float = 0.1, dtype=torch.bfloat16,
-                                 out_dtype: Optional[torch.dtype] = None):
+                                 out_dtype: Optional[torch.dtype] = None,
+                                 quant: bool = False):
     """Depth 3: the 4s stage (conv4s), the 2s stage (conv2s) and the raw
     stage on lattices, from ``model(x, return_8s_features=True)``: every
     decoder tensor below the 8s stage."""
     cp4 = _fold_stage(model.conv4s, fm8.shape[1], *x4s.shape[2:])
-    fm4p = run_packed_stage(fm8, x4s, cp4, alpha, dtype)
+    fm4p = run_packed_stage(fm8, x4s, cp4, alpha, dtype, quant=quant)
     h2, w2 = x2s.shape[2:]
     cp2 = _fold_stage(model.conv2s, model.conv4s[0].out_channels, h2, w2)
-    fm2p = run_packed_stage(fm4p, x2s, cp2, alpha, dtype, fm_packed=True)
+    fm2p = run_packed_stage(fm4p, x2s, cp2, alpha, dtype, fm_packed=True,
+                            quant=quant)
     tp = _fold_tail(model, *image.shape[2:], h2, w2)
     return run_packed_tail(fm2p, image, tp, alpha, dtype, out_dtype or dtype,
-                           fm_packed=True)
+                           fm_packed=True, quant=quant)

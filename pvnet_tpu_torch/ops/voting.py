@@ -13,6 +13,8 @@ PyTorch port of the v3 path of pvnet_tpu/ops/voting.py:
 3. Inlier counting (:func:`count_inliers`) in the multiplication-only form
    ``dot > 0 and dot^2 > t^2 |d|^2 |n|^2`` through kernel K3
    (csrc/count_inliers.cu); the [hn, vn, tn] inlier tensor never exists.
+   ``impl='bf16'`` counts in bfloat16 instead, through K3's bf16 mode
+   (:func:`count_inliers_bf16`, JAX's ``count_inliers_xla_bf16``).
 4. Winner argmax + weighted-least-squares refine
    (:func:`vote_argmax_refine`).
 5. For the uncertainty path, the hypothesis covariance about the voted
@@ -356,14 +358,20 @@ def _count_kernel_args(fg: ForegroundSample, hyps: torch.Tensor):
 
 
 def count_inliers(fg: ForegroundSample, hyps: torch.Tensor,
-                  thresh: float) -> torch.Tensor:
+                  thresh: float, impl: Optional[str] = None) -> torch.Tensor:
     """Inlier counts [b, hn, vn] int32 of each hypothesis (kernel K3).
 
     Semantics of the reference's voting_for_hypothesis_kernel
-    (ref ransac_voting_kernel.cu:88-126). A CPU tensor runs
+    (ref ransac_voting_kernel.cu:88-126). ``impl`` None counts in float32;
+    'bf16' in bfloat16 (:func:`count_inliers_bf16`), as the JAX
+    ``count_inliers`` dispatches. A CPU tensor runs
     :func:`count_inliers_plain`; a CUDA tensor launches the kernel (and
     counts the launch in ``.launches``) or raises. The kernel reads the
     sample's coords, dirs and valid itself."""
+    if impl == "bf16":
+        return count_inliers_bf16(fg, hyps, thresh)
+    if impl is not None:
+        raise ValueError(f"impl must be None or 'bf16', got {impl!r}")
     if thresh <= 0.0:
         raise ValueError(f"thresh must be > 0, got {thresh}")
     if hyps.device.type == "cpu":
@@ -390,6 +398,94 @@ def count_inliers(fg: ForegroundSample, hyps: torch.Tensor,
 
 
 count_inliers.launches = 0
+
+
+def _centroid(coords: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """[b, 2] float32 mean of each image's valid coordinates (0 with
+    none): the sum over the slot axis, then one division. Exact for pixel
+    coordinates, whose sums stay below 2^24."""
+    vf = valid.to(torch.float32)
+    denom = vf.sum(1).clamp(min=1.0)
+    return (coords * vf[..., None]).sum(1) / denom[:, None]
+
+
+def _bf16_constants(thresh: float, device) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """(t^2, 1e-12) as bfloat16 scalars, rounded from float64 once."""
+    return (torch.tensor(thresh * thresh, dtype=torch.bfloat16,
+                         device=device),
+            torch.tensor(_NORM_EPS_SQ, dtype=torch.bfloat16, device=device))
+
+
+def count_inliers_plain_bf16(fg: ForegroundSample, hyps: torch.Tensor,
+                             thresh: float, chunk: int = 64
+                             ) -> torch.Tensor:
+    """Plain version of :func:`count_inliers_bf16` (JAX's
+    ``count_inliers_xla_bf16``): coordinates recentred in float32 on each
+    image's foreground centroid, then bfloat16 throughout in the difference
+    form, every operation an eager bf16 one (so rounded), in K3's bf16
+    order. Runs on any device. Returns [b, hn, vn] int32."""
+    if thresh <= 0.0:
+        raise ValueError(f"thresh must be > 0, got {thresh}")
+    ctr = _centroid(fg.coords, fg.valid)
+    t2, eps2 = _bf16_constants(thresh, hyps.device)
+    bf = torch.bfloat16
+    coords = (fg.coords - ctr[:, None, :]).to(bf)           # [b, tn, 2]
+    hc = (hyps - ctr[:, None, None, :]).to(bf)              # [b,hn,vn,2]
+    dirs = fg.dirs.to(bf)
+    nx = dirs[..., 0].transpose(1, 2)[:, None]              # [b,1,vn,tn]
+    ny = dirs[..., 1].transpose(1, 2)[:, None]
+    n2 = nx * nx + ny * ny
+    cx = coords[..., 0][:, None, None, :]                   # [b,1,1,tn]
+    cy = coords[..., 1][:, None, None, :]
+    keep = fg.valid[:, None, None, :] & (n2 > eps2)
+    out = []
+    for s in range(0, hyps.shape[1], chunk):
+        hx = hc[:, s:s + chunk, :, 0, None]                 # [b,c,vn,1]
+        hy = hc[:, s:s + chunk, :, 1, None]
+        dx = hx - cx
+        dy = hy - cy
+        dot = dx * nx + dy * ny
+        d2 = dx * dx + dy * dy
+        inl = (dot > 0) & (dot * dot > t2 * d2 * n2) & (d2 > eps2) & keep
+        out.append(inl.sum(-1).to(torch.int32))
+    return torch.cat(out, dim=1)
+
+
+def count_inliers_bf16(fg: ForegroundSample, hyps: torch.Tensor,
+                       thresh: float) -> torch.Tensor:
+    """Inlier counts [b, hn, vn] int32 in bfloat16 (K3's bf16 mode): what
+    JAX's ``count_inliers_xla_bf16`` computes. A CPU tensor runs
+    :func:`count_inliers_plain_bf16`; a CUDA tensor launches the kernel
+    (counted in ``.launches``) or raises. The centroid is computed here,
+    by :func:`_centroid`, on the sample's device."""
+    if thresh <= 0.0:
+        raise ValueError(f"thresh must be > 0, got {thresh}")
+    if hyps.device.type == "cpu":
+        return count_inliers_plain_bf16(fg, hyps, thresh)
+    if hyps.device.type != "cuda":
+        raise ValueError(f"unsupported device {hyps.device}")
+    coords, dirs, valid, hyps = _count_kernel_args(fg, hyps)
+    b, hn, vn, _ = hyps.shape
+    tn = coords.shape[1]
+    counts = torch.empty((b, hn, vn), dtype=torch.int32, device=hyps.device)
+    if counts.numel() == 0:
+        return counts
+    if tn == 0:
+        return counts.zero_()
+    ctr = _centroid(coords, valid)
+    t2, eps2 = (float(c) for c in _bf16_constants(thresh, "cpu"))
+    with torch.cuda.device(hyps.device):
+        err = kernel_lib.library().pvnet_count_inliers_bf16(
+            coords.data_ptr(), dirs.data_ptr(), valid.data_ptr(),
+            hyps.data_ptr(), ctr.data_ptr(), counts.data_ptr(), b, vn, tn,
+            hn, t2, eps2, torch.cuda.current_stream().cuda_stream)
+    kernel_lib.check(err, "pvnet_count_inliers_bf16")
+    count_inliers_bf16.launches += 1
+    return counts
+
+
+count_inliers_bf16.launches = 0
 
 
 def inliers_for_points(fg: ForegroundSample, pts: torch.Tensor,
@@ -447,11 +543,13 @@ def vote_argmax_refine(fg: ForegroundSample, hyps: torch.Tensor,
 def ransac_voting_v3_from_fg(fg: ForegroundSample, hyp_num: int = 1024,
                              inlier_thresh: float = 0.99, min_num: int = 5,
                              pair_u: Optional[torch.Tensor] = None,
-                             generator: Optional[torch.Generator] = None
-                             ) -> torch.Tensor:
-    """v3 voting from a built foreground sample. [b, vn, 2]."""
+                             generator: Optional[torch.Generator] = None,
+                             impl: Optional[str] = None) -> torch.Tensor:
+    """v3 voting from a built foreground sample. [b, vn, 2]. ``impl``
+    selects the count (:func:`count_inliers`); the refine is float32
+    either way."""
     hyps = generate_hypotheses(fg, hyp_num, pair_u, generator)
-    counts = count_inliers(fg, hyps, inlier_thresh)         # [b, hn, vn]
+    counts = count_inliers(fg, hyps, inlier_thresh, impl)   # [b, hn, vn]
     return vote_argmax_refine(fg, hyps, counts, inlier_thresh, min_num)
 
 
@@ -460,8 +558,8 @@ def ransac_voting_v3(mask: torch.Tensor, vertex: torch.Tensor,
                      max_num: int = 1024, min_num: int = 5,
                      noise: Optional[torch.Tensor] = None,
                      pair_u: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     impl: Optional[str] = None) -> torch.Tensor:
     """Production inference voting (ref ransac_voting_gpu.py:514-598).
 
     Args:
@@ -472,13 +570,14 @@ def ransac_voting_v3(mask: torch.Tensor, vertex: torch.Tensor,
       max_num: fixed foreground budget.
       min_num: below this foreground count the output is zeros.
       noise, pair_u: optional draws (see module docstring).
+      impl: the count's mode (:func:`count_inliers`).
 
     Returns:
       [b, vn, 2] voted keypoint locations.
     """
     fg = sample_foreground(mask, vertex, max_num, noise, generator)
     return ransac_voting_v3_from_fg(fg, hyp_num, inlier_thresh, min_num,
-                                    pair_u, generator)
+                                    pair_u, generator, impl)
 
 
 # ---------------------------------------------------------------------------
@@ -488,19 +587,20 @@ def ransac_voting_v3(mask: torch.Tensor, vertex: torch.Tensor,
 def estimate_voting_distribution_from_fg(
         fg: ForegroundSample, mean: torch.Tensor, hyp_num: int = 4096,
         inlier_thresh: float = 0.99, pair_u: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        generator: Optional[torch.Generator] = None,
+        impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spatial covariance of the hypothesis distribution about ``mean``
     [b, vn, 2], from a built foreground sample (ref
     ransac_voting_gpu.py:333-406): ``hyp_num`` hypotheses counted through
-    K3, each weighted by its inlier ratio, weights below (max ratio - 0.1)
-    zeroed, and the weighted 2x2 scatter about the mean.
+    K3 (``impl`` as :func:`count_inliers`; bf16 counts weigh the scatter
+    too), each weighted by its inlier ratio, weights below (max ratio -
+    0.1) zeroed, and the weighted 2x2 scatter about the mean.
 
     Args:
       pair_u: optional [b, hyp_num, 2] uniform draws for the pairs.
     Returns (mean passed through, cov [b, vn, 2, 2])."""
     hyps = generate_hypotheses(fg, hyp_num, pair_u, generator)
-    counts = count_inliers(fg, hyps, inlier_thresh)         # [b, hn, vn]
+    counts = count_inliers(fg, hyps, inlier_thresh, impl)   # [b, hn, vn]
 
     denom = fg.count.clamp(min=1).to(torch.float32)[:, None, None]
     ratio = counts.to(torch.float32) / denom
@@ -518,10 +618,10 @@ def estimate_voting_distribution_with_mean(
         hyp_num: int = 4096, inlier_thresh: float = 0.99,
         max_num: int = 1024, noise: Optional[torch.Tensor] = None,
         pair_u: Optional[torch.Tensor] = None,
-        generator: Optional[torch.Generator] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        generator: Optional[torch.Generator] = None,
+        impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`estimate_voting_distribution_from_fg` on a fresh foreground
     sample of (mask, vertex) drawn with ``noise``."""
     fg = sample_foreground(mask, vertex, max_num, noise, generator)
     return estimate_voting_distribution_from_fg(
-        fg, mean, hyp_num, inlier_thresh, pair_u, generator)
+        fg, mean, hyp_num, inlier_thresh, pair_u, generator, impl)

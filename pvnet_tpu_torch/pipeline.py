@@ -9,6 +9,11 @@ uncertainty-weighted PnP). Where the JAX pipeline compiles the whole path
 into one XLA program, the port runs it eagerly on one device: the FCN
 through PyTorch/cuDNN convolutions, selection and inlier counting through
 the port's CUDA kernels, the rest as PyTorch tensor code.
+
+The JAX pipeline's ``impl`` (the inlier count's mode: None float32, 'bf16'
+through K3's bf16 mode) and ``tail_quant`` (the packed tail's int8 branch)
+are arguments of the same names here; the model's own int8 stages come
+with the model (models/pvnet.build_model's quant options).
 """
 from __future__ import annotations
 
@@ -62,14 +67,14 @@ def keypoints_from_fields(mask: torch.Tensor, vertex: torch.Tensor,
                           params: VoteParams = VoteParams(),
                           noise: Optional[torch.Tensor] = None,
                           pair_u: Optional[torch.Tensor] = None,
-                          generator: Optional[torch.Generator] = None
-                          ) -> torch.Tensor:
+                          generator: Optional[torch.Generator] = None,
+                          impl: Optional[str] = None) -> torch.Tensor:
     """v3 voting (ref EvalWrapper :94-106). [b, vn, 2]."""
     return voting.ransac_voting_v3(
         mask, vertex, hyp_num=params.hyp_num,
         inlier_thresh=params.inlier_thresh, max_num=params.max_num,
         min_num=params.min_num, noise=noise, pair_u=pair_u,
-        generator=generator)
+        generator=generator, impl=impl)
 
 
 def keypoints_with_covariance(mask: torch.Tensor, vertex: torch.Tensor,
@@ -78,7 +83,8 @@ def keypoints_with_covariance(mask: torch.Tensor, vertex: torch.Tensor,
                               pair_u: Optional[torch.Tensor] = None,
                               cov_noise: Optional[torch.Tensor] = None,
                               cov_pair_u: Optional[torch.Tensor] = None,
-                              generator: Optional[torch.Generator] = None
+                              generator: Optional[torch.Generator] = None,
+                              impl: Optional[str] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Uncertainty path: v3 voting, then the hypothesis covariance about
     its keypoints on a second foreground sample (ref
@@ -86,11 +92,11 @@ def keypoints_with_covariance(mask: torch.Tensor, vertex: torch.Tensor,
     voting's draws, ``cov_noise``/``cov_pair_u`` the covariance pass's.
     Returns (mean [b, vn, 2], cov [b, vn, 2, 2])."""
     mean = keypoints_from_fields(mask, vertex, params, noise, pair_u,
-                                 generator)
+                                 generator, impl)
     return voting.estimate_voting_distribution_with_mean(
         mask, vertex, mean, hyp_num=params.uncertainty_hyp_num,
         inlier_thresh=params.inlier_thresh, max_num=params.max_num,
-        noise=cov_noise, pair_u=cov_pair_u, generator=generator)
+        noise=cov_noise, pair_u=cov_pair_u, generator=generator, impl=impl)
 
 
 def poses_from_keypoints(points_3d: torch.Tensor, kps_2d: torch.Tensor,
@@ -115,7 +121,7 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
                           max_num: int, noise: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None,
                           dtype=torch.bfloat16, tail_depth: int = 1,
-                          fcn_bf16: bool = False
+                          fcn_bf16: bool = False, tail_quant: bool = False
                           ) -> voting.ForegroundSample:
     """Foreground sample through the packed inference tail.
 
@@ -126,7 +132,8 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
     kernel K2; the full-resolution seg/ver tensors never exist.
     ``noise`` [b, h/2, w/2] is the selection's optional draw. fcn_bf16=True
     runs the FCN stages before the tail under bfloat16 autocast (a bf16
-    recipe's model); the tail computes in ``dtype``."""
+    recipe's model); the tail computes in ``dtype``, with int8 stage
+    convolutions when ``tail_quant`` (ops/packed_tail.py)."""
     if tail_depth not in (1, 2, 3):
         raise ValueError(f"tail_depth must be 1, 2 or 3; got {tail_depth}")
     x = image.permute(0, 3, 1, 2).contiguous()
@@ -138,14 +145,14 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
     if tail_depth == 3:
         fm8, x4s, x2s = fm
         packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
-            model, fm8, x4s, x2s, x, dtype=dtype)
+            model, fm8, x4s, x2s, x, dtype=dtype, quant=tail_quant)
     elif tail_depth == 2:
         fm4, x2s = fm
         packed, fgcnt = packed_tail.packed_tail_deep_from_model(
-            model, fm4, x2s, x, dtype=dtype)
+            model, fm4, x2s, x, dtype=dtype, quant=tail_quant)
     else:
-        packed, fgcnt = packed_tail.packed_tail_from_model(model, fm, x,
-                                                           dtype=dtype)
+        packed, fgcnt = packed_tail.packed_tail_from_model(
+            model, fm, x, dtype=dtype, quant=tail_quant)
     return voting.sample_foreground_packed(packed, fgcnt, max_num, noise,
                                            generator)
 
@@ -160,7 +167,8 @@ def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
                        tail_depth: int = 1, tail_dtype=torch.bfloat16,
                        cov_pair_u: Optional[torch.Tensor] = None,
                        cov_noise: Optional[torch.Tensor] = None,
-                       fcn_bf16: bool = False
+                       fcn_bf16: bool = False, impl: Optional[str] = None,
+                       tail_quant: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                   torch.Tensor]:
     """Normalized images [b, h, w, 3] -> (keypoints [b, vn, 2], their
@@ -172,15 +180,15 @@ def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
     if fused_tail:
         fg = fused_tail_foreground(model, images, params.max_num, noise,
                                    generator, tail_dtype, tail_depth,
-                                   fcn_bf16)
+                                   fcn_bf16, tail_quant)
         kps = voting.ransac_voting_v3_from_fg(
             fg, params.hyp_num, params.inlier_thresh, params.min_num,
-            pair_u, generator)
+            pair_u, generator, impl)
         cov = None
         if uncertainty:
             _, cov = voting.estimate_voting_distribution_from_fg(
                 fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
-                cov_pair_u, generator)
+                cov_pair_u, generator, impl)
         fg_pixels = fg.total
     else:
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
@@ -190,10 +198,10 @@ def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
         if uncertainty:
             kps, cov = keypoints_with_covariance(
                 mask, vertex, params, noise, pair_u, cov_noise, cov_pair_u,
-                generator)
+                generator, impl)
         else:
             kps = keypoints_from_fields(mask, vertex, params, noise, pair_u,
-                                        generator)
+                                        generator, impl)
             cov = None
         fg_pixels = (mask != 0).flatten(1).sum(1).to(torch.int32)
     return kps, cov, fg_pixels
@@ -209,32 +217,40 @@ def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
                    uncertainty: bool = False, fused_tail: bool = False,
                    tail_depth: int = 1, tail_dtype=torch.bfloat16,
                    cov_pair_u: Optional[torch.Tensor] = None,
-                   cov_noise: Optional[torch.Tensor] = None
-                   ) -> PoseEstimate:
+                   cov_noise: Optional[torch.Tensor] = None,
+                   fcn_bf16: bool = False, impl: Optional[str] = None,
+                   tail_quant: bool = False) -> PoseEstimate:
     """The whole slice on normalized images [b, h, w, 3]: fields (or the
     packed tail), voting, optionally the covariance, PnP, plus each
     image's foreground pixel count.
 
     fused_tail=True takes the packed-tail path (``run_fused`` of the JAX
-    pipeline) at ``tail_depth`` in {1, 2, 3} and ``tail_dtype``; its
-    ``fg_pixels`` is the sample's exact full-resolution count. Draws, all
-    optional (see ops/voting.py): ``noise`` and ``pair_u`` for the voting,
-    ``cov_pair_u`` for the covariance pass, and on the plain path, which
-    samples the foreground a second time for it, ``cov_noise``."""
+    pipeline) at ``tail_depth`` in {1, 2, 3} and ``tail_dtype``, its stage
+    convolutions in int8 with ``tail_quant``; its ``fg_pixels`` is the
+    sample's exact full-resolution count. fcn_bf16=True runs the FCN under
+    bfloat16 autocast; ``impl`` is the count's mode (None float32, 'bf16').
+    Draws, all optional (see ops/voting.py): ``noise`` and ``pair_u`` for
+    the voting, ``cov_pair_u`` for the covariance pass, and on the plain
+    path, which samples the foreground a second time for it,
+    ``cov_noise``."""
     kps, cov, fg_pixels = estimate_keypoints(
         model, images, params, noise, pair_u, generator, uncertainty,
-        fused_tail, tail_depth, tail_dtype, cov_pair_u, cov_noise)
+        fused_tail, tail_depth, tail_dtype, cov_pair_u, cov_noise, fcn_bf16,
+        impl, tail_quant)
     pose = poses_from_keypoints(points_3d, kps, K, covar=cov)
     return PoseEstimate(pose, kps, fg_pixels)
 
 
 def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
                        params: VoteParams = VoteParams(),
-                       uncertainty: bool = False, fused_tail: bool = False,
-                       tail_depth: int = 1, tail_dtype=torch.bfloat16,
-                       device=None):
+                       uncertainty: bool = False, impl: Optional[str] = None,
+                       fused_tail: bool = False, tail_depth: int = 1,
+                       tail_dtype=torch.bfloat16, tail_quant: bool = False,
+                       fcn_bf16: bool = False, device=None):
     """Build the image -> pose function (the JAX ``run`` closure, or
-    ``run_fused`` with fused_tail=True; see :func:`estimate_poses`).
+    ``run_fused`` with fused_tail=True; see :func:`estimate_poses`). The
+    JAX function's arguments keep their names and order; fcn_bf16 stands
+    for its model dtype, the port's model being float32 under autocast.
 
     Returns run(images [b, h, w, 3] normalized float32 on the model's
     device, generator=None) -> (pose [b, 3, 4], kps [b, vn, 2]).
@@ -251,7 +267,8 @@ def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
         est = estimate_poses(model, images, points_3d, K, params,
                              generator=generator, uncertainty=uncertainty,
                              fused_tail=fused_tail, tail_depth=tail_depth,
-                             tail_dtype=tail_dtype)
+                             tail_dtype=tail_dtype, fcn_bf16=fcn_bf16,
+                             impl=impl, tail_quant=tail_quant)
         return est.pose, est.kps
 
     return run

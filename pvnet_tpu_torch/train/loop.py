@@ -10,9 +10,14 @@ the learning rate from the schedule, the steps, a scalar record every
 validation pass (loss meters, and pose evaluation: FCN -> voting -> PnP ->
 ADD(-S) / 2D-projection / 5cm5deg, :meth:`TrainLoop.validate`).
 
+The model is built from the recipe's int8 options (config.model_kwargs):
+training runs float, the evaluation int8, with static scales from
+:meth:`TrainLoop.calibrate_quant` once it has run and per-image scales
+before.
+
 Not ported yet: the host-augmentation and host-batch paths (``PoseDataset``,
-``Prefetcher``), ImageNet backbone initialization, int8 calibration and
-the intermediate-result dumps of ``--save_inter_result``.
+``Prefetcher``), ImageNet backbone initialization and the
+intermediate-result dumps of ``--save_inter_result``.
 """
 from __future__ import annotations
 
@@ -24,11 +29,13 @@ import torch
 
 from pvnet_tpu_torch import pipeline as pl_mod
 from pvnet_tpu_torch.config import (LINEMOD_K, SYMMETRIC_CLS_NAMES,
-                                    TrainConfig, VOTE_TYPE_TO_NUM)
+                                    TrainConfig, VOTE_TYPE_TO_NUM,
+                                    model_kwargs)
 from pvnet_tpu_torch.data.dataset import ImageSizeBatchSampler, eval_batches
 from pvnet_tpu_torch.eval.evaluator import Evaluator, ObjectMeta
 from pvnet_tpu_torch.models.pvnet import build_model
 from pvnet_tpu_torch.models.resnet import init_weights
+from pvnet_tpu_torch.ops import quant_conv
 from pvnet_tpu_torch.train import trainer as trainer_mod
 from pvnet_tpu_torch.train.checkpoint import load_model, save_model
 from pvnet_tpu_torch.train.recorder import AverageMeter, Recorder
@@ -55,9 +62,10 @@ class TrainLoop:
     def init_state(self, init: Optional[str] = None
                    ) -> trainer_mod.TrainState:
         """A fresh train state: He fan-out weights drawn from cfg.seed, or
-        the weights of ``init`` (a flax msgpack or a port ``.pth``)."""
+        the weights of ``init`` (a flax msgpack or a port ``.pth``). The
+        model has the recipe's int8 options (float in training)."""
         model = build_model(self.cfg.network, ver_dim=self.vote_num * 2,
-                            seg_dim=2)
+                            seg_dim=2, **model_kwargs(self.cfg))
         init_weights(model, torch.Generator().manual_seed(self.cfg.seed))
         if init:
             load_weights(model, init)
@@ -138,9 +146,34 @@ class TrainLoop:
         return state, steps
 
     # -- validation -------------------------------------------------------
+    def _images(self, batch) -> torch.Tensor:
+        """A loader batch's uint8 images, normalized, [b, h, w, 3] on the
+        loop's device."""
+        return pl_mod.normalize_images(
+            torch.from_numpy(np.ascontiguousarray(batch["image"]))
+            .to(self.device))
+
+    def calibrate_quant(self, state, loader: Iterable[Dict[str, np.ndarray]],
+                        num_batches: int = 2) -> Dict[str, torch.Tensor]:
+        """Calibrate the model's static int8 activation scales
+        (quant_mode='static') on the first ``num_batches`` loader batches,
+        in the recipe's dtype (JAX TrainLoop.calibrate_quant). The scales
+        stay in the model's QuantConv2d buffers, where every later
+        validate() / eval_pipeline() reads them; returns them by module."""
+        images = []
+        for bidx, batch in enumerate(loader):
+            if bidx >= num_batches:
+                break
+            images.append(self._images(batch).permute(0, 3, 1, 2)
+                          .contiguous())
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.cfg.bf16):
+            return quant_conv.calibrate(state.model, images)
+
     def eval_pipeline(self, hw: Tuple[int, int], uncertainty: bool,
                       vote_params: Optional[pl_mod.VoteParams] = None,
-                      tail_depth: int = 0) -> Callable:
+                      tail_depth: int = 0, tail_quant: bool = False,
+                      vote_impl: Optional[str] = None) -> Callable:
         """The forward + vote of the pose evaluation for images of size
         ``hw``: fwd(model, image, generator, **draws) -> keypoints
         [b, vn, 2], or (mean, cov [b, vn, 2, 2]) with uncertainty, on
@@ -150,9 +183,10 @@ class TrainLoop:
         tail_depth 0 is the plain full-resolution path; 1-3 run the packed
         tail of that depth (pipeline.fused_tail_foreground) in the recipe's
         dtype, and fall back to 0 where h or w is not a multiple of 8 (the
-        truncated split's crops), as the JAX loop does. ``draws`` are the
-        optional noise / pair_u / cov_noise / cov_pair_u of
-        pipeline.estimate_keypoints."""
+        truncated split's crops), as the JAX loop does; ``tail_quant`` runs
+        its stage convolutions in int8. ``vote_impl`` is the count's mode
+        (None float32, 'bf16'). ``draws`` are the optional noise / pair_u /
+        cov_noise / cov_pair_u of pipeline.estimate_keypoints."""
         if tail_depth > 0 and (hw[0] % 8 or hw[1] % 8):
             tail_depth = 0
         params = vote_params or pl_mod.VoteParams()
@@ -165,7 +199,8 @@ class TrainLoop:
                 uncertainty=uncertainty, fused_tail=tail_depth > 0,
                 tail_depth=tail_depth,
                 tail_dtype=torch.bfloat16 if bf16 else torch.float32,
-                fcn_bf16=bf16, **draws)
+                fcn_bf16=bf16, impl=vote_impl, tail_quant=tail_quant,
+                **draws)
             return (kps, cov) if uncertainty else kps
 
         return fwd
@@ -176,7 +211,8 @@ class TrainLoop:
                  use_camera_intrinsic: bool = False,
                  evaluator: Optional[Evaluator] = None,
                  vote_params: Optional[pl_mod.VoteParams] = None,
-                 tail_depth: int = 0,
+                 tail_depth: int = 0, tail_quant: bool = False,
+                 vote_impl: Optional[str] = None,
                  draws: Optional[Callable[..., Dict[str, torch.Tensor]]]
                  = None) -> Dict[str, float]:
         """(ref val() :177-253) The loss meters of every batch (trainer's
@@ -188,30 +224,32 @@ class TrainLoop:
         LINEMOD_K for every image unless use_camera_intrinsic (then the
         batch's own K). The draws come from a generator seeded 0 on the
         loop's device, or from ``draws(bidx, b, h, w)`` where given (a
-        dict of tensors for :meth:`eval_pipeline`'s fwd)."""
+        dict of tensors for :meth:`eval_pipeline`'s fwd). The loss meters'
+        forward takes per-image int8 scales, as the JAX loop's applies
+        without the calibrated collection; the poses use the calibrated
+        ones."""
         meters = {k: AverageMeter() for k in _METRICS}
         gen = torch.Generator(self.device).manual_seed(0)
         begin = time.time()
         for bidx, batch in enumerate(loader):
-            image = pl_mod.normalize_images(
-                torch.from_numpy(np.ascontiguousarray(batch["image"]))
-                .to(self.device))
+            image = self._images(batch)
             dev = {"image": image.permute(0, 3, 1, 2).contiguous(),
                    "mask": torch.from_numpy(np.asarray(batch["mask"],
                                                        np.int32))
                    .to(self.device),
                    "hcoords": torch.from_numpy(batch["hcoords"])
                    .to(self.device)}
-            metrics = trainer_mod.eval_step(
-                state, dev, self.cfg.vertex_loss_ratio,
-                self.cfg.motion_model, self.cfg.bf16)
+            with quant_conv.uncalibrated(state.model):
+                metrics = trainer_mod.eval_step(
+                    state, dev, self.cfg.vertex_loss_ratio,
+                    self.cfg.motion_model, self.cfg.bf16)
             for k, m in meters.items():
                 m.update(float(metrics[k]))
 
             if evaluate_pose and evaluator is not None:
                 b, h, w = dev["mask"].shape
                 fwd = self.eval_pipeline((h, w), uncertainty, vote_params,
-                                         tail_depth)
+                                         tail_depth, tail_quant, vote_impl)
                 Ks = (batch["K"] if use_camera_intrinsic
                       else np.broadcast_to(LINEMOD_K, (b, 3, 3)))
                 extra = draws(bidx, b, h, w) if draws is not None else {}

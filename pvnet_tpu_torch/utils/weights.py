@@ -11,6 +11,10 @@ the other way, to numpy trees.
 
 Strict both ways: every leaf of the flax tree must be used, and
 ``load_state_dict`` must find every tensor the model has.
+
+:func:`quant_from_flax` and :func:`flax_quant_from_model` carry the int8
+models' calibrated activation scales (the flax ``quant`` collection, the
+port's QuantConv2d ``act_absmax`` buffers) across, strictly as well.
 """
 from __future__ import annotations
 
@@ -160,3 +164,47 @@ def load_weights(model: torch.nn.Module, path: str) -> None:
         model.load_state_dict(ckpt["net"], strict=True)
     else:
         load_pvnet_checkpoint(model, path)
+
+
+def _quant_modules(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    """{flax module path: QuantConv2d} of a model's int8 convolutions."""
+    from pvnet_tpu_torch.ops.quant_conv import quant_convs
+    convs = quant_convs(model)
+    paths = {tp: fp for tp, fp in _pairs()[0]}
+    unknown = sorted(set(convs) - set(paths))
+    if unknown:
+        raise KeyError(f"no flax path for {unknown[:8]}")
+    return {paths[n]: m for n, m in convs.items()}
+
+
+def quant_from_flax(model: torch.nn.Module, quant: dict) -> None:
+    """Set the ``act_absmax`` of every QuantConv2d of ``model`` from a flax
+    ``quant`` collection ({.../Conv_k: {'act_absmax': x}}, numpy or
+    arrays). Raises if a module gets no value or a leaf is left unused."""
+    flat = _flatten(quant)
+    used = set()
+    for fp, m in _quant_modules(model).items():
+        key = f"{fp}/act_absmax"
+        if key not in flat:
+            raise KeyError(f"quant collection has no {key}")
+        used.add(key)
+        m.act_absmax = torch.tensor(float(np.asarray(flat[key])),
+                                    dtype=torch.float32,
+                                    device=m.weight.device)
+    unused = set(flat) - used
+    if unused:
+        raise KeyError(f"{len(unused)} quant leaves unused: "
+                       f"{sorted(unused)[:8]}")
+
+
+def flax_quant_from_model(model: torch.nn.Module) -> dict:
+    """The inverse of :func:`quant_from_flax`: the flax ``quant``
+    collection (float32 numpy scalars) of a calibrated model. Raises if a
+    QuantConv2d has no calibrated value."""
+    flat = {}
+    for fp, m in _quant_modules(model).items():
+        if m.act_absmax is None:
+            raise ValueError(f"{fp} is not calibrated")
+        flat[f"{fp}/act_absmax"] = np.asarray(
+            m.act_absmax.detach().float().cpu().numpy())
+    return _nest(flat)

@@ -577,3 +577,130 @@ def test_augmentation_never_waits_for_the_device(cuda):
         AD.augment_batch(image, mask, hcoords, (48, 64), cfg, generator=gen)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# --- K3's bfloat16 mode ------------------------------------------------------
+
+# the main path (hn=tn=512, vn=9), the covariance pass (hn=1024), tn and
+# hn that fill no tile, one keypoint, one pixel, invalid slots throughout
+@pytest.mark.parametrize("b,tn,vn,hn", [
+    (2, 512, 9, 512), (4, 512, 9, 1024), (2, 500, 9, 512), (2, 512, 9, 37),
+    (3, 200, 1, 300), (1, 1, 1, 5), (2, 100, 3, 130), (1, 1000, 2, 1500)])
+def test_count_bf16_kernel_equals_plain(cuda, b, tn, vn, hn):
+    fg = _sample(cuda, b, tn, vn, tn + hn + 1)
+    hyps = torch.empty(b, hn, vn, 2, device=cuda).uniform_(-20, 120)
+    before = V.count_inliers_bf16.launches
+    got = V.count_inliers(fg, hyps, 0.99, impl="bf16")
+    want = V.count_inliers_plain_bf16(fg, hyps, 0.99)
+    torch.cuda.synchronize()
+    assert V.count_inliers_bf16.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_count_bf16_kernel_on_pixels_equals_the_cpu(cuda):
+    # pixel coordinates (integers) make the centroid exact on any device,
+    # so the card's kernel equals the CPU's plain version
+    fg = _sample(cuda, 3, 512, 9, 5)
+    fg = fg._replace(coords=fg.coords.floor() * 4.0)
+    hyps = torch.empty(3, 512, 9, 2, device=cuda).uniform_(-20, 420)
+    got = V.count_inliers_bf16(fg, hyps, 0.99)
+    want = V.count_inliers_plain_bf16(
+        V.ForegroundSample(*(t.cpu() for t in fg)), hyps.cpu(), 0.99)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_count_bf16_kernel_on_the_cosine_boundary(cuda):
+    # hypotheses at exactly the threshold angle from some pixel's ray: in
+    # bfloat16 many pairs round onto either side of the test; a contracted
+    # multiply-add or a skipped rounding would move them
+    rng = np.random.RandomState(6)
+    b, tn, vn, hn, thresh = 2, 300, 3, 600, 0.99
+    fg = _sample(cuda, b, tn, vn, 6)
+    c, n = fg.coords.cpu().double(), fg.dirs.cpu().double()
+    src = rng.randint(0, tn, (b, hn))
+    ang = np.arccos(thresh) * rng.choice([-1.0, 1.0], (b, hn, 1))
+    rot = torch.tensor(np.stack([np.cos(ang), np.sin(ang)], -1))
+    bi = np.arange(b)[:, None]
+    ray = n[bi, src]
+    ray = torch.stack([ray[..., 0] * rot[..., 0] - ray[..., 1] * rot[..., 1],
+                       ray[..., 0] * rot[..., 1] + ray[..., 1] * rot[..., 0]],
+                      -1)
+    dist = torch.tensor(rng.uniform(0.5, 200.0, (b, hn, 1, 1)))
+    hyps = (c[bi, src][:, :, None, :] + dist * ray).float().to(cuda)
+    hyps[0, :5] = fg.coords[0, :5, None, :]                 # d2 == 0
+    assert _near_boundary(fg, hyps, thresh) > 1000
+    got = V.count_inliers_bf16(fg, hyps, thresh)
+    assert torch.equal(got, V.count_inliers_plain_bf16(fg, hyps, thresh))
+    # and the mode is not the float32 count
+    assert not torch.equal(got, V.count_inliers(fg, hyps, thresh))
+
+
+def test_count_bf16_kernel_empty_batch_and_no_pixels(cuda):
+    before = V.count_inliers_bf16.launches
+    fg = _sample(cuda, 0, 64, 3, 0)
+    got = V.count_inliers_bf16(fg, torch.zeros(0, 16, 3, 2, device=cuda),
+                               0.99)
+    assert got.shape == (0, 16, 3)
+    fg = _sample(cuda, 2, 0, 3, 0)
+    got = V.count_inliers_bf16(fg, torch.rand(2, 16, 3, 2, device=cuda),
+                               0.99)
+    assert got.shape == (2, 16, 3) and (got == 0).all()
+    assert V.count_inliers_bf16.launches == before
+
+
+# --- the int8 convolution route (gathered taps through torch._int_mm) --------
+
+# (cin, cout, k, stride, dilation, padding, h, w) of every quantized
+# convolution of the serving preset at 480x640 (b=2 here): layer1-layer4's
+# 3x3 convs at their dilations, the 1x1 downsample convs, the decoder's fc
+# and 8s convs, and the packed tail's lattice and skip convs per stage
+_INT8_SHAPES = [
+    (64, 64, 3, 1, 1, 1, 120, 160), (64, 128, 3, 2, 1, 1, 120, 160),
+    (128, 128, 3, 1, 1, 1, 60, 80), (64, 128, 1, 2, 1, 0, 120, 160),
+    (128, 256, 3, 1, 2, 2, 60, 80), (256, 256, 3, 1, 2, 2, 60, 80),
+    (128, 256, 1, 1, 1, 0, 60, 80), (256, 512, 3, 1, 4, 4, 60, 80),
+    (512, 512, 3, 1, 4, 4, 60, 80), (256, 512, 1, 1, 1, 0, 60, 80),
+    (512, 256, 3, 1, 1, 1, 60, 80), (384, 128, 3, 1, 1, 1, 60, 80),
+    (512, 256, 2, 1, 1, 0, 61, 81), (64, 256, 4, 2, 1, 1, 120, 160),
+    (256, 128, 2, 1, 1, 0, 121, 161), (64, 128, 4, 2, 1, 1, 240, 320),
+    (128, 128, 2, 1, 1, 0, 241, 321)]
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,dil,pad,h,w", _INT8_SHAPES)
+def test_int8_route_equals_plain(cuda, cin, cout, k, stride, dil, pad, h, w):
+    from pvnet_tpu_torch.ops import quant_conv as Q
+    g = torch.Generator(cuda).manual_seed(cin + cout + h)
+    q = torch.randint(-127, 128, (2, cin, h, w), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (cout, cin, k, k), generator=g,
+                        device=cuda, dtype=torch.int8)
+    before = Q.conv_int8_acc.launches
+    got = Q.conv_int8_acc(q, w_q, stride, pad, dil)
+    want = Q.conv_int8_acc_plain(q, w_q, stride, pad, dil)
+    torch.cuda.synchronize()
+    assert Q.conv_int8_acc.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_int8_conv_on_the_card_equals_the_cpu(cuda):
+    from pvnet_tpu_torch.ops import quant_conv as Q
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 64, 30, 40, generator=g)
+    x[1] *= 50.0
+    w = torch.randn(128, 64, 3, 3, generator=g) * 0.1
+    got = Q.conv2d_int8(x.to(cuda), w.to(cuda), 1, 2, 2)
+    assert torch.equal(got.cpu(), Q.conv2d_int8(x, w, 1, 2, 2))
+
+
+def test_int8_route_rejects_what_int_mm_cannot_take(cuda):
+    from pvnet_tpu_torch.ops import quant_conv as Q
+    q = torch.zeros(2, 3, 16, 16, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):     # K = 27
+        Q.conv_int8_acc(q, torch.zeros(8, 3, 3, 3, dtype=torch.int8,
+                                       device=cuda), 1, 1)
+    q = torch.zeros(1, 8, 4, 4, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="16 rows"):            # M = 16
+        Q.conv_int8_acc(q, torch.zeros(8, 8, 1, 1, dtype=torch.int8,
+                                       device=cuda))
+    with pytest.raises(TypeError):
+        Q.conv_int8_acc(q.float(), torch.zeros(8, 8, 1, 1, device=cuda))

@@ -80,3 +80,28 @@ def test_cli_with_blender_K_and_center_3d(tmp_path):
         assert a["pose"] == b["pose"] and a["kps"] == b["kps"]
         # the same keypoints under other intrinsics give another pose
         assert a["kps"] == c["kps"] and a["pose"] != c["pose"]
+
+
+@pytest.mark.parametrize("argv,recipe,want", [
+    # without --quant the recipe's options, and tools/infer.py passes its
+    # quant_mode only with stages
+    ([], {}, ((), "dynamic", False, False)),
+    ([], {"quant_stages": [2, 3], "quant_mode": "static"},
+     ((2, 3), "static", False, False)),
+    ([], {"quant_decoder": True, "quant_tail": True, "quant_mode": "static"},
+     ((), "dynamic", True, True)),
+    # --quant: the CLI's stages (default all four) and mode (default
+    # static); --quant_decoder / --quant_tail only with --quant
+    (["--quant"], {"quant_stages": [3]}, ((0, 1, 2, 3), "static", False,
+                                          False)),
+    (["--quant", "--quant_stages", "1,3", "--quant_mode", "dynamic",
+      "--quant_decoder", "--quant_tail"], {}, ((1, 3), "dynamic", True,
+                                              True)),
+    (["--quant_decoder", "--quant_tail"], {}, ((), "dynamic", False, False)),
+])
+def test_quant_options_follow_tools_infer(argv, recipe, want):
+    args = infer.parse_args(["--checkpoint", CKPT, "--images", "x.npz",
+                             "--points_3d", "x.npz", *argv])
+    opts = infer.quant_options(args, TC.TrainConfig.from_dict(recipe))
+    assert (opts["quant_stages"], opts["quant_mode"], opts["quant_decoder"],
+            opts["tail_quant"]) == want

@@ -188,6 +188,171 @@ def test_packed_slice_matches_jax_run_fused(crop_views, uncertainty):
     assert np.abs(pose_j[0, :, 3] - v["poses"][0, :, 3]).max() < 0.05
 
 
+@pytest.fixture(scope="module")
+def preset(crop_views):
+    """The production preset on the crop, per dtype: the JAX model built
+    as tools/infer.py --quant builds it (stages 0-3 int8, static scales
+    calibrated by JAX on the crop's images), its variables with that
+    ``quant`` collection, the port's model holding the same scales
+    (utils/weights.quant_from_flax), and each side's packed field and
+    fgcnt at tail_depth 3."""
+    from pvnet_tpu.ops import packed_tail as JPT
+    from pvnet_tpu.ops import quant_conv as JQ
+    from pvnet_tpu_torch.ops import packed_tail as TPT
+    from pvnet_tpu_torch.utils.weights import quant_from_flax
+    images = ((crop_views["images"].astype(np.float32) / 255.0
+               - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
+    with open(CKPT, "rb") as f:
+        base = jax.tree_util.tree_map(
+            lambda x: jnp.asarray(x, jnp.float32),
+            serialization.msgpack_restore(f.read()))
+    out = {}
+    for name, dtype in (("f32", jnp.float32), ("bf16", jnp.bfloat16)):
+        fmodel = build_flax("resnet18_8s", ver_dim=18, dtype=dtype,
+                            quant_stages=(0, 1, 2, 3), quant_mode="static")
+        quant = JQ.calibrate(fmodel.clone(quant_mode="calibrate"), base,
+                             [jnp.asarray(images)], train=False)
+        variables = {**base, "quant": quant}
+        fields_j = jax.jit(lambda v, x, m=fmodel, d=dtype:
+                           JPT.packed_tail_deep3_from_variables(
+                               v, *m.apply(v, x, train=False,
+                                           return_8s_features=True), x,
+                               dtype=d))(variables, jnp.asarray(images))
+        model = load_model(CKPT, 9, "cpu", quant_stages=(0, 1, 2, 3),
+                           quant_mode="static")
+        quant_from_flax(model, jax.tree_util.tree_map(np.asarray, quant))
+        x = torch.tensor(images).permute(0, 3, 1, 2).contiguous()
+        bf16 = name == "bf16"
+        with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16,
+                                             enabled=bf16):
+            fields_t = TPT.packed_tail_deep3_from_model(
+                model, *model(x, return_8s_features=True), x,
+                dtype=torch.bfloat16 if bf16 else torch.float32)
+        out[name] = (fmodel, variables, model, dtype, fields_j, fields_t)
+    return images, out
+
+
+# The preset slice: the bf16 recipe (or f32), static int8 stages 0-3, the
+# packed tail at depth 3 and bf16 counts (impl='bf16'), against JAX's
+# jitted run_fused on JAX's draws, both models on JAX's calibrated scales.
+# Measured on the crop:
+# - selection: the two int8 networks' packed fields differ where an
+#   activation sits on a rounding boundary of its int8 grid (relative L2
+#   0.37 % in f32, 0.77 % in bf16), which moves one boundary sub-pixel
+#   into or out of each image's sample in every case (e.g. 491 slots
+#   against 492). Held: at most one sub-pixel; foreground totals within 3
+#   pixels or 0.1 %.
+# - the same selection (JAX's sample voted by the port): keypoints within
+#   0.25 px, poses within 0.06 deg / 0.11 mm (JAX's bf16 count is fused by
+#   XLA). Held: 0.5 px and 0.2 deg / 1 mm.
+# - each side its own selection: f32 poses within 0.58 deg / 9.2 mm, bf16
+#   with uncertainty within 0.68 deg / 14.4 mm: held at the own-FCN
+#   1 deg / 15 mm of test_packed_slice_matches_jax_run_fused. bf16
+#   without uncertainty: view 0 1.14 deg / 4.2 mm, view 1 11.8 deg /
+#   124 mm, all from one keypoint of view 1 that moves 67.9 px (the other
+#   eight within 3.4 px): bf16 counts tie among many hypotheses, and the
+#   one sub-pixel that differs hands that keypoint's argmax to a distant
+#   one. The same bf16 fields voted with float32 counts on both sides
+#   agree within 0.84 deg / 8.4 mm, and the same selection agrees as
+#   above; the uncertainty mode's weighted PnP discounts the keypoint.
+#   Held: view 0 within 1.5 deg / 15 mm; view 1 pinned at 12.5 deg /
+#   0.13 m with eight keypoints within 4 px; the f32 counts within
+#   1 deg / 15 mm.
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("uncertainty", [False, True])
+def test_preset_slice_matches_jax_run_fused(crop_views, preset, dtype,
+                                            uncertainty):
+    v = crop_views
+    images, models = preset
+    fmodel, variables, model, jdtype, fields_j, fields_t = models[dtype]
+    params = TPL.VoteParams()
+    b, h, w, _ = images.shape
+    pts, K = torch.tensor(v["points_3d"]), torch.tensor(v["K"])
+    key = jax.random.PRNGKey(17)
+    run = jax.jit(JPL.make_pose_pipeline(
+        fmodel.apply, v["points_3d"], v["K"], params,
+        uncertainty=uncertainty, impl="bf16", fused_tail=True, tail_depth=3,
+        tail_dtype=jdtype, tail_quant=False))
+    pose_j, kps_j = (np.asarray(t) for t in run(variables,
+                                                jnp.asarray(images), key))
+    # run_fused's draws: split(key, 3) -> selection, pairs, covariance;
+    # its selection is fused_tail_foreground's, from the packed field
+    k0, k1, k2 = jax.random.split(key, 3)
+    fg_j = JV.sample_foreground_packed(*fields_j, params.max_num, k0)
+
+    def u(k, shape):
+        return torch.tensor(np.asarray(jax.random.uniform(k, shape,
+                                                          jnp.float32)))
+
+    noise = u(k0, (b, h // 2, w // 2))
+    pair_u = u(k1, (b, params.hyp_num, 2))
+    cov_pair_u = u(k2, (b, params.uncertainty_hyp_num, 2))
+    fg_t = TV.sample_foreground_packed(*fields_t, params.max_num, noise)
+    for i in range(b):
+        got = set(map(tuple, fg_t.coords[i, :int(fg_t.count[i])].tolist()))
+        want = set(map(tuple, np.asarray(fg_j.coords)[
+            i, :int(fg_j.count[i])].tolist()))
+        assert len(got ^ want) <= 1, (i, len(got - want), len(want - got))
+    total_j = np.asarray(fg_j.total)
+    assert (np.abs(fg_t.total.numpy() - total_j)
+            <= np.maximum(3, 1e-3 * total_j)).all()
+
+    def vote(fg, impl):
+        """The port's voting and PnP on a foreground sample."""
+        kps = TV.ransac_voting_v3_from_fg(fg, params.hyp_num,
+                                          params.inlier_thresh,
+                                          params.min_num, pair_u=pair_u,
+                                          impl=impl)
+        cov = None
+        if uncertainty:
+            _, cov = TV.estimate_voting_distribution_from_fg(
+                fg, kps, params.uncertainty_hyp_num, params.inlier_thresh,
+                pair_u=cov_pair_u, impl=impl)
+        return kps, TPL.poses_from_keypoints(pts, kps, K, cov)
+
+    def apart(pose):
+        return (_rot_err(pose, pose_j),
+                np.abs(pose[..., 3].numpy() - pose_j[..., 3]).max(-1))
+
+    # the same selection: JAX's sample through the port's voting
+    kps_s, pose_s = vote(TV.ForegroundSample(
+        *(torch.tensor(np.asarray(t)) for t in fg_j)), "bf16")
+    assert np.abs(kps_s.numpy() - kps_j).max() < 0.5
+    rot, dt = apart(pose_s)
+    assert (rot < 0.2).all() and (dt < 1e-3).all(), (rot, dt)
+
+    # each its own selection, through the port's entry point
+    bf16 = dtype == "bf16"
+    est = TPL.estimate_poses(
+        model, torch.tensor(images), pts, K, params, noise=noise,
+        pair_u=pair_u, cov_pair_u=cov_pair_u, uncertainty=uncertainty,
+        fused_tail=True, tail_depth=3,
+        tail_dtype=torch.bfloat16 if bf16 else torch.float32, fcn_bf16=bf16,
+        impl="bf16")
+    err = np.linalg.norm(est.kps.numpy() - kps_j, axis=-1)
+    assert np.median(err) < 1.5, err
+    rot, dt = apart(est.pose)
+    if not bf16 or uncertainty:
+        bounds = [(1.0, 0.015)] * 2
+    else:
+        bounds = [(1.5, 0.015), (12.5, 0.13)]
+        assert np.sort(err[1])[-2] < 4.0, err[1]
+        # the same bf16 fields voted with float32 counts on both sides
+        kps_f = jax.jit(lambda fg, k: JV.ransac_voting_v3_from_fg(
+            fg, k, hyp_num=params.hyp_num,
+            inlier_thresh=params.inlier_thresh,
+            min_num=params.min_num))(fg_j, k1)
+        pose_f = np.asarray(jax.jit(JP.pnp_batch)(
+            jnp.asarray(v["points_3d"]), kps_f, jnp.asarray(v["K"])))
+        _, pose_t = vote(fg_t, None)
+        rot_f = _rot_err(pose_t, pose_f)
+        dt_f = np.abs(pose_t[..., 3].numpy() - pose_f[..., 3]).max(-1)
+        assert (rot_f < 1.0).all() and (dt_f < 0.015).all(), (rot_f, dt_f)
+    for i, (r_tol, t_tol) in enumerate(bounds):
+        assert rot[i] < r_tol and dt[i] < t_tol, (i, rot, dt)
+    assert _rot_err(est.pose[:1], v["poses"][:1]).max() < 5.0
+
+
 def test_run_closure_shapes_and_determinism(small_views):
     model = load_model(CKPT, 9, "cpu")
     images = TPL.normalize_images(torch.tensor(small_views["images"]))
@@ -265,6 +430,8 @@ def test_port_imports_and_infers_without_jax(tmp_path):
     np.savez(tmp_path / "views.npz", images=imgs, points_3d=pts)
     out = tmp_path / "poses.jsonl"
     out3 = tmp_path / "poses_packed.jsonl"
+    outq = tmp_path / "poses_int8.jsonl"
+    recipe = os.path.join(REPO, "configs", "synthetic_train.json")
     argv = (f"['infer', '--checkpoint', {CKPT!r}, '--points_3d',"
             f" {str(tmp_path / 'views.npz')!r}, '--images',"
             f" {str(tmp_path / 'views.npz')!r}, '--device', 'cpu',"
@@ -284,6 +451,11 @@ def test_port_imports_and_infers_without_jax(tmp_path):
         f"argv = {argv}{str(out3)!r}, '--tail_depth', '3',"
         " '--uncertainty']\n"
         "assert pvnet_tpu_torch.infer.main(argv[1:]) == 0\n"
+        # the production preset: the bf16 recipe, int8 stages 0-3 with
+        # static scales calibrated on the first images
+        f"argv = {argv}{str(outq)!r}, '--cfg_file', {recipe!r},"
+        " '--quant']\n"
+        "assert pvnet_tpu_torch.infer.main(argv[1:]) == 0\n"
         f"sys.argv = {test_model!r}\n"
         "try:\n"
         "    runpy.run_module('pvnet_tpu_torch.train', run_name='__main__')\n"
@@ -298,7 +470,9 @@ def test_port_imports_and_infers_without_jax(tmp_path):
     assert rates["images"] == 2 and rates["dtype"] == "bf16"
     assert all(0.0 <= rates[k] <= 1.0 for k in ("proj", "add", "cm"))
     assert list((tmp_path / "data").glob("synthetic_duck_4_*.npz"))
-    for path in (out, out3):
+    assert "bf16; int8 stages [0, 1, 2, 3] (static)" in proc.stdout
+    assert "calibrated static int8 scales on 2 images" in proc.stdout
+    for path in (out, out3, outq):
         rows = [json.loads(line) for line in path.read_text().splitlines()]
         assert len(rows) == 2
         for row in rows:

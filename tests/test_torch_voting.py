@@ -270,3 +270,105 @@ def test_covariance_with_mean_matches_jax():
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                atol=1e-6 * np.abs(want).max())
+
+
+# --- bfloat16 counts (K3's bf16 mode, JAX's count_inliers_xla_bf16) ---------
+
+def _real_fg(seed=4):
+    mask, vcm = _cmajor_batch(128, 128, noise=0.05, seed=seed)
+    key = jax.random.PRNGKey(seed + 1)
+    fg = JV.sample_foreground(jnp.asarray(mask), jnp.asarray(vcm), 256, key,
+                              method="stratified")
+    return fg, np.asarray(JV.generate_hypotheses(fg, 256, key))
+
+
+# Both sides round every bf16 operation (XLA's CPU build as PyTorch's eager
+# ops do here): the counts are equal on these inputs (measured: 100 %).
+# Held with tests/test_voting.py's dither bound and mean bias (any count
+# within max(3, 5 % of tn), mean difference under 1) plus >= 99 % equal
+# counts, so that a compiled XLA that fuses a rounding away may dither a
+# boundary pixel. Against the float32 count that bound holds on random
+# rays only, as test_voting.py applies it: on the voting field, where many
+# pixels sit near the cosine boundary, bf16 counts run lower (measured
+# there, in both frameworks alike: mean -6.9, at most 24 of up to 255).
+@pytest.mark.parametrize("kind", ["random", "voting field"])
+def test_bf16_counts_match_jax(kind):
+    if kind == "random":
+        fg, hyps = _random_fg(np.random.RandomState(11), tn=256, hn=64)
+    else:
+        fg, hyps = _real_fg()
+    tn = fg.coords.shape[1]
+    want = np.asarray(JV.count_inliers_xla_bf16(fg, jnp.asarray(hyps), 0.99))
+    tfg, th = _to_torch_fg(fg), torch.tensor(hyps)
+    got = TV.count_inliers_plain_bf16(tfg, th, 0.99).numpy()
+    assert got.dtype == np.int32 and got.shape == want.shape
+    diff = got - want
+    assert np.abs(diff).max() <= max(3, int(0.05 * tn))
+    assert abs(float(diff.mean())) < 1.0
+    assert (diff == 0).mean() >= 0.99
+    if kind == "random":
+        f32 = TV.count_inliers_plain(tfg, th, 0.99).numpy()
+        assert np.abs(got - f32).max() <= max(3, int(0.05 * tn))
+        assert abs(float((got - f32).mean())) < 1.0
+
+
+def test_count_dispatches_on_impl():
+    fg, hyps = _random_fg(np.random.RandomState(12))
+    tfg, th = _to_torch_fg(fg), torch.tensor(hyps)
+    before = (TV.count_inliers.launches, TV.count_inliers_bf16.launches)
+    assert torch.equal(TV.count_inliers(tfg, th, 0.99, impl="bf16"),
+                       TV.count_inliers_plain_bf16(tfg, th, 0.99))
+    assert torch.equal(TV.count_inliers(tfg, th, 0.99),
+                       TV.count_inliers_plain(tfg, th, 0.99))
+    assert (TV.count_inliers.launches,
+            TV.count_inliers_bf16.launches) == before
+    with pytest.raises(ValueError, match="impl"):
+        TV.count_inliers(tfg, th, 0.99, impl="pallas")
+    with pytest.raises(ValueError, match="thresh"):
+        TV.count_inliers(tfg, th, 0.0, impl="bf16")
+
+
+# test_voting.py's bf16 recovery: the clean field within 0.5 px, 30 %
+# outliers within 2 px (the winner seeds a float32 refine either way)
+@pytest.mark.parametrize("noise,outliers,atol,hn",
+                         [(0.0, 0.0, 0.5, 256), (0.01, 0.3, 2.0, 512)])
+def test_bf16_v3_voting_recovers_keypoints(noise, outliers, atol, hn):
+    mask, vertex = make_field(128, 128, KPTS, BOX, noise=noise,
+                              rng=np.random.RandomState(0),
+                              outlier_frac=outliers)
+    vcm = vertex.reshape(128, 128, 6).transpose(2, 0, 1)[None]
+    got = TV.ransac_voting_v3(
+        torch.tensor(mask[None]), torch.tensor(np.ascontiguousarray(vcm)),
+        hyp_num=hn, max_num=hn, generator=torch.Generator().manual_seed(0),
+        impl="bf16")
+    np.testing.assert_allclose(got[0].numpy(), KPTS, atol=atol)
+
+
+# F2: the covariance pass weighs its scatter by the counts, so bf16 counts
+# move it (JAX's docstring says they feed winner selection only). The
+# port's bf16 covariance equals JAX's from the same draws (equal counts;
+# the weighted sum in another order, rtol 1e-4); against the float32
+# covariance from the same hypotheses it moves by 33 % of the largest
+# entry on this field (measured), held under 50 %: in the JAX package's
+# bf16 path just as much.
+def test_bf16_covariance_matches_jax_and_tracks_f32():
+    fg, _ = _real_fg(seed=6)
+    tfg = _to_torch_fg(fg)
+    mean = np.asarray(KPTS[None].repeat(2, 0) + 0.5, np.float32)
+    mean[1] += 5
+    key = jax.random.PRNGKey(13)
+    _, want = JV.estimate_voting_distribution_from_fg(
+        fg, jnp.asarray(mean), key, hyp_num=512, inlier_thresh=0.99,
+        impl="bf16")
+    u = torch.tensor(np.asarray(jax.random.uniform(key, (2, 512, 2),
+                                                   jnp.float32)))
+    mean_t = torch.tensor(mean)
+    _, bf = TV.estimate_voting_distribution_from_fg(tfg, mean_t, 512, 0.99,
+                                                     pair_u=u, impl="bf16")
+    _, f32 = TV.estimate_voting_distribution_from_fg(tfg, mean_t, 512, 0.99,
+                                                      pair_u=u)
+    want = np.asarray(want)
+    np.testing.assert_allclose(bf.numpy(), want, rtol=1e-4,
+                               atol=1e-6 * np.abs(want).max())
+    err = float((bf - f32).abs().max() / f32.abs().max())
+    assert 0.0 < err < 0.5, err
