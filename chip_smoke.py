@@ -16,7 +16,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
     K2 also on a tie-heavy map (integer scores), K2 also at b=1 and b=64,
     and K3 also at tn=500, hn=37 and vn=1 with invalid slots; K3's bf16
     mode (count_inliers_bf16) against its plain bf16 version at the same
-    shapes: exact equality required (K1 and K2 bit for bit); time both
+    shapes and at its own edges (forced pixel splits, hn=1, 513, 1025,
+    70 000 pixels whose counts pass 16 bits), timed also at hn=1024:
+    exact equality required (K1 and K2 bit for bit); time both
     with CUDA events, the timed launches queued behind a sleep kernel so
     that the events time the device: warm (the same inputs every launch,
     as the path finds them in the L2 cache) and cold (K1 and K2: the score
@@ -151,9 +153,10 @@ K3_BF16_OPS_PER_PAIR = 14
 INT8_OPS_PER_S = 1979e12
 # device times at the main-path shapes before each kernel's Hopper
 # redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table): K3
-# (kernel, back to back), K5, K1 and K2 (f32, bf16)
+# (kernel, back to back), K5, K1, K2 (f32, bf16) and K3's bf16 mode
 BEFORE_MS = {"K3": 0.0832, "K3 back to back": 0.3455, "K5": 0.4453,
-             "K1": 0.0383, "K2 f32": 0.0469, "K2 bf16": 0.0464}
+             "K1": 0.0383, "K2 f32": 0.0469, "K2 bf16": 0.0464,
+             "K3 bf16": 0.1585}
 # L2 cache of the H100: the cold timings rotate over inputs that exceed it
 L2_BYTES = 50 * 2 ** 20
 # device clock cycles of cuda_ms's head start: ~50 ms at the H100's clocks
@@ -397,42 +400,99 @@ def k3_copies(fg, hyps):
             for _ in range(n)]
 
 
-def check_k3_bf16(dev, g, fg):
-    """K3's bf16 mode against its plain bf16 version, exactly: on the main
-    path's sample with hn=512 and the covariance pass's hn=1024, and on
-    K3's edge shapes of phase (c) (random samples with invalid slots at
-    tn=500, hn=37 and vn=1). Times warm and cold at the main-path shape,
-    and the plain version."""
+def converging_sample(dev, g, tn):
+    """One image, one keypoint: tn valid pixels whose rays all meet at one
+    point, and 9 hypotheses around it (the first on it), so that counts
+    pass 65 535."""
     import torch
     from pvnet_tpu_torch.ops import voting
+    coords = torch.rand((1, tn, 2), generator=g, device=dev) * 300
+    kp = torch.tensor([150.5, 149.25], device=dev)
+    dirs = (kp - coords)[:, :, None, :]
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    valid = torch.ones((1, tn), dtype=torch.bool, device=dev)
+    count = torch.full((1,), tn, dtype=torch.int32, device=dev)
+    hyps = kp + torch.rand((1, 9, 1, 2), generator=g, device=dev) * 4 - 2
+    hyps[0, 0, 0] = kp
+    return voting.ForegroundSample(coords, dirs, valid, count, count), hyps
 
-    def exact(fg, hyps):
-        got = voting.count_inliers(fg, hyps, 0.99, impl="bf16")
+
+def check_k3_bf16(dev, g, fg):
+    """K3's bf16 mode against its plain bf16 version, exactly: on the main
+    path's sample with hn=512 and the covariance pass's hn=1024, on K3's
+    edge shapes of phase (c) (random samples with invalid slots at tn=500,
+    hn=37 and vn=1), at the bf16 kernel's own edges (pixels split across
+    blocks at forced chunks, odd hn and hn past a block's hypotheses, and
+    70 000 converging pixels whose counts pass 16 bits, split and in one
+    block). Times warm, cold and back to back at the main-path shape, warm
+    and cold at hn=1024, the C entry alone and the wrapper's centroid
+    (both inside the times above), and the plain version."""
+    import torch
+    from pvnet_tpu_torch.ops import kernel_lib, voting
+
+    lib = kernel_lib.library()
+    t2, eps2 = (float(c) for c in voting._bf16_constants(0.99, "cpu"))
+
+    def entry(fg, hyps, chunk, ctr, counts):
+        """The C entry alone, with a forced pixel chunk (0: its own)."""
+        b, hn, vn, _ = hyps.shape
+        return lib.pvnet_count_inliers_bf16(
+            fg.coords.data_ptr(), fg.dirs.data_ptr(), fg.valid.data_ptr(),
+            hyps.data_ptr(), ctr.data_ptr(), counts.data_ptr(), b, vn,
+            fg.coords.shape[1], hn, t2, eps2, chunk,
+            torch.cuda.current_stream().cuda_stream)
+
+    def exact(fg, hyps, chunk=0):
+        if chunk:
+            got = torch.full(hyps.shape[:3], -7, dtype=torch.int32,
+                             device=dev)
+            kernel_lib.check(entry(fg, hyps, chunk, voting._centroid(
+                fg.coords, fg.valid), got), "pvnet_count_inliers_bf16")
+        else:
+            got = voting.count_inliers(fg, hyps, 0.99, impl="bf16")
         want = voting.count_inliers_plain_bf16(fg, hyps, 0.99)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype == torch.int32
         err = float((got - want).abs().max())
         assert err == 0.0 and torch.equal(got, want), \
-            f"K3 bf16 {tuple(hyps.shape)} disagrees with its plain version"
+            f"K3 bf16 {tuple(hyps.shape)} chunk {chunk} disagrees with " \
+            f"its plain version"
         return got, err
 
     hyps = voting.generate_hypotheses(fg, 512, generator=g)
     got, err = exact(fg, hyps)
-    exact(fg, voting.generate_hypotheses(fg, 1024, generator=g))
+    hyps2 = voting.generate_hypotheses(fg, 1024, generator=g)
+    exact(fg, hyps2)
+    for chunk in (100, 129, 256):
+        exact(fg, hyps, chunk)
     for b, tn, vn, hn in ((BATCH, 500, VN, 512), (BATCH, 512, VN, 37),
-                          (4, 512, 1, 512)):
+                          (4, 512, 1, 512), (BATCH, 512, VN, 1),
+                          (BATCH, 512, VN, 513), (2, 512, VN, 1025)):
         hyp = torch.rand((b, hn, vn, 2), generator=g, device=dev) * 140 - 20
         exact(random_sample(dev, g, b, tn, vn), hyp)
+    big, big_hyps = converging_sample(dev, g, 70000)
+    big_counts, _ = exact(big, big_hyps)
+    assert int(big_counts.max()) > 65535, int(big_counts.max())
+    exact(big, big_hyps, 70000)
     f32 = voting.count_inliers(fg, hyps, 0.99)
     same = float((got == f32).float().mean())
 
-    def run():
-        return voting.count_inliers(fg, hyps, 0.99, impl="bf16")
-    ms = cuda_ms(run)
-    copies = k3_copies(fg, hyps)
-    cold = cold_ms(lambda a: voting.count_inliers(a[0], a[1], 0.99,
-                                                  impl="bf16"), copies)
-    del copies
+    def run(h):
+        return lambda: voting.count_inliers(fg, h, 0.99, impl="bf16")
+    ms, ms2 = cuda_ms(run(hyps)), cuda_ms(run(hyps2))
+    b2b = cuda_ms(run(hyps), head_start=False)
+    colds = []
+    for h in (hyps, hyps2):
+        copies = k3_copies(fg, h)
+        colds.append(cold_ms(lambda a: voting.count_inliers(
+            a[0], a[1], 0.99, impl="bf16"), copies))
+        del copies
+    # the C entry alone, and the wrapper's centroid (its small kernels)
+    counts, ctr = torch.empty_like(got), voting._centroid(fg.coords, fg.valid)
+    assert all(t.is_contiguous() for t in (*fg[:3], hyps))
+    kernel_ms = cuda_ms(lambda: entry(fg, hyps, 0, ctr, counts))
+    assert torch.equal(counts, got)
+    centroid_ms = cuda_ms(lambda: voting._centroid(fg.coords, fg.valid))
     plain_ms = cuda_ms(lambda: voting.count_inliers_plain_bf16(fg, hyps,
                                                                0.99))
     pairs = int(fg.valid.sum()) * 512 * VN
@@ -441,19 +501,28 @@ def check_k3_bf16(dev, g, fg):
                 nbytes / HBM_BYTES_PER_S) * 1e3
     print(f"K3 count_inliers bf16 mode [b={BATCH}, hn=512, vn={VN}, tn=512]"
           f" (equal to its plain version, also at hn=1024, tn=500, hn=37, "
-          f"vn=1 with invalid slots; {same * 100:.2f} % of its counts equal "
-          f"the f32 mode's): kernel {ms:.4f} ms warm, {cold:.4f} ms cold; "
-          f"plain {plain_ms:.4f} ms; bound {bound:.4f} ms ({pairs / 1e6:.2f}"
-          f" M pairs x {K3_BF16_OPS_PER_PAIR} bf16 operations at "
-          f"{2 * INSTR_PER_S / 1e12:.1f} T/s, bf16x2); no single PyTorch "
-          f"call computes it", flush=True)
+          f"vn=1 with invalid slots, forced pixel chunks 100, 129, 256, "
+          f"hn=1, 513, 1025, and at tn=70000 with counts up to "
+          f"{int(big_counts.max())}; {same * 100:.2f} % of its counts equal "
+          f"the f32 mode's): kernel {ms:.4f} ms warm (before the redesign: "
+          f"{BEFORE_MS['K3 bf16']}), {colds[0]:.4f} ms cold, back to back "
+          f"{b2b:.4f} ms; the C entry alone {kernel_ms:.4f} ms warm, the "
+          f"wrapper's centroid {centroid_ms:.4f} ms; at hn=1024 {ms2:.4f} "
+          f"ms warm, {colds[1]:.4f} ms cold; plain {plain_ms:.4f} ms; bound "
+          f"{bound:.4f} ms "
+          f"({pairs / 1e6:.2f} M pairs x {K3_BF16_OPS_PER_PAIR} bf16 "
+          f"operations at {2 * INSTR_PER_S / 1e12:.1f} T/s, bf16x2); no "
+          f"single PyTorch call computes it", flush=True)
     return {"name": "count_inliers_bf16", "route": "cuda",
             "source": "pvnet_tpu_torch/csrc/count_inliers.cu",
             "replaces": "pvnet_tpu/ops/voting.py:519",
             "computes": "pvnet_tpu/ops/voting.py:610",
-            "launches": None, "max_abs_err": err, "ms": ms, "cold_ms": cold,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations", "library_ms": None}
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "cold_ms": colds[0], "back_to_back_ms": b2b,
+            "entry_ms": kernel_ms, "centroid_ms": centroid_ms,
+            "hn1024_ms": ms2,
+            "hn1024_cold_ms": colds[1], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None}
 
 
 def check_k2(dev, g):

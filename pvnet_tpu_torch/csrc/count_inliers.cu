@@ -51,15 +51,44 @@
 // difference form dx = hx - cx, dot = dx*nx + dy*ny, d2 = dx^2 + dy^2,
 // n2 = nx^2 + ny^2, and the test
 //   dot > 0 & dot^2 > t2*d2*n2 & d2 > eps2 & n2 > eps2 & valid
-// with every operation rounded to bfloat16 (computed in float32, whose
-// result of one bf16 operation rounds to the bf16 one, then rounded, as
-// PyTorch's eager bf16 operations do), so that it equals
-// voting.count_inliers_plain_bf16 bit for bit. A simple kernel: one
-// hypothesis per thread, pixels staged through shared memory a tile at a
-// time with their per-pixel terms (recentred bf16 coordinates, bf16 ray,
-// n2, or NaN for an excluded pixel so that the product test fails). Bound
-// by instructions as the float32 mode; each rounding costs a conversion
-// pair, about 36 instructions a pair.
+// with every operation rounded to bfloat16, so that it equals
+// voting.count_inliers_plain_bf16 bit for bit. The plain version's eager
+// bf16 operation computes in float32 and rounds; float32's 24 significand
+// bits are >= 2 * 8 + 2, so that double rounding equals one rounding of
+// the exact result, subnormals included, which is what mul/add/sub
+// .rn.bf16x2 do (tests/test_torch_voting.py: eager_bf16_ops_round_once).
+//
+// What bounds it: the instruction rate, as the float32 mode; 11 bf16
+// operations a pair that cannot be fused, and the test. What the design
+// does about it:
+// - bf16x2, no conversion in the pair loop. A lane packs two hypotheses
+//   of one group into the halves of hx and hy, recentred and rounded once
+//   at load; staging writes each pixel's (cx, cy, nx, ny) and n2e (NaN
+//   where excluded) broadcast into both halves. Per two pairs: the 11
+//   operations as HMUL2/HADD2/HFMA2 (ptxas issues about 40 % of them on
+//   the MMA pipe as HFMA2.MMA), |dot| as one more, two HSET2 masks
+//   (lhs > rhs, d2 > eps2; dot > 0 folds into dot * |dot| > rhs, exact
+//   because rhs >= +0 or NaN wherever d2 > eps2), one LOP3, and half an
+//   IADD3 into two 16-bit counters in one register, flushed into 32-bit
+//   counts after every 32-pixel slice. cuobjdump (tools/tune_k3_bf16.py):
+//   8.38 instructions a pair, against 40.75 in the kernel this replaced
+//   (one hypothesis a thread, each rounding a float32 operation, an
+//   F2F.BF16.F32 and a shift back: 44 conversions in 163 instructions for
+//   4 pairs).
+// - Register tiles: R = 2 packed pairs a thread (4 hypotheses), so one
+//   staged pixel (one broadcast LDS.128 and a quarter of one) serves 4
+//   pairs. R = 4 gives 8.06 instructions a pair but half the warps, and
+//   measured slower at hn = 512 and 1024 on the H100.
+// - Warps split the pixels inside a block: 4 warps hold the block's 128
+//   hypotheses, each takes 32 pixels of every 128-pixel tile, and the
+//   block adds their counts in shared memory at the end. The main path's
+//   grid (576 blocks of 4 warps at hn = 512) fills the card without
+//   splitting the pixels across blocks, so the counts are written once:
+//   no zeroing launch, no atomics. A grid of fewer than BF_WARPS_PER_SM
+//   warps an SM still splits them across blocks as the float32 mode
+//   does, with integer atomicAdd into counts zeroed on the stream.
+// - Staging overlaps compute: the next tile's global loads are started
+//   before the current tile's pairs, and land in the second buffer.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -198,7 +227,78 @@ __device__ __forceinline__ float rb(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-constexpr int BF_THREADS = 128;
+// The bfloat16 mode's shape: threads per block (whole warps) and packed
+// hypothesis pairs per thread (R). The macros let tools/tune_k3_bf16.py
+// build other shapes from this source.
+#ifndef K3_BF16_THREADS
+#define K3_BF16_THREADS 128
+#endif
+#ifndef K3_BF16_R
+#define K3_BF16_R 2
+#endif
+constexpr int BF_THREADS = K3_BF16_THREADS;
+constexpr int BF_WARPS = BF_THREADS / 32;
+constexpr int BR = K3_BF16_R;
+constexpr int BF_HYPS = 32 * 2 * BR;       // hypotheses per block
+constexpr int BF_TILE = BF_THREADS;        // pixels per staged tile
+// warps per SM that hide the pair loop's latency: a grid with fewer
+// splits its pixels across blocks
+constexpr int BF_WARPS_PER_SM = 16;
+static_assert(BF_THREADS % 32 == 0, "whole warps");
+
+// Two bf16 lanes per 32-bit register, low half first. Each operation is
+// rounded once, to nearest even, and carries .rn so that ptxas never
+// contracts a multiply and an add into one fma.
+__device__ __forceinline__ uint32_t bsub2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t badd2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t babs2(uint32_t a) {
+  uint32_t d;
+  asm("abs.bf16x2 %0, %1;" : "=r"(d) : "r"(a));
+  return d;
+}
+// 0xFFFF in each half where a > b (false for NaN), else 0
+__device__ __forceinline__ uint32_t bgt2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("set.gt.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ uint32_t both_halves(uint32_t bits) {
+  return bits | (bits << 16);
+}
+
+// The pairs of two hypotheses (hx, hy: one per half) with one staged
+// pixel p = (cx, cy, nx, ny) and ne = n2 or NaN, each broadcast into both
+// halves: 0x0001 in each half whose pair is an inlier. The order of
+// count_inliers_plain_bf16; dot > 0 is folded into dot * |dot| > rhs,
+// exact because rhs = t2 * d2 * n2 is >= +0 or NaN wherever d2 > eps2.
+__device__ __forceinline__ uint32_t inlier_pair2(uint32_t hx, uint32_t hy,
+                                                 const uint4& p, uint32_t ne,
+                                                 uint32_t t2, uint32_t eps2) {
+  const uint32_t dx = bsub2(hx, p.x);
+  const uint32_t dy = bsub2(hy, p.y);
+  const uint32_t dot = badd2(bmul2(dx, p.z), bmul2(dy, p.w));
+  const uint32_t d2 = badd2(bmul2(dx, dx), bmul2(dy, dy));
+  const uint32_t lhs = bmul2(dot, babs2(dot));
+  const uint32_t rhs = bmul2(bmul2(t2, d2), ne);
+  return bgt2(lhs, rhs) & bgt2(d2, eps2) & 0x00010001u;
+}
 
 __global__ void __launch_bounds__(BF_THREADS)
 count_inliers_bf16_kernel(const float2* __restrict__ coords,
@@ -207,52 +307,125 @@ count_inliers_bf16_kernel(const float2* __restrict__ coords,
                           const float2* __restrict__ hyps,
                           const float2* __restrict__ ctr,
                           int* __restrict__ out, int vn, int tn, int hn,
-                          int htiles, float t2, float eps2) {
-  __shared__ float4 sp[BF_THREADS];   // (cx, cy, nx, ny), bf16 values
-  __shared__ float sn[BF_THREADS];    // n2, or NaN where excluded
+                          int htiles, int chunk, float t2f, float eps2f,
+                          int accumulate) {
+  __shared__ uint4 sv[2][BF_TILE];                    // (cx, cy, nx, ny)
+  __shared__ __align__(16) uint32_t sn[2][BF_TILE];   // n2, or NaN
+  __shared__ int part[BF_WARPS][BF_HYPS];             // each warp's counts
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = blockIdx.x / htiles;          // image * vn + keypoint
-  const int h = (blockIdx.x - g * htiles) * BF_THREADS + threadIdx.x;
+  const int hb = (blockIdx.x - g * htiles) * BF_HYPS;
   const int bi = g / vn;
   const int v = g - bi * vn;
+  const int t_begin = blockIdx.y * chunk;
+  const int t_end = min(t_begin + chunk, tn);
   const float2 c0 = ctr[bi];
+  const uint32_t t2 = both_halves(bf16_bits(t2f));      // exact: bf16 values
+  const uint32_t eps2 = both_halves(bf16_bits(eps2f));
 
-  float hx = 0.f, hy = 0.f;
-  if (h < hn) {
-    const float2 hp = hyps[((size_t)bi * hn + h) * vn + v];
-    hx = rb(__fsub_rn(hp.x, c0.x));
-    hy = rb(__fsub_rn(hp.y, c0.y));
+  // every warp holds the block's hypotheses: lane's pair j holds
+  // hb + lane + 64j (low half) and + 32 (high half); past hn they count
+  // unread
+  uint32_t hx[BR], hy[BR], acc[BR];
+  int cnt[BR][2];
+#pragma unroll
+  for (int j = 0; j < BR; ++j) {
+    uint32_t x[2], y[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int h = hb + lane + (2 * j + k) * 32;
+      float2 hp = c0;
+      if (h < hn) hp = hyps[((size_t)bi * hn + h) * vn + v];
+      x[k] = bf16_bits(__fsub_rn(hp.x, c0.x));
+      y[k] = bf16_bits(__fsub_rn(hp.y, c0.y));
+      cnt[j][k] = 0;
+    }
+    hx[j] = x[0] | (x[1] << 16);
+    hy[j] = y[0] | (y[1] << 16);
+    acc[j] = 0;
   }
-  int cnt = 0;
-  for (int t0 = 0; t0 < tn; t0 += BF_THREADS) {
+
+  const float2* cg = coords + (size_t)bi * tn;
+  const float2* dg = dirs + (size_t)bi * tn * vn + v;
+  const uint8_t* vg = valid + (size_t)bi * tn;
+  auto fetch = [&](int t0) {
     const int t = t0 + (int)threadIdx.x;
-    if (t < tn) {
-      const float2 c = coords[(size_t)bi * tn + t];
-      const float2 n = dirs[((size_t)bi * tn + t) * vn + v];
-      const float nx = rb(n.x), ny = rb(n.y);
-      const float n2 = rb(__fadd_rn(rb(__fmul_rn(nx, nx)),
-                                    rb(__fmul_rn(ny, ny))));
-      const bool ok = valid[(size_t)bi * tn + t] != 0 && n2 > eps2;
-      sp[threadIdx.x] = make_float4(rb(__fsub_rn(c.x, c0.x)),
-                                    rb(__fsub_rn(c.y, c0.y)), nx, ny);
-      sn[threadIdx.x] = ok ? n2 : __int_as_float(0x7fc00000);
+    RawPixel p{make_float2(0.f, 0.f), make_float2(0.f, 0.f), false};
+    if (t < t_end) {
+      p.c = cg[t];
+      p.n = dg[(size_t)t * vn];
+      p.ok = vg[t] != 0;
     }
-    __syncthreads();
-    const int m = min(BF_THREADS, tn - t0);
-    for (int u = 0; u < m; ++u) {
-      const float4 p = sp[u];
-      const float dx = rb(__fsub_rn(hx, p.x));
-      const float dy = rb(__fsub_rn(hy, p.y));
-      const float dot = rb(__fadd_rn(rb(__fmul_rn(dx, p.z)),
-                                     rb(__fmul_rn(dy, p.w))));
-      const float d2 = rb(__fadd_rn(rb(__fmul_rn(dx, dx)),
-                                    rb(__fmul_rn(dy, dy))));
-      const float lhs = rb(__fmul_rn(dot, dot));
-      const float rhs = rb(__fmul_rn(rb(__fmul_rn(t2, d2)), sn[u]));
-      cnt += (dot > 0.f) & (lhs > rhs) & (d2 > eps2);
+    return p;
+  };
+  // the pixel's bf16 terms, each operation rounded as the plain version
+  // rounds it (one float32 operation on bf16 values, then rounded, equals
+  // the bf16 operation); slots past the chunk's end get NaN
+  auto put = [&](int buf, const RawPixel& p) {
+    const float nx = rb(p.n.x), ny = rb(p.n.y);
+    const float n2 = rb(__fadd_rn(rb(__fmul_rn(nx, nx)),
+                                  rb(__fmul_rn(ny, ny))));
+    const bool ok = p.ok && n2 > eps2f;
+    sv[buf][threadIdx.x] = make_uint4(
+        both_halves(bf16_bits(__fsub_rn(p.c.x, c0.x))),
+        both_halves(bf16_bits(__fsub_rn(p.c.y, c0.y))),
+        both_halves(bf16_bits(nx)), both_halves(bf16_bits(ny)));
+    sn[buf][threadIdx.x] = ok ? both_halves(bf16_bits(n2)) : 0x7fc07fc0u;
+  };
+
+  put(0, fetch(t_begin));
+  __syncthreads();
+  int buf = 0;
+  for (int t0 = t_begin; t0 < t_end; t0 += BF_TILE) {
+    const bool more = t0 + BF_TILE < t_end;
+    RawPixel next{};
+    if (more) next = fetch(t0 + BF_TILE);
+    // the warp's 32 pixels of the tile, NaN-padded to 4
+    const int n4 = (max(0, min(32, t_end - t0 - warp * 32)) + 3) & ~3;
+    const uint4* s = sv[buf] + warp * 32;
+    const uint4* e4 = reinterpret_cast<const uint4*>(sn[buf] + warp * 32);
+    for (int t = 0; t < n4; t += 4) {
+      const uint4 e = e4[t >> 2];
+      const uint32_t ne[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint4 p = s[t + u];
+#pragma unroll
+        for (int j = 0; j < BR; ++j)
+          acc[j] += inlier_pair2(hx[j], hy[j], p, ne[u], t2, eps2);
+      }
     }
+    // the 16-bit halves hold at most 32 counts: flush each tile
+#pragma unroll
+    for (int j = 0; j < BR; ++j) {
+      cnt[j][0] += (int)(acc[j] & 0xffffu);
+      cnt[j][1] += (int)(acc[j] >> 16);
+      acc[j] = 0;
+    }
+    if (more) put(buf ^ 1, next);
     __syncthreads();
+    buf ^= 1;
   }
-  if (h < hn) out[((size_t)bi * hn + h) * vn + v] = cnt;
+
+  // add the warps' counts of each hypothesis (integers: in any order)
+#pragma unroll
+  for (int j = 0; j < BR; ++j)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      part[warp][lane + (2 * j + k) * 32] = cnt[j][k];
+  __syncthreads();
+  for (int i = threadIdx.x; i < BF_HYPS; i += BF_THREADS) {
+    const int h = hb + i;
+    if (h >= hn) continue;
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < BF_WARPS; ++w) c += part[w][i];
+    int* o = out + ((size_t)bi * hn + h) * vn + v;
+    if (!accumulate)
+      *o = c;
+    else if (c)
+      atomicAdd(o, c);
+  }
 }
 
 // Blocks of count_inliers_kernel that one SM holds at once, and the SM
@@ -276,6 +449,22 @@ void device_slots(int* sms, int* per_sm) {
   *per_sm = cache[dev][1];
 }
 
+// Pixels per block for `blocks` blocks over tn pixels: chunk if it is
+// > 0, else split the pixels until there are `target` blocks, none under
+// min_chunk pixels; at most 65535 splits.
+int pixel_chunk(long long blocks, int tn, int chunk, long long target,
+                int min_chunk) {
+  if (chunk == 0) {
+    long long splits = (target + blocks - 1) / blocks;
+    const long long most = (tn + min_chunk - 1) / min_chunk;
+    splits = splits > most ? most : splits < 1 ? 1 : splits;
+    chunk = (int)((tn + splits - 1) / splits + 7) & ~7;
+  }
+  if ((tn + (long long)chunk - 1) / chunk > 65535)
+    chunk = (tn + 65534) / 65535;
+  return chunk;
+}
+
 }  // namespace
 
 // coords [b, tn, 2] f32, dirs [b, tn, vn, 2] f32, valid [b, tn] bool,
@@ -294,17 +483,10 @@ extern "C" int pvnet_count_inliers(const float* coords, const float* dirs,
   const int htiles = (hn + HYPS - 1) / HYPS;
   const long long blocks = (long long)b * vn * htiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (chunk == 0) {
-    int sms = 0, per_sm = 0;
-    device_slots(&sms, &per_sm);
-    const long long waves = 2LL * sms * per_sm;
-    long long splits = (waves + blocks - 1) / blocks;
-    const long long most = (tn + MIN_CHUNK - 1) / MIN_CHUNK;
-    splits = splits > most ? most : splits;
-    chunk = (int)((tn + splits - 1) / splits + 7) & ~7;
-  }
-  if ((tn + (long long)chunk - 1) / chunk > 65535)
-    chunk = (tn + 65534) / 65535;
+  int sms = 0, per_sm = 0;
+  if (chunk == 0) device_slots(&sms, &per_sm);
+  // about two waves of blocks
+  chunk = pixel_chunk(blocks, tn, chunk, 2LL * sms * per_sm, MIN_CHUNK);
   const int splits = (tn + chunk - 1) / chunk;
   if (splits > 1) {
     cudaError_t err = cudaMemsetAsync(
@@ -322,23 +504,39 @@ extern "C" int pvnet_count_inliers(const float* coords, const float* dirs,
 
 // The bfloat16 mode. coords, dirs, valid, hyps as pvnet_count_inliers;
 // ctr [b, 2] f32 each image's centroid; t2 = bf16(thresh^2) and
-// eps2 = bf16(1e-12), as floats. b, vn, hn, tn >= 1.
+// eps2 = bf16(1e-12), as floats; chunk = pixels per block, 0 chooses it
+// (split only a grid of fewer than BF_WARPS_PER_SM warps per SM, which
+// measured fastest at hn = 512 and 1024 on the H100). b, vn, hn, tn >= 1.
 extern "C" int pvnet_count_inliers_bf16(const float* coords,
                                         const float* dirs,
                                         const uint8_t* valid,
                                         const float* hyps, const float* ctr,
                                         int* counts, int b, int vn, int tn,
                                         int hn, float t2, float eps2,
-                                        cudaStream_t stream) {
-  if (b < 1 || vn < 1 || tn < 1 || hn < 1) return (int)cudaErrorInvalidValue;
-  const int htiles = (hn + BF_THREADS - 1) / BF_THREADS;
+                                        int chunk, cudaStream_t stream) {
+  if (b < 1 || vn < 1 || tn < 1 || hn < 1 || chunk < 0)
+    return (int)cudaErrorInvalidValue;
+  const int htiles = (hn + BF_HYPS - 1) / BF_HYPS;
   const long long blocks = (long long)b * vn * htiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  count_inliers_bf16_kernel<<<(unsigned)blocks, BF_THREADS, 0, stream>>>(
+  int sms = 0, per_sm = 0;
+  if (chunk == 0) device_slots(&sms, &per_sm);
+  // BF_WARPS_PER_SM warps on each SM; a split under one staged tile
+  // would leave warps idle
+  chunk = pixel_chunk(blocks, tn, chunk,
+                      (long long)sms * BF_WARPS_PER_SM / BF_WARPS, BF_TILE);
+  const int splits = (tn + chunk - 1) / chunk;
+  if (splits > 1) {
+    cudaError_t err = cudaMemsetAsync(
+        counts, 0, (size_t)b * hn * vn * sizeof(int), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((unsigned)blocks, splits);
+  count_inliers_bf16_kernel<<<grid, BF_THREADS, 0, stream>>>(
       reinterpret_cast<const float2*>(coords),
       reinterpret_cast<const float2*>(dirs), valid,
       reinterpret_cast<const float2*>(hyps),
-      reinterpret_cast<const float2*>(ctr), counts, vn, tn, hn, htiles, t2,
-      eps2);
+      reinterpret_cast<const float2*>(ctr), counts, vn, tn, hn, htiles,
+      chunk, t2, eps2, splits > 1);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,8 @@ _SIGNATURES = {
     "pvnet_count_inliers": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                             ctypes.c_float, _I, _VP],
     "pvnet_count_inliers_bf16": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                 _I, ctypes.c_float, ctypes.c_float, _VP],
+                                 _I, ctypes.c_float, ctypes.c_float, _I,
+                                 _VP],
     "pvnet_shift_lanes": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "pvnet_shift_sublanes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
 }

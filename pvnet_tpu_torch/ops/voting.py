@@ -479,7 +479,7 @@ def count_inliers_bf16(fg: ForegroundSample, hyps: torch.Tensor,
         err = kernel_lib.library().pvnet_count_inliers_bf16(
             coords.data_ptr(), dirs.data_ptr(), valid.data_ptr(),
             hyps.data_ptr(), ctr.data_ptr(), counts.data_ptr(), b, vn, tn,
-            hn, t2, eps2, torch.cuda.current_stream().cuda_stream)
+            hn, t2, eps2, 0, torch.cuda.current_stream().cuda_stream)
     kernel_lib.check(err, "pvnet_count_inliers_bf16")
     count_inliers_bf16.launches += 1
     return counts

@@ -648,6 +648,168 @@ def test_count_bf16_kernel_empty_batch_and_no_pixels(cuda):
     assert V.count_inliers_bf16.launches == before
 
 
+def _count_bf16_entry(fg, hyps, chunk):
+    """K3's bf16 mode through its C entry with a forced pixel chunk (0:
+    the entry's own choice), with the wrapper's centroid and constants."""
+    from pvnet_tpu_torch.ops import kernel_lib
+    b, hn, vn, _ = hyps.shape
+    ctr = V._centroid(fg.coords, fg.valid)
+    t2, eps2 = (float(c) for c in V._bf16_constants(0.99, "cpu"))
+    counts = torch.full((b, hn, vn), -7, dtype=torch.int32,
+                        device=hyps.device)
+    err = kernel_lib.library().pvnet_count_inliers_bf16(
+        fg.coords.data_ptr(), fg.dirs.data_ptr(), fg.valid.data_ptr(),
+        hyps.data_ptr(), ctr.data_ptr(), counts.data_ptr(), b, vn,
+        fg.coords.shape[1], hn, t2, eps2, chunk,
+        torch.cuda.current_stream().cuda_stream)
+    kernel_lib.check(err, "pvnet_count_inliers_bf16")
+    return counts
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 8, 100, 127, 129, 300, 1000])
+def test_count_bf16_kernel_pixel_splits(cuda, chunk):
+    # blocks that split the pixels at chunks that fill no staged tile, or
+    # tiles their chunk does not divide, add exact partial counts
+    b, tn, vn, hn = 2, 700, 3, 600
+    fg = _sample(cuda, b, tn, vn, chunk + 1)
+    hyps = torch.empty(b, hn, vn, 2, device=cuda).uniform_(-20, 120)
+    assert torch.equal(_count_bf16_entry(fg, hyps, chunk),
+                       V.count_inliers_plain_bf16(fg, hyps, 0.99))
+
+
+# a lane packs two hypotheses: an odd hn leaves one half empty, and hn
+# that is no multiple of a block's hypotheses leaves lanes empty
+@pytest.mark.parametrize("hn", [1, 3, 37, 511, 513, 1023, 1025, 1537])
+def test_count_bf16_kernel_odd_hypothesis_counts(cuda, hn):
+    fg = _sample(cuda, 3, 300, 4, hn)
+    hyps = torch.empty(3, hn, 4, 2, device=cuda).uniform_(-20, 120)
+    got = V.count_inliers_bf16(fg, hyps, 0.99)
+    assert got.shape == (3, hn, 4)
+    assert torch.equal(got, V.count_inliers_plain_bf16(fg, hyps, 0.99))
+
+
+@pytest.mark.parametrize("chunk", [0, 70000])
+def test_count_bf16_kernel_counts_past_16_bits(cuda, chunk):
+    # 70 000 pixels whose rays all meet at one point: the hypotheses there
+    # count more than 65 535 inliers, in one block (chunk 70 000) or split
+    rng = np.random.RandomState(7)
+    tn = 70000
+    coords = rng.uniform(0, 300, (1, tn, 2)).astype(np.float32)
+    kp = np.array([150.5, 149.25], np.float32)
+    dirs = (kp - coords)[:, :, None, :]
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    valid = np.ones((1, tn), bool)
+    count = np.array([tn], np.int32)
+    fg = V.ForegroundSample(*(torch.tensor(x, device=cuda) for x in (
+        coords, dirs.astype(np.float32), valid, count, count)))
+    hyps = torch.tensor(kp + rng.uniform(-2, 2, (1, 9, 1, 2)),
+                        dtype=torch.float32, device=cuda)
+    hyps[0, 0, 0] = torch.tensor(kp)
+    want = V.count_inliers_plain_bf16(fg, hyps, 0.99)
+    assert int(want.max()) > 65535
+    assert torch.equal(_count_bf16_entry(fg, hyps, chunk), want)
+
+
+def test_count_bf16_kernel_invalid_image_beside_a_full_one(cuda):
+    fg = _sample(cuda, 2, 400, 3, 8)
+    valid = torch.zeros_like(fg.valid)
+    valid[1] = True
+    count = valid.sum(1).to(torch.int32)
+    fg = fg._replace(valid=valid, count=count, total=count)
+    hyps = torch.empty(2, 300, 3, 2, device=cuda).uniform_(-20, 120)
+    got = V.count_inliers_bf16(fg, hyps, 0.99)
+    assert (got[0] == 0).all() and int(got[1].max()) > 0
+    assert torch.equal(got, V.count_inliers_plain_bf16(fg, hyps, 0.99))
+
+
+def test_count_bf16_kernel_drops_short_rays(cuda):
+    # valid pixels whose ray has n2 <= eps2 (zero, 1e-7, 1e-6: just under
+    # and about at bf16(1e-12)) count for no hypothesis
+    fg = _sample(cuda, 2, 300, 3, 9)
+    dirs = fg.dirs.clone()
+    dirs[:, 0::3] = 0.0
+    dirs[:, 1::3] *= 1e-7
+    dirs[:, 2::6] *= 1e-6
+    fg = fg._replace(dirs=dirs)
+    hyps = torch.empty(2, 200, 3, 2, device=cuda).uniform_(-20, 120)
+    got = V.count_inliers_bf16(fg, hyps, 0.99)
+    assert torch.equal(got, V.count_inliers_plain_bf16(fg, hyps, 0.99))
+
+
+def _symmetric_sample(cuda, b, vn, seed):
+    """Integer pixels symmetric about 0, (0, 0) among them, so that the
+    centroid is exactly 0; a fifth of the rays with a 1e-20 component."""
+    rng = np.random.RandomState(seed)
+    half = rng.randint(-60, 61, (b, 150, 2)).astype(np.float32)
+    coords = np.concatenate([half, -half, np.zeros((b, 1, 2), np.float32)],
+                            1)
+    tn = coords.shape[1]
+    dirs = rng.randn(b, tn, vn, 2).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    tiny = rng.rand(b, tn, vn) < 0.2
+    dirs[..., 0] = np.where(tiny, 1e-20 * np.sign(dirs[..., 0]),
+                            dirs[..., 0])
+    valid = np.ones((b, tn), bool)
+    count = np.full((b,), tn, np.int32)
+    return V.ForegroundSample(*(torch.tensor(x, device=cuda) for x in (
+        coords, dirs, valid, count, count)))
+
+
+def test_count_bf16_kernel_near_the_centroid(cuda):
+    # hypotheses within 1e-20 of the centroid: dx = hx - 0 at the pixel on
+    # the centroid, and dx * dx, dx * nx underflow into bf16 subnormals
+    fg = _symmetric_sample(cuda, 2, 3, 10)
+    assert float(V._centroid(fg.coords, fg.valid).abs().max()) == 0.0
+    g = torch.Generator().manual_seed(10)
+    hyps = torch.randn(2, 260, 3, 2, generator=g).to(cuda) * 1e-20
+    hyps[:, 130:] = torch.randn(2, 130, 3, 2, generator=g).to(cuda) * 30
+    got = V.count_inliers_bf16(fg, hyps, 0.99)
+    assert torch.equal(got, V.count_inliers_plain_bf16(fg, hyps, 0.99))
+
+
+def test_count_bf16_kernel_signed_zeros(cuda):
+    # +0 and -0 in pixels, rays and hypotheses (recentred on a centroid of
+    # 0): d2 = 0 pairs and dot = -0 must count for nothing
+    fg = _symmetric_sample(cuda, 2, 3, 11)
+    coords = fg.coords.clone()
+    coords[:, -1] = -0.0
+    coords[:, 0, 0] = -0.0
+    coords[:, 150, 0] = 0.0          # the pair stays symmetric
+    dirs = fg.dirs.clone()
+    dirs[:, 1::4, :, 0] = -0.0
+    dirs[:, 2::4, :, 1] = 0.0
+    fg = fg._replace(coords=coords, dirs=dirs)
+    hyps = torch.randn(2, 64, 3, 2, device=cuda) * 20
+    hyps[:, 0::4] = 0.0
+    hyps[:, 1::4] = -0.0
+    hyps[:, 2::4, :, 0] = -0.0
+    got = V.count_inliers_bf16(fg, hyps, 0.99)
+    assert torch.equal(got, V.count_inliers_plain_bf16(fg, hyps, 0.99))
+
+
+def test_count_bf16_kernel_behind_the_pixel(cuda):
+    # hypotheses on each pixel's ray line, ahead of it and behind it: the
+    # product test holds for both, only dot > 0 parts them (the kernel
+    # folds it into dot * |dot| > t2 * d2 * n2)
+    rng = np.random.RandomState(12)
+    b, tn, vn, hn = 2, 300, 3, 400
+    fg = _sample(cuda, b, tn, vn, 12)
+    c, n = fg.coords.cpu(), fg.dirs.cpu()
+    src = torch.tensor(rng.randint(0, tn, (b, hn)))
+    dist = torch.tensor(rng.uniform(0.5, 100.0, (b, hn, 1, 1))
+                        * rng.choice([-1.0, 1.0], (b, hn, 1, 1)),
+                        dtype=torch.float32)
+    bi = torch.arange(b)[:, None]
+    hyps = (c[bi, src][:, :, None, :] + dist * n[bi, src]).to(cuda)
+    got = V.count_inliers_bf16(fg, hyps, 0.99)
+    want = V.count_inliers_plain_bf16(fg, hyps, 0.99)
+    assert torch.equal(got, want)
+    behind = (dist[..., 0, 0] < 0).to(cuda)
+    ahead = ~behind & fg.valid[bi.to(cuda), src.to(cuda)]
+    # each hypothesis ahead of a valid pixel counts at least that pixel
+    assert (want[ahead] >= 1).all()
+
+
 # --- the int8 convolution route (gathered taps through torch._int_mm) --------
 
 # (cin, cout, k, stride, dilation, padding, h, w) of every quantized

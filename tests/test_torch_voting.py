@@ -312,6 +312,104 @@ def test_bf16_counts_match_jax(kind):
         assert abs(float((got - f32).mean())) < 1.0
 
 
+def _edge_fg(case, rng):
+    """A small sample and hypotheses at one of the bf16 kernel's edges."""
+    fg, hyps = _random_fg(rng, b=2, tn=64, vn=3, hn=40)
+    c, d, v = (np.asarray(x).copy() for x in fg[:3])
+    if case == "odd hn":
+        hyps = hyps[:, :37]
+    elif case == "hn=1":
+        hyps = hyps[:, :1]
+    elif case == "tn=1":
+        c, d, v = c[:, :1], rng.randn(2, 1, 3, 2).astype(np.float32), \
+            np.ones((2, 1), bool)
+    elif case == "all invalid":
+        v[0], d[0] = False, 0.0
+    elif case == "zero rays":             # n2 = 0, ~1e-14, ~1e-12 = eps2
+        d[:, 0::3] = 0.0
+        d[:, 1::3] *= 1e-7
+        d[:, 2::6] *= 1e-6
+    elif case == "near centroid":
+        # integer pixels symmetric about 0 (the centroid is exactly 0),
+        # rays with a 1e-20 component, hypotheses within 1e-20 of it: bf16
+        # subnormal products
+        half = rng.randint(-60, 61, (2, 31, 2)).astype(np.float32)
+        c = np.concatenate([half, -half, np.zeros((2, 2, 2), np.float32)],
+                           1)
+        v = np.ones((2, 64), bool)
+        d = rng.randn(2, 64, 3, 2).astype(np.float32)
+        d[..., 0] = np.where(rng.rand(2, 64, 3) < 0.2,
+                             1e-20 * np.sign(d[..., 0]), d[..., 0])
+        hyps = (rng.randn(2, 40, 3, 2) * 1e-20).astype(np.float32)
+        hyps[:, 20:] *= 1e21
+    count = v.sum(1).astype(np.int32)
+    fg = JV.ForegroundSample(*(jnp.asarray(x) for x in (c, d, v, count,
+                                                          count)))
+    return fg, hyps
+
+
+# The yardstick of K3's bf16 kernel against JAX at the kernel's edges:
+# both round every bf16 operation here, and the counts are equal (exact).
+@pytest.mark.parametrize("case", ["odd hn", "hn=1", "tn=1", "all invalid",
+                                  "zero rays", "near centroid"])
+def test_bf16_plain_counts_equal_jax_at_kernel_edges(case):
+    fg, hyps = _edge_fg(case, np.random.RandomState(21))
+    want = np.asarray(JV.count_inliers_xla_bf16(fg, jnp.asarray(hyps), 0.99))
+    got = TV.count_inliers_plain_bf16(_to_torch_fg(fg), torch.tensor(hyps),
+                                      0.99).numpy()
+    assert got.dtype == np.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    if case == "all invalid":
+        assert (got[0] == 0).all()
+
+
+def _round_bf16(x: np.ndarray) -> np.ndarray:
+    """float64 -> the nearest bfloat16 (ties to even), rounded once, as
+    uint16 bits: scale to the value's bf16 quantum (2^(e-8) in its binade,
+    2^-133 among the subnormals), round half to even, scale back."""
+    m, e = np.frexp(x)                       # |x| in [2^(e-1), 2^e)
+    q = np.maximum(e - 8, -133)
+    y = np.ldexp(np.rint(np.ldexp(x, -q)), q)
+    big = np.abs(y) > float.fromhex("0x1.fep127")       # bf16's largest
+    y = np.where(big, np.copysign(np.inf, x), y)
+    return (y.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
+
+
+def _bf16_operands(rng, n):
+    """n random finite bf16 values as uint16 bits: uniform over the bit
+    patterns, over the subnormals, and near each other (cancellation)."""
+    bits = rng.randint(0, 1 << 16, n).astype(np.uint16)
+    bits[: n // 4] = (rng.randint(0, 0x80, n // 4)
+                      | (rng.randint(0, 2, n // 4) << 15)).astype(np.uint16)
+    return bits[(bits & 0x7F80) != 0x7F80]              # no inf / NaN
+
+
+def _bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16)
+
+
+# The bf16 kernel computes each operation with one rounding (mul/add/sub
+# .rn.bf16x2) where the plain version rounds PyTorch's eager float32
+# result of it again: equal because float32's 24 bits >= 2 * 8 + 2, which
+# holds here for every operand class, subnormals included.
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_eager_bf16_ops_round_once(op):
+    rng = np.random.RandomState({"add": 1, "sub": 2, "mul": 3}[op])
+    a = _bf16_operands(rng, 120000)
+    b = _bf16_operands(rng, 120000)
+    n = min(len(a), len(b))
+    a, b = a[:n], b[:n]
+    b[: n // 8] = a[: n // 8] ^ rng.randint(0, 4, n // 8).astype(np.uint16)
+    ta, tb = _bf16_from_bits(a), _bf16_from_bits(b)
+    fa, fb = ta.double().numpy(), tb.double().numpy()
+    got = {"add": ta + tb, "sub": ta - tb, "mul": ta * tb}[op]
+    exact = {"add": fa + fb, "sub": fa - fb, "mul": fa * fb}[op]
+    want = _round_bf16(exact)
+    got = got.view(torch.int16).numpy().view(np.uint16)
+    assert (np.abs(exact) < 2.0 ** -126).sum() > 1000     # subnormals
+    np.testing.assert_array_equal(got, want)
+
+
 def test_count_dispatches_on_impl():
     fg, hyps = _random_fg(np.random.RandomState(12))
     tfg, th = _to_torch_fg(fg), torch.tensor(hyps)
