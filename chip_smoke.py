@@ -108,9 +108,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
     (assets/duck_eval_occ64_int8.json); the bf16 preset's rates printed,
     and the largest relative difference between the port's calibrated
     scales and JAX's;
+(j) the deployment path: the packed4 stem (the duck checkpoint, folded)
+    against the conv7 model on 8 views at 480x640 in float32 (fields
+    within rtol/atol 1e-4, equal selections), the stem convolution timed
+    both ways; artifacts A (``python -m pvnet_tpu_torch.export
+    --packed_stem --quant``: uint8 input, bf16, int8 stages 0-3 static,
+    tail depth 3) and B (``--no-fused_tail --no-bf16 --uncertainty``)
+    exported at b=8 by the CLI, both processes at once, loaded, their
+    graphs holding exactly the expected pvnet_torch operators (A also the
+    int8 route's torch._int_mm); one call each with its K1-K3 launches
+    counted (A: K2 once, K3 once; B: K1 twice, K3 twice), the same seed
+    twice identical, and against the direct estimate_poses with the
+    program's weights and the same draws: every selection, hypothesis and
+    count equal, keypoints within 1e-3 px, poses within 0.05 deg / 1 mm;
+    then A served on 127.0.0.1 (pvnet_tpu_torch.serve): healthz, 3 lone
+    requests, 3 rounds of 8 concurrent .npy requests (fewer device calls
+    than requests each round, view 0 within 5 cm / 5 deg), a bad payload
+    answered 4xx. Prints export, load and call seconds, the artifacts' MB,
+    and the served latencies beside the card's name and power limit;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
-    bf16 mode with their cold times), then, as the last line,
-    {"ok": true, "device": {...}}.
+    bf16 mode with their cold times; launches summed over the phases that
+    drive their paths, (j)'s programs and server included), then, as the
+    last line, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -126,6 +145,8 @@ FIXTURE = os.path.join(REPO, "assets", "duck_views_480x640.npz")
 EVAL_REFERENCE = os.path.join(REPO, "assets", "duck_eval_occ64.json")
 INT8_REFERENCE = os.path.join(REPO, "assets", "duck_eval_occ64_int8.json")
 RECIPE = os.path.join(REPO, "configs", "synthetic_train.json")
+# the card's name and power limit, as nvidia-smi gives them (set by main)
+SMI = None
 QUANT_STAGES = (0, 1, 2, 3)
 CKPT = os.path.join(REPO, "assets", "duck_ckpt.msgpack")
 BATCH, H, W, VN = 16, 480, 640, 9
@@ -1728,6 +1749,381 @@ def preset_rates(dev, split):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase (j): the deployment path
+# ---------------------------------------------------------------------------
+
+# the two artifacts of phase (j): their export flags, the pvnet_torch
+# operators their graphs must hold, and the kernel launches of one call
+ARTIFACTS = {
+    "A": (["--packed_stem", "--quant"], ["count_inliers", "select_nhwc"],
+          {"stratified_select": 1, "stratified_select_cmajor": 0,
+           "count_inliers": 1, "count_inliers_bf16": 0}),
+    "B": (["--no-fused_tail", "--no-bf16", "--uncertainty"],
+          ["count_inliers", "select_cmajor"],
+          {"stratified_select": 0, "stratified_select_cmajor": 2,
+           "count_inliers": 2, "count_inliers_bf16": 0}),
+}
+EXPORT_BATCH = 8
+EXPORT_SEED = 11
+EXPORT_DIR = os.path.join(REPO, "export_out", "chip_smoke")
+
+
+def kernel_counters():
+    """{kernel name: the wrapper whose ``.launches`` counts it} of K1-K3."""
+    from pvnet_tpu_torch.ops import select_kernel, voting
+    return {"stratified_select": select_kernel.stratified_select,
+            "stratified_select_cmajor":
+            select_kernel.stratified_select_cmajor,
+            "count_inliers": voting.count_inliers,
+            "count_inliers_bf16": voting.count_inliers_bf16}
+
+
+def add_launches(kernels, launches):
+    for k in kernels:
+        k["launches"] += launches.get(k["name"], 0)
+
+
+class OpRecorder:
+    """Within the block, records every call of a pvnet_torch operator:
+    (name, inputs, outputs), in order."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        calls = self.calls = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if str(func).startswith("pvnet_torch."):
+                    calls.append((str(func), args, out))
+                return out
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def check_stem(dev, views):
+    """(j) the packed4 stem at full width: the folded model against the
+    conv7 model on 8 views in float32, and the stem convolution timed both
+    ways."""
+    import torch
+    import torch.nn.functional as F
+    from pvnet_tpu_torch import infer, pipeline as pl
+    from pvnet_tpu_torch.models.resnet import space_to_depth2, \
+        space_to_depth2_cm
+    from pvnet_tpu_torch.ops import voting
+
+    model7 = infer.load_model(CKPT, VN, dev)
+    model4 = infer.load_model(CKPT, VN, dev, stem="packed4")
+    u8 = torch.from_numpy(request_images(views, 0)[0][:EXPORT_BATCH]).to(dev)
+    x = pl.normalize_images(u8)
+    packed = pl.normalize_packed_u8(u8)
+    assert torch.equal(packed, space_to_depth2(x)), \
+        "normalize_packed_u8 != space_to_depth2(normalize_images)"
+    xc = x.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        out7 = model7(xc)
+        out4 = model4(packed.permute(0, 3, 1, 2).contiguous())
+    errs = []
+    for name, a, b in zip(("seg", "ver"), out4, out7):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        errs.append(f"{name} max abs diff {float((a - b).abs().max()):.3e}")
+    noise = torch.rand(out7[0].shape[:1] + out7[0].shape[2:], device=dev)
+    fgs = [voting.sample_foreground(torch.argmax(seg, 1), ver, 512, noise)
+           for seg, ver in (out7, out4)]
+    for name in ("coords", "valid", "count", "total"):
+        assert torch.equal(getattr(fgs[0], name), getattr(fgs[1], name)), \
+            f"packed4 stem: selection's {name} differs from conv7's"
+    w7 = model7.resnet18_8s.conv1.weight
+    w4 = model4.resnet18_8s.conv1.weight
+    xp = F.pad(space_to_depth2_cm(xc), (2, 1, 2, 1)).contiguous()
+    torch.testing.assert_close(F.conv2d(xp, w4),
+                               F.conv2d(xc, w7, stride=2, padding=3),
+                               rtol=1e-4, atol=1e-4)
+    t7 = cuda_ms(lambda: F.conv2d(xc, w7, stride=2, padding=3))
+    t4 = cuda_ms(lambda: F.conv2d(xp, w4))
+    t4p = cuda_ms(lambda: F.conv2d(F.pad(space_to_depth2_cm(xc),
+                                         (2, 1, 2, 1)), w4))
+    print(f"(j) packed4 stem vs conv7, duck checkpoint, {EXPORT_BATCH} views"
+          f" at {H}x{W}, float32: {', '.join(errs)} (rtol/atol 1e-4); "
+          f"selections equal", flush=True)
+    print(f"(j) stem convolution (cuDNN, float32, no TF32), [{EXPORT_BATCH}, "
+          f"3, {H}, {W}] -> 64 channels at {H // 2}x{W // 2}: 7x7/2 on 3 "
+          f"channels {t7:.4f} ms; 4x4/1 on the 12 packed channels "
+          f"{t4:.4f} ms ({t4p:.4f} ms with the pack and pad); "
+          f"{SMI}", flush=True)
+    del model7, model4, out7, out4
+
+
+def export_artifacts():
+    """Export artifacts A and B with the CLI, both processes at once;
+    returns {name: (directory, process seconds, the CLI's report)}."""
+    import shutil
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    procs, logs, t0 = {}, {}, time.time()
+    try:
+        for name, (flags, _, _) in ARTIFACTS.items():
+            out = os.path.join(EXPORT_DIR, name)
+            logs[name] = open(out + ".log", "w")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "pvnet_tpu_torch.export", "--out_dir",
+                 out, "--checkpoint", CKPT, "--points_3d", FIXTURE,
+                 "--batch", str(EXPORT_BATCH), "--height", str(H),
+                 "--width", str(W), *flags], cwd=REPO, stdout=logs[name],
+                stderr=subprocess.STDOUT)
+        done = {}
+        while len(done) < len(procs):
+            for name, p in procs.items():
+                if name not in done and p.poll() is not None:
+                    done[name] = time.time() - t0
+            assert time.time() - t0 < 600, "export took over 600 s"
+            time.sleep(0.2)
+    finally:
+        for name, p in procs.items():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            logs[name].close()
+    result = {}
+    for name, p in procs.items():
+        out = os.path.join(EXPORT_DIR, name)
+        with open(out + ".log") as f:
+            text = f.read()
+        assert p.returncode == 0, f"export of {name} failed:\n{text[-3000:]}"
+        report = [ln for ln in text.splitlines() if ln.startswith("exported")]
+        result[name] = (out, done[name], report[-1])
+    return result
+
+
+def check_artifact(dev, name, out, fixture, kernels):
+    """(j) one artifact: load it, check its operators, one counted call,
+    the same seed twice, and the call against the direct estimate_poses
+    with the same draws and weights. Returns the loaded artifact."""
+    import torch
+    from pvnet_tpu_torch import export, pipeline as pl
+    from pvnet_tpu_torch.ops.geometry import rotation_angle_deg
+
+    _, want_ops, want_launches = ARTIFACTS[name]
+    t0 = time.time()
+    art = export.load_artifact(out)
+    load_s = time.time() - t0
+    mb = os.path.getsize(os.path.join(out, export.PROGRAM)) / 1e6
+    ops = export.graph_ops(art.program)
+    assert export.custom_ops(art.program) == want_ops, \
+        export.custom_ops(art.program)
+    assert art.manifest["custom_ops"] == want_ops
+    if name == "A":                                 # the int8 route
+        assert ops.get("aten._int_mm.default", 0) > 0, "no int8 product"
+    m = art.manifest
+    u8 = request_images(fixture["images"], 7)[0][:EXPORT_BATCH]
+    images = (torch.from_numpy(u8) if m["input_dtype"] == "uint8"
+              else pl.normalize_images(torch.from_numpy(u8)))
+    art.call(images, EXPORT_SEED)                   # warm-up, not counted
+    torch.cuda.synchronize()
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pose, kps = art.call(images, EXPORT_SEED)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: fn.launches for k, fn in counters.items()}
+    assert launches == want_launches, (name, launches)
+    add_launches(kernels, launches)
+    pose2, kps2 = art.call(images, EXPORT_SEED)
+    assert torch.equal(pose, pose2) and torch.equal(kps, kps2), \
+        f"artifact {name}: the same seed gave another pose"
+    assert pose.shape == (EXPORT_BATCH, 3, 4) and torch.isfinite(pose).all()
+
+    # the program against the eager pipeline: same weights, same draws
+    model = export.eager_model(art)
+    pts = torch.as_tensor(m["points_3d"], device=dev)
+    K = torch.as_tensor(m["K"], device=dev)
+    draws = dict(zip(m["draws"], art.draws(EXPORT_SEED)))
+    with OpRecorder() as got:
+        art.call(images, EXPORT_SEED)
+    with OpRecorder() as want:
+        est = pl.estimate_poses(model, images.to(dev), pts, K,
+                                pl.VoteParams(), **draws,
+                                **export.pipeline_options(m))
+    assert [c[0] for c in got.calls] == [c[0] for c in want.calls], \
+        ([c[0] for c in got.calls], [c[0] for c in want.calls])
+    for (op, a_in, a_out), (_, b_in, b_out) in zip(got.calls, want.calls):
+        outs = a_out if isinstance(a_out, tuple) else (a_out,)
+        wants = b_out if isinstance(b_out, tuple) else (b_out,)
+        # a selection's outputs; a count's hypotheses and counts
+        pairs = list(zip(outs, wants))
+        if "count_inliers" in op:
+            pairs.append((a_in[3], b_in[3]))
+        for x, y in pairs:
+            assert torch.equal(x, y), f"artifact {name}: {op} differs"
+    kp_diff = float((kps - est.kps).abs().max())
+    rot = float(rotation_angle_deg(pose[:, :, :3], est.pose[:, :, :3]).max())
+    t_diff = float((pose[:, :, 3] - est.pose[:, :, 3]).norm(dim=-1).max())
+    print(f"(j) artifact {name} ({' '.join(ARTIFACTS[name][0])}): "
+          f"{mb:.1f} MB, loaded in {load_s:.1f} s; operators {want_ops}, "
+          f"{sum(ops.values())} graph nodes; one call of {EXPORT_BATCH} "
+          f"images {call_ms:.1f} ms, launches {launches}; the same seed "
+          f"twice identical; against the direct estimate_poses with the "
+          f"same draws: the outputs of its {len(got.calls)} operator calls "
+          f"(selections; hypotheses and counts) equal, "
+          f"keypoints max diff {kp_diff:.3e} px, poses {rot:.3e} deg, "
+          f"{t_diff:.3e} m", flush=True)
+    assert kp_diff < 1e-3 and rot < 0.05 and t_diff < 1e-3
+    return art
+
+
+def post_pose(url, image, timeout=120.0):
+    """POST an [h, w, 3] array as .npy; returns (reply, seconds)."""
+    import io
+    import urllib.request
+    import numpy as np
+    buf = io.BytesIO()
+    np.save(buf, image)
+    req = urllib.request.Request(
+        url + "/pose", data=buf.getvalue(),
+        headers={"Content-Type": "application/x-npy"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        reply = json.loads(r.read())
+    return reply, time.perf_counter() - t0
+
+
+def serve_artifact(dev, out, art, fixture, kernels):
+    """(j) artifact A behind the HTTP server on 127.0.0.1: healthz, a lone
+    request, 8 concurrent requests (3 rounds each), a bad payload."""
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import serve
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    url = f"http://127.0.0.1:{port}"
+    started = threading.Event()
+    thread = threading.Thread(
+        target=serve.serve, args=(out, "127.0.0.1", port, 10.0, started),
+        kwargs={"artifact": art}, daemon=True)
+    thread.start()
+    assert started.wait(300), "the server did not start"
+    batcher = started.batcher
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok" and health["batch"] == EXPORT_BATCH
+        views = fixture["images"]
+        lone = []
+        for r in range(N_REQUESTS):
+            reply, sec = post_pose(url, request_images(views, 20 + r)[0][0])
+            assert np.isfinite(np.asarray(reply["pose"])).all()
+            lone.append(sec * 1e3)
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        rounds, calls, results = [], [], []
+        for r in range(N_REQUESTS):
+            imgs, idx = request_images(views, 30 + r)
+            imgs, idx = imgs[:EXPORT_BATCH], idx[:EXPORT_BATCH]
+            replies, secs = [None] * EXPORT_BATCH, [0.0] * EXPORT_BATCH
+            errors = []
+
+            def worker(i):
+                try:
+                    replies[i], secs[i] = post_pose(url, imgs[i])
+                except Exception as e:              # reported below
+                    errors.append(repr(e))
+            threads = [threading.Thread(target=worker, args=(i,))
+                       for i in range(EXPORT_BATCH)]
+            c0 = batcher.calls
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            assert not errors and all(replies), errors
+            calls.append(batcher.calls - c0)
+            rounds.append(sorted(secs)[len(secs) // 2] * 1e3)
+            results.append((torch.tensor(np.array(
+                [rep["pose"] for rep in replies]), dtype=torch.float32),
+                idx))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        add_launches(kernels, launches)
+        assert all(c < EXPORT_BATCH for c in calls), calls
+        check_served_poses(results, fixture)
+        bad = urllib.request.Request(
+            url + "/pose", data=b"not an array",
+            headers={"Content-Type": "application/x-npy"})
+        try:
+            urllib.request.urlopen(bad, timeout=30)
+            raise AssertionError("a bad payload was answered")
+        except urllib.error.HTTPError as e:
+            assert 400 <= e.code < 500, e.code
+            bad_code = e.code
+    finally:
+        started.server.shutdown()
+        thread.join(timeout=60)
+    print(f"(j) serving A on 127.0.0.1 (batch {EXPORT_BATCH}, window 10 ms):"
+          f" healthz ok; lone request latency ms "
+          f"{[round(x, 3) for x in lone]} (median "
+          f"{sorted(lone)[1]:.3f}); 8 concurrent requests, 3 rounds: "
+          f"median latency ms {[round(x, 3) for x in rounds]}, device "
+          f"calls {calls}; launches {launches}; a bad payload got "
+          f"{bad_code}; {SMI}", flush=True)
+
+
+def check_served_poses(results, fixture):
+    """The served poses: finite, and the well-visible view 0 within 5 cm
+    / 5 deg in at least half of its requests (as check_poses)."""
+    import torch
+    from pvnet_tpu_torch.ops.geometry import rotation_angle_deg
+    rot, trans, views_of = [], [], []
+    for pose, idx in results:
+        assert torch.isfinite(pose).all()
+        g_t = torch.as_tensor(fixture["poses"][idx])
+        rot.append(rotation_angle_deg(pose[:, :, :3], g_t[:, :, :3]))
+        trans.append((pose[:, :, 3] - g_t[:, :, 3]).norm(dim=-1))
+        views_of.append(torch.as_tensor(idx))
+    rot, trans, views_of = torch.cat(rot), torch.cat(trans), \
+        torch.cat(views_of)
+    ok0 = ((rot < 5.0) & (trans < 0.05))[views_of == 0]
+    print(f"(j) served poses, view 0: rotation error deg median "
+          f"{float(rot[views_of == 0].median()):.4f}, translation error m "
+          f"median {float(trans[views_of == 0].median()):.5f}", flush=True)
+    assert ok0.float().mean() >= 0.5, \
+        f"view 0 served within 5 cm / 5 deg in only {int(ok0.sum())} of " \
+        f"{len(ok0)} requests"
+
+
+def run_deployment(dev, fixture, kernels):
+    """Phase (j): the packed4 stem, artifacts A and B exported, loaded and
+    checked, and A served (see the module docstring)."""
+    import shutil
+    import torch
+
+    check_stem(dev, fixture["images"])
+    torch.cuda.empty_cache()
+    exported = export_artifacts()
+    for name, (out, secs, report) in exported.items():
+        print(f"(j) export {name}: {report} (process {secs:.1f} s, both "
+              f"exports at once)", flush=True)
+    try:
+        check_artifact(dev, "B", exported["B"][0], fixture, kernels)
+        torch.cuda.empty_cache()
+        art = check_artifact(dev, "A", exported["A"][0], fixture, kernels)
+        serve_artifact(dev, exported["A"][0], art, fixture, kernels)
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1738,6 +2134,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
     print(smi[0], flush=True)
+    global SMI
+    SMI = smi[0]
     sys.path.insert(0, REPO)
     import numpy as np
     from pvnet_tpu_torch.ops import kernel_lib
@@ -1772,6 +2170,7 @@ def main() -> int:
     split = phase("(h) evaluation", run_evaluation, dev)
     phase("(i) preset", run_preset, dev, fixture, kernels, plain_stages,
           packed_stages, split)
+    phase("(j) deployment", run_deployment, dev, fixture, kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -11,7 +11,7 @@ pipeline in fixed-size batches, and writes one JSON line per image:
       --points_3d assets/duck_views_480x640.npz \
       --images assets/duck_views_480x640.npz --device cuda --batch 16 \
       --output poses.jsonl [--tail_depth 3] [--uncertainty] \
-      [--cfg_file configs/synthetic_train.json] [--quant]
+      [--cfg_file configs/synthetic_train.json] [--quant] [--packed_stem]
 
 ``--tail_depth 1-3`` runs the packed-lattice decoder tail (the JAX CLI's
 default is 3; here it is 0, the plain decoder, which is the faster one on
@@ -21,6 +21,9 @@ keypoint's hypothesis covariance. ``--cfg_file`` takes the recipe's
 packed tail) and its ``quant_*`` options; ``--quant`` runs the backbone
 stages ``--quant_stages`` in int8 (ops/quant_conv.py), with static scales
 calibrated on the first 8 images by default, as tools/infer.py does.
+``--packed_stem`` builds the model with the packed4 stem (the checkpoint's
+7x7 stem folded exactly) and sends the uint8 images to the device, where
+they are packed and normalized (pipeline.normalize_packed_u8).
 
 ``--images`` is an .npz (key ``images``) or .npy of uint8 [n, h, w, 3]; a
 glob of image files works only where PIL is installed. ``--points_3d`` is
@@ -127,14 +130,16 @@ def quant_options(args, cfg: TrainConfig) -> dict:
 
 
 def calibrate_static(model: torch.nn.Module, images_u8: np.ndarray,
-                     bf16: bool = False) -> int:
+                     bf16: bool = False, packed_stem: bool = False) -> int:
     """Calibrate the model's static int8 scales on the first min(8, n)
-    images, in one batch, in the serving dtype (tools/infer.py:177-190).
-    Returns the number of images used."""
+    images, in one batch, in the serving dtype (tools/infer.py:177-190);
+    with ``packed_stem`` on the normalized packed input. Returns the
+    number of images used."""
     n = min(8, len(images_u8))
     device = next(model.parameters()).device
-    x = pl_mod.normalize_images(torch.from_numpy(
-        np.ascontiguousarray(images_u8[:n])).to(device))
+    x = torch.from_numpy(np.ascontiguousarray(images_u8[:n])).to(device)
+    x = (pl_mod.normalize_packed_u8(x) if packed_stem
+         else pl_mod.normalize_images(x))
     with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
         quant_conv.calibrate(model, [x.permute(0, 3, 1, 2).contiguous()])
     return n
@@ -145,7 +150,8 @@ def infer_batch(model: torch.nn.Module, images_u8: np.ndarray,
                 params: pl_mod.VoteParams, generator: torch.Generator,
                 tail_depth: int = 0, uncertainty: bool = False,
                 bf16: bool = False, impl: Optional[str] = None,
-                tail_quant: bool = False) -> pl_mod.PoseEstimate:
+                tail_quant: bool = False,
+                packed_stem: bool = False) -> pl_mod.PoseEstimate:
     """One request: uint8 [b, h, w, 3] host images -> poses on the model's
     device (upload, normalization, FCN, voting, PnP).
 
@@ -213,6 +219,10 @@ def parse_args(argv=None):
     p.add_argument("--quant_decoder", action="store_true",
                    help="with --quant: int8 the decoder's fc and 8s "
                         "convolutions")
+    p.add_argument("--packed_stem", action="store_true",
+                   help="run the stem on the space-to-depth packed uint8 "
+                        "image, packed and normalized on the device (the "
+                        "checkpoint's 7x7 stem is folded exactly)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="poses.jsonl")
     return p.parse_args(argv)
@@ -237,11 +247,14 @@ def main(argv=None) -> int:
           f"tail_depth {args.tail_depth}; uncertainty {args.uncertainty}; "
           f"{'bf16' if cfg.bf16 else 'float32'}; int8 stages "
           f"{list(quant['quant_stages'])} ({quant['quant_mode']}), decoder "
-          f"{quant['quant_decoder']}, tail {tail_quant}", flush=True)
+          f"{quant['quant_decoder']}, tail {tail_quant}; packed stem "
+          f"{args.packed_stem}", flush=True)
 
-    model = load_model(args.checkpoint, len(pts3d), device, cfg, **quant)
+    model = load_model(args.checkpoint, len(pts3d), device, cfg,
+                       stem="packed4" if args.packed_stem else "conv7",
+                       **quant)
     if quant["quant_stages"] and quant["quant_mode"] == "static":
-        k = calibrate_static(model, imgs, cfg.bf16)
+        k = calibrate_static(model, imgs, cfg.bf16, args.packed_stem)
         print(f"calibrated static int8 scales on {k} images", flush=True)
     pts_t = torch.as_tensor(pts3d, device=device)
     K_t = torch.as_tensor(K, device=device)
@@ -256,7 +269,8 @@ def main(argv=None) -> int:
             est = infer_batch(model, imgs[i:i + args.batch], pts_t, K_t,
                               params, gen, tail_depth=args.tail_depth,
                               uncertainty=args.uncertainty, bf16=cfg.bf16,
-                              tail_quant=tail_quant)
+                              tail_quant=tail_quant,
+                              packed_stem=args.packed_stem)
             poses = est.pose.cpu().numpy()
             kps = est.kps.cpu().numpy()
             fg = est.fg_pixels.cpu().numpy()

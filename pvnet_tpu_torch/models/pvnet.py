@@ -14,9 +14,12 @@ conv8s, conv4s, conv2s, convraw), so a reference state_dict loads as is.
 The feature-return flags of the JAX model feed the packed inference tail
 (ops/packed_tail.py). ``quant_stages``, ``quant_mode`` and
 ``quant_decoder`` are the JAX model's int8 options (ops/quant_conv.py):
-they change no parameter, so the same checkpoint loads either way. The
-TPU-only pieces (channel-major head conv, packed4 stem, PVNet2o) are not
-ported.
+they change no parameter, so the same checkpoint loads either way.
+``stem='packed4'`` is the JAX model's packed stem (models/resnet.py): the
+model then also takes a space-to-depth-packed image [b, 12, h/2, w/2], and
+unpacks it for the raw head's image term. A conv7 checkpoint loads into it
+through utils/weights.load_weights, which folds the stem's kernel. The
+TPU-only pieces (channel-major head conv, PVNet2o) are not ported.
 
 For training, the JAX model's ``dtype=bfloat16`` with float32 parameters
 is the caller's ``torch.autocast(dtype=torch.bfloat16)`` around the
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pvnet_tpu_torch.models.resnet import (_BN_EPS, BatchNorm2d,
+                                          depth_to_space2_cm,
                                           resnet18_backbone)
 from pvnet_tpu_torch.ops.quant_conv import QuantConv2d
 
@@ -59,17 +63,19 @@ class PVNet(nn.Module):
         (models/resnet.ResNetBackbone).
       quant_decoder: the fc head's and the 8s stage's convolutions in int8
         at inference, in ``quant_mode`` (JAX models/pvnet.py:114-123).
+      stem: 'conv7' or 'packed4' (models/resnet.ResNetBackbone).
     """
 
     def __init__(self, ver_dim: int, seg_dim: int = 2, fcdim: int = 256,
                  s8dim: int = 128, s4dim: int = 64, s2dim: int = 32,
                  raw_dim: int = 32, quant_stages=(),
-                 quant_mode: str = "dynamic", quant_decoder: bool = False):
+                 quant_mode: str = "dynamic", quant_decoder: bool = False,
+                 stem: str = "conv7"):
         super().__init__()
         self.ver_dim, self.seg_dim = ver_dim, seg_dim
         backbone = resnet18_backbone(output_stride=8,
                                      quant_stages=tuple(quant_stages),
-                                     quant_mode=quant_mode)
+                                     quant_mode=quant_mode, stem=stem)
         dconv = (partial(QuantConv2d, mode=quant_mode) if quant_decoder
                  else nn.Conv2d)
         # the fc head lives under the backbone module, as in the reference
@@ -91,7 +97,8 @@ class PVNet(nn.Module):
     def forward(self, x: torch.Tensor, return_2s_features: bool = False,
                 return_4s_features: bool = False,
                 return_8s_features: bool = False):
-        """x: [b, 3, h, w] ImageNet-normalized image.
+        """x: [b, 3, h, w] ImageNet-normalized image, or with the packed4
+        stem its packed form [b, 12, h/2, w/2] (models/resnet.py).
 
         Returns (seg [b, seg_dim, h, w] logits, ver [b, ver_dim, h, w]).
         The feature flags stop the decoder early and return the inputs of
@@ -101,7 +108,6 @@ class PVNet(nn.Module):
         stage's activation before its upsample and the backbone skips;
         return_4s_features -> (fm4 [b, s4dim, h/4, w/4], x2s);
         return_2s_features -> fm2 [b, s2dim, h/2, w/2]."""
-        h, w = x.shape[2:]
         x2s, x4s, x8s, _, x32s = self.resnet18_8s(x)
         xfc = self.resnet18_8s.fc(x32s)
         fm = self.conv8s(torch.cat([xfc, x8s], 1))
@@ -115,7 +121,9 @@ class PVNet(nn.Module):
         fm = self.conv2s(torch.cat([fm, x2s], 1))
         if return_2s_features:
             return fm
-        fm = _upsample(fm, h, w)
+        if x.shape[1] == 12:                    # packed image (packed4)
+            x = depth_to_space2_cm(x)
+        fm = _upsample(fm, *x.shape[2:])
         out = self.convraw(torch.cat([fm, x], 1))
         return out[:, :self.seg_dim], out[:, self.seg_dim:]
 

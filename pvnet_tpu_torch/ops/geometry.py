@@ -55,24 +55,59 @@ def find_nearest_point_distance(ref_pts: torch.Tensor, que_pts: torch.Tensor,
     return torch.sqrt(best)
 
 
-def rodrigues(w: torch.Tensor) -> torch.Tensor:
-    """Angle-axis [..., 3] -> rotation matrix [..., 3, 3], with Taylor
-    fallbacks below theta^2 = 1e-12."""
+def _rodrigues_coeffs(w: torch.Tensor):
+    """(theta^2, theta, small, a, b) of R = I + a W + b W^2 for angle-axis
+    w [..., 3], with Taylor forms below theta^2 = 1e-12."""
     theta_sq = (w * w).sum(-1)
     theta = torch.sqrt(theta_sq.clamp(min=1e-24))
     small = theta_sq < 1e-12
     a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta) / theta)
     b = torch.where(small, 0.5 - theta_sq / 24.0,
                     (1.0 - torch.cos(theta)) / theta_sq.clamp(min=1e-24))
+    return theta_sq, theta, small, a, b
+
+
+def _skew(w: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> the cross-product matrices [..., 3, 3]."""
     wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
     zeros = torch.zeros_like(wx)
-    Wx = torch.stack([
+    return torch.stack([
         torch.stack([zeros, -wz, wy], dim=-1),
         torch.stack([wz, zeros, -wx], dim=-1),
         torch.stack([-wy, wx, zeros], dim=-1),
     ], dim=-2)
+
+
+def rodrigues(w: torch.Tensor) -> torch.Tensor:
+    """Angle-axis [..., 3] -> rotation matrix [..., 3, 3], with Taylor
+    fallbacks below theta^2 = 1e-12."""
+    _, _, _, a, b = _rodrigues_coeffs(w)
+    Wx = _skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(Wx.shape)
     return eye + a[..., None, None] * Wx + b[..., None, None] * (Wx @ Wx)
+
+
+def rodrigues_derivative(w: torch.Tensor) -> torch.Tensor:
+    """dR/dw_i [..., 3 (i), 3, 3] of :func:`rodrigues`, in closed form:
+    with R = I + a(s) W + b(s) W^2, s = theta^2 and E_i = d W / d w_i,
+    dR/dw_i = a E_i + b (E_i W + W E_i) + 2 w_i (a'(s) W + b'(s) W^2),
+    where a' = (theta cos theta - sin theta) / (2 theta^3) and
+    b' = sin theta / (2 theta s) - (1 - cos theta) / s^2 (the derivatives
+    of the Taylor forms, -1/6 and -1/24, below theta^2 = 1e-12)."""
+    theta_sq, theta, small, a, b = _rodrigues_coeffs(w)
+    s = theta_sq.clamp(min=1e-24)
+    sin, cos = torch.sin(theta), torch.cos(theta)
+    da = torch.where(small, -1.0 / 6.0,
+                     (theta * cos - sin) / (2.0 * theta * s))
+    db = torch.where(small, -1.0 / 24.0,
+                     sin / (2.0 * theta * s) - (1.0 - cos) / (s * s))
+    W = _skew(w)[..., None, :, :]                           # [..., 1, 3, 3]
+    E = _skew(torch.eye(3, dtype=w.dtype, device=w.device))  # [3, 3, 3]
+    wi = 2.0 * w[..., :, None, None]                        # [..., 3, 1, 1]
+    return (a[..., None, None, None] * E
+            + b[..., None, None, None] * (E @ W + W @ E)
+            + wi * (da[..., None, None, None] * W
+                    + db[..., None, None, None] * (W @ W)))
 
 
 def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:

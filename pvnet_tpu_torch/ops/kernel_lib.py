@@ -7,7 +7,14 @@ at first use, never at import, into ``pvnet_tpu_torch/build/`` (listed in
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+``cudaGetLastError()``; :func:`launch` calls one on PyTorch's current
+stream and turns a non-zero code into an error.
+
+The selection and counting kernels (K1, K2, K3) are reached through
+registered operators of the :data:`NAMESPACE` namespace
+(``torch.ops.pvnet_torch.*``, defined in ops/select_kernel.py and
+ops/voting.py), so that ``torch.export`` can trace a pipeline that launches
+them; importing ``pvnet_tpu_torch.ops`` registers them.
 """
 from __future__ import annotations
 
@@ -18,6 +25,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
+
+NAMESPACE = "pvnet_torch"
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -116,3 +127,19 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+
+
+def check_device(t: torch.Tensor) -> None:
+    """The operators have a CPU (plain) and a CUDA (kernel) implementation;
+    raise for a tensor on any other device."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``device`` (its last argument); raise if it reports an error."""
+    with torch.cuda.device(device):
+        err = getattr(library(), name)(
+            *args, torch.cuda.current_stream().cuda_stream)
+    check(err, name)

@@ -44,8 +44,12 @@ both its convolutions in int8, the raw stage its feature term (the rgb
 term stays float, accumulated in float32); the stage then computes in
 float32 and emits ``dtype``.
 
-Not ported: the opt-in blocked banded upsample (``PVNET_BLOCKED_UPSAMPLE``)
-and the packed-stem image refold (``_fold_direct_to_packed3``).
+The raw stage takes the image unpacked [b, 3, h, w] or, on the packed-stem
+path, already packed [b, 12, h/2, w/2]; its image term then runs as a 3x3
+convolution on the packed lattice (:func:`_fold_direct_to_packed3`), and
+the full-resolution 3-channel image never exists.
+
+Not ported: the opt-in blocked banded upsample (``PVNET_BLOCKED_UPSAMPLE``).
 """
 from __future__ import annotations
 
@@ -124,12 +128,20 @@ def _direct_scatter_tensor() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def _device_constant(make, args: tuple, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(make(*args), device=device)
+
+
 def _constant(make, args: tuple, device: torch.device) -> torch.Tensor:
     """``make(*args)``, a numpy constant, as a tensor on ``device``; built
     and copied to the device once (a copy from pageable host memory per
     request would make the host wait for the device's queue). The tensor
-    is shared by every caller: read it, never write it."""
-    return torch.as_tensor(make(*args), device=device)
+    is shared by every caller: read it, never write it. While torch.export
+    traces, the constant is made anew, a traced tensor that must not
+    outlive the trace."""
+    if torch.compiler.is_compiling():
+        return torch.as_tensor(make(*args), device=device)
+    return _device_constant(make, args, device)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +178,33 @@ def _fold_conv_direct(w: torch.Tensor) -> torch.Tensor:
     return wd.contiguous(memory_format=torch.channels_last)
 
 
+def _packed_taps() -> np.ndarray:
+    """Constant [3, 2, 4]: S[k, a, d] = 1 iff packed cell offset k - 1,
+    phase a holds the stride-2 window's row d = 2k + a - 1."""
+    S = np.zeros((3, 2, 4), np.float32)
+    for k in range(3):
+        for a in range(2):
+            d = 2 * k + a - 1
+            if 0 <= d < 4:
+                S[k, a, d] = 1.0
+    return S
+
+
+def _fold_direct_to_packed3(w4: torch.Tensor) -> torch.Tensor:
+    """Refold the stride-2 4x4 kernel [cout, cin, 4, 4] of
+    :func:`_fold_conv_direct` for an aligned space_to_depth2-packed input:
+    [cout, 4*cin, 3, 3], stride 1, padding 1, input channel
+    (a*2+b)*cin + c (the JAX function, pvnet_tpu/ops/packed_tail.py:244).
+    Output row oy of the direct conv reads rows 2oy - 1 + d, d in [0, 4),
+    which is packed cell oy + k - 1, phase a, with d = 2k + a - 1; 16 of
+    the 36 packed taps are nonzero."""
+    S = _constant(_packed_taps, (), w4.device)
+    w3 = torch.einsum("kad,lbe,ocde->oabckl", S, S, w4.float())
+    cout, cin = w4.shape[:2]
+    return w3.reshape(cout, 4 * cin, 3, 3).contiguous(
+        memory_format=torch.channels_last)
+
+
 def _bn_fold(scale, bias, mean, var, eps: float
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inference BatchNorm as y * s + t, phase-tiled to [4cout]."""
@@ -190,6 +229,7 @@ class PackedTailParams(NamedTuple):
     aw: torch.Tensor       # [2, W/2+1, w2] shifted-phase w-interp matrices
     w_fm: torch.Tensor     # [4cout, 4cin_fm, 2, 2] packed conv (features)
     w_im: torch.Tensor     # [4cout, 3, 4, 4] direct stride-2 conv (rgb)
+    #                        or, for a packed image, [4cout, 12, 3, 3]
     scale4: torch.Tensor   # [4cout] phase-tiled BN scale
     bias4: torch.Tensor    # [4cout] phase-tiled BN bias
     w_head4: torch.Tensor  # [4cout, 4hout] block-diagonal head
@@ -217,13 +257,15 @@ def fold_packed_stage(w, bn_scale, bn_bias, bn_mean, bn_var, c_fm: int,
 
 def fold_packed_tail(w_raw, bn_scale, bn_bias, bn_mean, bn_var, w_head,
                      b_head, h: int, w: int, h2: int, w2: int,
-                     eps: float = 1e-5) -> PackedTailParams:
+                     eps: float = 1e-5, packed_image: bool = False
+                     ) -> PackedTailParams:
     """Fold the raw stage and the head (ref model_repository.py:53-58,
     :76-79) into packed-tail parameters.
 
     w_raw: [cout, cin_fm + 3, 3, 3] (decoder features, then rgb); w_head
     [hout, cout, 1, 1] and its bias (or None); (h, w) the full resolution,
-    (h2, w2) the 2s stage's."""
+    (h2, w2) the 2s stage's. packed_image: the image term's kernel for an
+    image packed [b, 12, h/2, w/2] (:func:`_fold_direct_to_packed3`)."""
     dev = w_raw.device
     cin_fm = w_raw.shape[1] - 3
     scale4, bias4 = _bn_fold(bn_scale, bn_bias, bn_mean, bn_var, eps)
@@ -234,7 +276,8 @@ def fold_packed_tail(w_raw, bn_scale, bn_bias, bn_mean, bn_var, w_head,
         ah=_constant(_shifted_phase_matrices, (h, h2), dev),
         aw=_constant(_shifted_phase_matrices, (w, w2), dev),
         w_fm=_pack_conv_weights(w_raw[:, :cin_fm]),
-        w_im=_fold_conv_direct(w_raw[:, cin_fm:]),
+        w_im=(_fold_direct_to_packed3 if packed_image else lambda x: x)(
+            _fold_conv_direct(w_raw[:, cin_fm:])),
         scale4=scale4, bias4=bias4,
         w_head4=torch.kron(torch.eye(4, device=dev), wh),
         b_head4=bh.repeat(4))
@@ -333,7 +376,10 @@ def run_packed_tail(fm: torch.Tensor, image: torch.Tensor,
     Args:
       fm:    [b, s2dim, h2, w2] 2s-stage activation (pre-upsample), or,
              with fm_packed=True, its packed form [b, 4*s2dim, h2/2, w2/2].
-      image: [b, 3, h, w] normalized input (h = 2*h2, w = 2*w2).
+      image: [b, 3, h, w] normalized input (h = 2*h2, w = 2*w2), or its
+             packed form [b, 12, h2, w2] (``tp`` folded with
+             packed_image=True): the image term is then a 3x3 convolution
+             on the lattice.
       quant: the feature term in int8 (per-image scales), the rgb term in
              float32 from ``dtype`` inputs, BatchNorm and LeakyReLU in
              float32; the head in ``dtype`` as without.
@@ -344,14 +390,18 @@ def run_packed_tail(fm: torch.Tensor, image: torch.Tensor,
     """
     up = (phase_upsample_from_packed if fm_packed
           else phase_upsample_packed)(fm, tp.ah, tp.aw, dtype)
+    # the direct stride-2 conv of the image, or the refolded 3x3 of the
+    # packed image
+    stride = 1 if image.shape[1] == 12 else 2
     if quant:
         y = conv2d_int8(up, tp.w_fm) + F.conv2d(
-            image.to(dtype).float(), tp.w_im.to(dtype).float(), stride=2,
-            padding=1)
+            image.to(dtype).float(), tp.w_im.to(dtype).float(),
+            stride=stride, padding=1)
         y = _bn_lrelu(y, tp.scale4, tp.bias4, alpha).to(dtype)
     else:
         y = F.conv2d(up, tp.w_fm.to(dtype))
-        y = y + _conv_skip_direct(image, tp.w_im, dtype)
+        y = y + F.conv2d(image.to(dtype), tp.w_im.to(dtype), stride=stride,
+                         padding=1)
         y = _bn_lrelu(y, tp.scale4, tp.bias4, alpha)
     # the head in the compute dtype, its bias added in float32
     packed = (y.permute(0, 2, 3, 1) @ tp.w_head4.to(dtype)).float() \
@@ -374,13 +424,24 @@ def _fold_stage(block: torch.nn.Sequential, c_fm: int, h: int,
                              bn.running_var, c_fm, h, w, eps=bn.eps)
 
 
-def _fold_tail(model, h: int, w: int, h2: int, w2: int) -> PackedTailParams:
+def _fold_tail(model, h: int, w: int, h2: int, w2: int,
+               packed_image: bool = False) -> PackedTailParams:
     conv, bn, head = model.convraw[0], model.convraw[1], model.convraw[3]
     return fold_packed_tail(
         conv.weight.detach(), bn.weight.detach(), bn.bias.detach(),
         bn.running_mean, bn.running_var, head.weight.detach(),
         None if head.bias is None else head.bias.detach(),
-        h, w, h2, w2, eps=bn.eps)
+        h, w, h2, w2, eps=bn.eps, packed_image=packed_image)
+
+
+def _fold_tail_for(model, image: torch.Tensor, h2: int,
+                   w2: int) -> PackedTailParams:
+    """The raw stage folded for ``image``, [b, 3, h, w] or packed
+    [b, 12, h/2, w/2]."""
+    if image.shape[1] == 12:
+        h, w = image.shape[2:]
+        return _fold_tail(model, 2 * h, 2 * w, h2, w2, packed_image=True)
+    return _fold_tail(model, *image.shape[2:], h2, w2)
 
 
 def packed_tail_from_model(model, fm: torch.Tensor, image: torch.Tensor,
@@ -388,11 +449,12 @@ def packed_tail_from_model(model, fm: torch.Tensor, image: torch.Tensor,
                            out_dtype: Optional[torch.dtype] = None,
                            quant: bool = False):
     """Depth 1: fold the raw stage (convraw) and run the 2s features fm
-    (``model(x, return_2s_features=True)``) to the packed head field.
+    (``model(x, return_2s_features=True)``) to the packed head field;
+    ``image`` is the model's input x, unpacked or packed.
     Returns (packed, fgcnt) as :func:`run_packed_tail`; ``out_dtype``
     defaults to ``dtype``; ``quant`` as there (and in every stage of the
     deeper drivers)."""
-    tp = _fold_tail(model, *image.shape[2:], *fm.shape[2:])
+    tp = _fold_tail_for(model, image, *fm.shape[2:])
     return run_packed_tail(fm, image, tp, alpha, dtype, out_dtype or dtype,
                            quant=quant)
 
@@ -407,7 +469,7 @@ def packed_tail_deep_from_model(model, fm4: torch.Tensor, x2s: torch.Tensor,
     h2, w2 = x2s.shape[2:]
     cp = _fold_stage(model.conv2s, fm4.shape[1], h2, w2)
     fm2p = run_packed_stage(fm4, x2s, cp, alpha, dtype, quant=quant)
-    tp = _fold_tail(model, *image.shape[2:], h2, w2)
+    tp = _fold_tail_for(model, image, h2, w2)
     return run_packed_tail(fm2p, image, tp, alpha, dtype, out_dtype or dtype,
                            fm_packed=True, quant=quant)
 
@@ -426,6 +488,6 @@ def packed_tail_deep3_from_model(model, fm8: torch.Tensor, x4s: torch.Tensor,
     cp2 = _fold_stage(model.conv2s, model.conv4s[0].out_channels, h2, w2)
     fm2p = run_packed_stage(fm4p, x2s, cp2, alpha, dtype, fm_packed=True,
                             quant=quant)
-    tp = _fold_tail(model, *image.shape[2:], h2, w2)
+    tp = _fold_tail_for(model, image, h2, w2)
     return run_packed_tail(fm2p, image, tp, alpha, dtype, out_dtype or dtype,
                            fm_packed=True, quant=quant)

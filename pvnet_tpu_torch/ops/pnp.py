@@ -13,8 +13,9 @@ intrinsics), broadcast through the same code.
 
 The LM residual matches the reference's Ceres cost
 (ref uncertainty_pnp.cpp:25-31): r = [wxx*dx + wxy*dy, wxy*dx + wyy*dy].
-Its Jacobian is taken by forward-mode autodiff (``torch.func.jvp`` over
-the six parameter directions), as ``jax.jacfwd`` does in the reference.
+Its Jacobian with respect to (angle-axis, t) is written out in closed form
+(:func:`_residuals_and_jacobian`): what ``jax.jacfwd`` computes in the
+reference, in plain tensor operations, so that ``torch.export`` traces it.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from pvnet_tpu_torch.ops.geometry import (inverse_rodrigues, pose_from_Rt,
                                           project, rodrigues,
+                                          rodrigues_derivative,
                                           solve_spd_small)
 from pvnet_tpu_torch.ops.smalllinalg import eigh, inv3x3, so3_project
 
@@ -281,21 +283,59 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
 # Levenberg-Marquardt refinement
 # ---------------------------------------------------------------------------
 
+_Z_MIN = 1e-5
+
+
+def _weighted(dx: torch.Tensor, dy: torch.Tensor,
+              w3: torch.Tensor) -> torch.Tensor:
+    """[wxx*dx + wxy*dy, wxy*dx + wyy*dy] over the point axis: [..., 2n]."""
+    return torch.cat([w3[..., 0] * dx + w3[..., 1] * dy,
+                      w3[..., 1] * dx + w3[..., 2] * dy], dim=-1)
+
+
 def _residuals(pose6: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
                K: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
     """Weighted reprojection residuals [N, 2n] of pose6 [N, 6] = (angle-
     axis, t), matching the Ceres cost (ref uncertainty_pnp.cpp:17-33)."""
     R = rodrigues(pose6[:, :3])
     cam = pts3d @ R.transpose(-1, -2) + pose6[:, None, 3:]
-    z = cam[..., 2].clamp(min=1e-5)
+    z = cam[..., 2].clamp(min=_Z_MIN)
     fx, fy, px, py = _intrinsics(K)
     proj_x = fx * cam[..., 0] / z + px
     proj_y = fy * cam[..., 1] / z + py
-    dx = proj_x - pts2d[..., 0]
-    dy = proj_y - pts2d[..., 1]
-    r0 = w3[..., 0] * dx + w3[..., 1] * dy
-    r1 = w3[..., 1] * dx + w3[..., 2] * dy
-    return torch.cat([r0, r1], dim=-1)
+    return _weighted(proj_x - pts2d[..., 0], proj_y - pts2d[..., 1], w3)
+
+
+def _residuals_and_jacobian(pose6: torch.Tensor, pts3d: torch.Tensor,
+                            pts2d: torch.Tensor, K: torch.Tensor,
+                            w3: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_residuals` [N, 2n] and their Jacobian [N, 2n, 6] with
+    respect to pose6, in closed form: the camera point's derivative is
+    (dR/dw_i) X for the rotation (geometry.rodrigues_derivative) and the
+    unit vector for the translation; the projection's follows the quotient
+    rule, with no depth derivative where the depth is clamped (as
+    autodiff of the clamp gives)."""
+    N, n, _ = pts3d.shape
+    R = rodrigues(pose6[:, :3])
+    cam = pts3d @ R.transpose(-1, -2) + pose6[:, None, 3:]  # [N, n, 3]
+    dcam_w = pts3d[:, None] @ rodrigues_derivative(
+        pose6[:, :3]).transpose(-1, -2)                     # [N, 3, n, 3]
+    dcam_t = torch.eye(3, dtype=cam.dtype, device=cam.device)[
+        None, :, None, :].expand(N, 3, n, 3)
+    dcam = torch.cat([dcam_w, dcam_t], dim=1)               # [N, 6, n, 3]
+    zc = cam[..., 2]
+    z = zc.clamp(min=_Z_MIN)
+    dz = torch.where((zc >= _Z_MIN)[:, None], dcam[..., 2], 0.0)
+    fx, fy, px, py = _intrinsics(K)
+    proj_x = fx * cam[..., 0] / z + px
+    proj_y = fy * cam[..., 1] / z + py
+    r = _weighted(proj_x - pts2d[..., 0], proj_y - pts2d[..., 1], w3)
+    z1, zz = z[:, None], (z * z)[:, None]                   # [N, 1, n]
+    dpx = fx[..., None] * (dcam[..., 0] / z1 - cam[:, None, :, 0] * dz / zz)
+    dpy = fy[..., None] * (dcam[..., 1] / z1 - cam[:, None, :, 1] * dz / zz)
+    J = _weighted(dpx, dpy, w3[:, None])                    # [N, 6, 2n]
+    return r, J.transpose(-1, -2)
 
 
 def lm_refine(pose0: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
@@ -312,25 +352,16 @@ def lm_refine(pose0: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
     Returns:
       ([N, 3, 4] refined poses, [N] final costs).
     """
-    N = pose0.shape[0]
     p = torch.cat([inverse_rodrigues(pose0[:, :, :3]), pose0[:, :, 3]], -1)
 
     def res_fn(q):
         return _residuals(q, pts3d, pts2d, K, w3)
 
-    # forward-mode Jacobian: one jvp per parameter direction (as jacfwd)
-    basis = torch.eye(6, dtype=p.dtype, device=p.device)[:, None, :] \
-        .expand(6, N, 6)
-    jac_cols = torch.func.vmap(
-        lambda tan, q: torch.func.jvp(res_fn, (q,), (tan,))[1],
-        in_dims=(0, None))
     eye = torch.eye(6, dtype=p.dtype, device=p.device)
-
     cost = (res_fn(p) ** 2).sum(-1)
     lam = torch.full_like(cost, 1e-3)
     for _ in range(iters):
-        r = res_fn(p)                                       # [N, 2n]
-        J = jac_cols(basis, p).permute(1, 2, 0)             # [N, 2n, 6]
+        r, J = _residuals_and_jacobian(p, pts3d, pts2d, K, w3)
         Jt = J.transpose(-1, -2)
         H = Jt @ J
         g = (Jt @ r[..., None])[..., 0]

@@ -90,12 +90,8 @@ def shift_lanes(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    lib = kernel_lib.library()
-    with torch.cuda.device(x.device):
-        err = lib.pvnet_shift_lanes(x.data_ptr(), starts.data_ptr(),
-                                    y.data_ptr(), P * R, C, esize,
-                                    torch.cuda.current_stream().cuda_stream)
-    kernel_lib.check(err, "pvnet_shift_lanes")
+    kernel_lib.launch("pvnet_shift_lanes", x.device, x.data_ptr(),
+                      starts.data_ptr(), y.data_ptr(), P * R, C, esize)
     shift_lanes.launches += 1
     return y
 
@@ -113,12 +109,8 @@ def shift_sublanes(x: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    lib = kernel_lib.library()
-    with torch.cuda.device(x.device):
-        err = lib.pvnet_shift_sublanes(x.data_ptr(), starts.data_ptr(),
-                                       y.data_ptr(), P, H, C, esize,
-                                       torch.cuda.current_stream().cuda_stream)
-    kernel_lib.check(err, "pvnet_shift_sublanes")
+    kernel_lib.launch("pvnet_shift_sublanes", x.device, x.data_ptr(),
+                      starts.data_ptr(), y.data_ptr(), P, H, C, esize)
     shift_sublanes.launches += 1
     return y
 

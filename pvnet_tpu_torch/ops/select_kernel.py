@@ -12,11 +12,12 @@ kernel in csrc/stratified_select.cu replaces:
 - K2, :func:`stratified_select`, a flat NHWC [b, h, w, C] field in float32
   or bfloat16 (``_kernel``).
 
-Each wrapper launches the kernel for a CUDA tensor and takes its plain
-version for a CPU tensor: :func:`stratified_select_cmajor_plain` and
-:func:`stratified_select_plain`, the PyTorch ports of
-``stratified_select_xla``. Values are selected, never blended, so kernel
-and plain version return identical results.
+Each wrapper calls a registered operator (``pvnet_torch::select_cmajor``,
+``pvnet_torch::select_nhwc``), which launches the kernel for a CUDA tensor
+and takes the plain version for a CPU tensor:
+:func:`stratified_select_cmajor_plain` and :func:`stratified_select_plain`,
+the PyTorch ports of ``stratified_select_xla``. Values are selected, never
+blended, so kernel and plain version return identical results.
 """
 from __future__ import annotations
 
@@ -92,8 +93,6 @@ def stratified_select_plain(score: torch.Tensor, field: torch.Tensor,
 
 
 def _launch_checks(score: torch.Tensor, field: torch.Tensor, dtypes):
-    if score.device.type != "cuda":
-        raise ValueError(f"unsupported device {score.device}")
     if score.dtype != torch.float32 or field.dtype not in dtypes:
         raise TypeError(f"float32 score and a {'/'.join(map(str, dtypes))} "
                         f"field required; got {score.dtype}, {field.dtype}")
@@ -102,10 +101,71 @@ def _launch_checks(score: torch.Tensor, field: torch.Tensor, dtypes):
 
 
 def _outputs(score: torch.Tensor, a: int, bb: int, c: int, dtype):
-    b, dev = score.shape[0], score.device
-    return (torch.empty((b, a, bb), dtype=torch.float32, device=dev),
-            torch.empty((b, a, bb), dtype=torch.int32, device=dev),
-            torch.empty((b, a, bb, c), dtype=dtype, device=dev))
+    b = score.shape[0]
+    return (score.new_empty((b, a, bb)),
+            score.new_empty((b, a, bb), dtype=torch.int32),
+            score.new_empty((b, a, bb, c), dtype=dtype))
+
+
+# The registered operators: the CPU implementation is the plain version,
+# the CUDA one launches the kernel (counted on the wrapper's ``.launches``)
+# or raises, the fake one gives export's tracer the outputs' shapes.
+
+@torch.library.custom_op(f"{kernel_lib.NAMESPACE}::select_cmajor",
+                         mutates_args=(), device_types="cpu")
+def _select_cmajor_op(score: torch.Tensor, field: torch.Tensor, a: int,
+                      bb: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    return stratified_select_cmajor_plain(score, field, a, bb)
+
+
+@_select_cmajor_op.register_kernel("cuda")
+def _select_cmajor_cuda(score, field, a, bb):
+    _launch_checks(score, field, (torch.float32,))
+    b, h, w = score.shape
+    c = field.shape[1]
+    best, idx, dirs = _outputs(score, a, bb, c, torch.float32)
+    if b == 0:
+        return best, idx, dirs
+    kernel_lib.launch("pvnet_select_cmajor", score.device, score.data_ptr(),
+                      field.data_ptr(), best.data_ptr(), idx.data_ptr(),
+                      dirs.data_ptr(), b, c, h, w, a, bb)
+    stratified_select_cmajor.launches += 1
+    return best, idx, dirs
+
+
+@_select_cmajor_op.register_fake
+def _select_cmajor_fake(score, field, a, bb):
+    return _outputs(score, a, bb, field.shape[1], field.dtype)
+
+
+@torch.library.custom_op(f"{kernel_lib.NAMESPACE}::select_nhwc",
+                         mutates_args=(), device_types="cpu")
+def _select_nhwc_op(score: torch.Tensor, field: torch.Tensor, a: int,
+                    bb: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    return stratified_select_plain(score, field, a, bb)
+
+
+@_select_nhwc_op.register_kernel("cuda")
+def _select_nhwc_cuda(score, field, a, bb):
+    _launch_checks(score, field, (torch.float32, torch.bfloat16))
+    b, h, w = score.shape
+    c = field.shape[3]
+    best, idx, dirs = _outputs(score, a, bb, c, field.dtype)
+    if b == 0:
+        return best, idx, dirs
+    kernel_lib.launch("pvnet_select_nhwc", score.device, score.data_ptr(),
+                      field.data_ptr(), best.data_ptr(), idx.data_ptr(),
+                      dirs.data_ptr(), b, c, h, w, a, bb,
+                      field.element_size())
+    stratified_select.launches += 1
+    return best, idx, dirs
+
+
+@_select_nhwc_op.register_fake
+def _select_nhwc_fake(score, field, a, bb):
+    return _outputs(score, a, bb, field.shape[3], field.dtype)
 
 
 def stratified_select_cmajor(score: torch.Tensor, field: torch.Tensor,
@@ -123,27 +183,13 @@ def stratified_select_cmajor(score: torch.Tensor, field: torch.Tensor,
       index ty*(w//bb)+tx of each winner (its pixel is (ty*a + phase_y,
       tx*bb + phase_x)), and dirs [b, a, bb, C] the winners' values.
 
-    A CPU tensor runs :func:`stratified_select_cmajor_plain`; a CUDA tensor
-    launches the kernel (and counts the launch in ``.launches``) or raises.
+    Calls the operator ``pvnet_torch::select_cmajor``: a CPU tensor runs
+    :func:`stratified_select_cmajor_plain`, a CUDA tensor launches the
+    kernel (and counts the launch in ``.launches``) or raises.
     """
     _check(score, field, a, bb, cmajor=True)
-    if score.device.type == "cpu":
-        return stratified_select_cmajor_plain(score, field, a, bb)
-    _launch_checks(score, field, (torch.float32,))
-    b, h, w = score.shape
-    c = field.shape[1]
-    best, idx, dirs = _outputs(score, a, bb, c, torch.float32)
-    if b == 0:
-        return best, idx, dirs
-    lib = kernel_lib.library()
-    with torch.cuda.device(score.device):
-        err = lib.pvnet_select_cmajor(
-            score.data_ptr(), field.data_ptr(), best.data_ptr(),
-            idx.data_ptr(), dirs.data_ptr(), b, c, h, w, a, bb,
-            torch.cuda.current_stream().cuda_stream)
-    kernel_lib.check(err, "pvnet_select_cmajor")
-    stratified_select_cmajor.launches += 1
-    return best, idx, dirs
+    kernel_lib.check_device(score)
+    return torch.ops.pvnet_torch.select_cmajor(score, field, a, bb)
 
 
 stratified_select_cmajor.launches = 0
@@ -166,27 +212,13 @@ def stratified_select(score: torch.Tensor, field: torch.Tensor,
     :func:`stratified_select_cmajor`) and dirs [b, a, bb, C] in the field's
     dtype.
 
-    A CPU tensor runs :func:`stratified_select_plain`; a CUDA tensor
-    launches the kernel (and counts the launch in ``.launches``) or raises.
+    Calls the operator ``pvnet_torch::select_nhwc``: a CPU tensor runs
+    :func:`stratified_select_plain`, a CUDA tensor launches the kernel (and
+    counts the launch in ``.launches``) or raises.
     """
     _check(score, field, a, bb, cmajor=False)
-    if score.device.type == "cpu":
-        return stratified_select_plain(score, field, a, bb)
-    _launch_checks(score, field, (torch.float32, torch.bfloat16))
-    b, h, w = score.shape
-    c = field.shape[3]
-    best, idx, dirs = _outputs(score, a, bb, c, field.dtype)
-    if b == 0:
-        return best, idx, dirs
-    lib = kernel_lib.library()
-    with torch.cuda.device(score.device):
-        err = lib.pvnet_select_nhwc(
-            score.data_ptr(), field.data_ptr(), best.data_ptr(),
-            idx.data_ptr(), dirs.data_ptr(), b, c, h, w, a, bb,
-            field.element_size(), torch.cuda.current_stream().cuda_stream)
-    kernel_lib.check(err, "pvnet_select_nhwc")
-    stratified_select.launches += 1
-    return best, idx, dirs
+    kernel_lib.check_device(score)
+    return torch.ops.pvnet_torch.select_nhwc(score, field, a, bb)
 
 
 stratified_select.launches = 0

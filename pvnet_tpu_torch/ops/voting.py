@@ -357,6 +357,45 @@ def _count_kernel_args(fg: ForegroundSample, hyps: torch.Tensor):
     return tuple(t.contiguous() for t in tensors)
 
 
+def _count_outputs(hyps: torch.Tensor) -> torch.Tensor:
+    b, hn, vn, _ = hyps.shape
+    return hyps.new_empty((b, hn, vn), dtype=torch.int32)
+
+
+# The registered operators of K3's two modes: the CPU implementation is the
+# plain version, the CUDA one launches the kernel (counted on the wrapper's
+# ``.launches``) or raises, the fake one gives export's tracer the shape.
+
+@torch.library.custom_op(f"{kernel_lib.NAMESPACE}::count_inliers",
+                         mutates_args=(), device_types="cpu")
+def _count_op(coords: torch.Tensor, dirs: torch.Tensor, valid: torch.Tensor,
+              hyps: torch.Tensor, thresh: float) -> torch.Tensor:
+    return count_inliers_plain(
+        ForegroundSample(coords, dirs, valid, None, None), hyps, thresh)
+
+
+@_count_op.register_kernel("cuda")
+def _count_cuda(coords, dirs, valid, hyps, thresh):
+    b, hn, vn, _ = hyps.shape
+    tn = coords.shape[1]
+    counts = _count_outputs(hyps)
+    if counts.numel() == 0:
+        return counts
+    if tn == 0:
+        return counts.zero_()
+    kernel_lib.launch("pvnet_count_inliers", hyps.device, coords.data_ptr(),
+                      dirs.data_ptr(), valid.data_ptr(), hyps.data_ptr(),
+                      counts.data_ptr(), b, vn, tn, hn,
+                      float(thresh * thresh), 0)
+    count_inliers.launches += 1
+    return counts
+
+
+@_count_op.register_fake
+def _count_fake(coords, dirs, valid, hyps, thresh):
+    return _count_outputs(hyps)
+
+
 def count_inliers(fg: ForegroundSample, hyps: torch.Tensor,
                   thresh: float, impl: Optional[str] = None) -> torch.Tensor:
     """Inlier counts [b, hn, vn] int32 of each hypothesis (kernel K3).
@@ -364,7 +403,8 @@ def count_inliers(fg: ForegroundSample, hyps: torch.Tensor,
     Semantics of the reference's voting_for_hypothesis_kernel
     (ref ransac_voting_kernel.cu:88-126). ``impl`` None counts in float32;
     'bf16' in bfloat16 (:func:`count_inliers_bf16`), as the JAX
-    ``count_inliers`` dispatches. A CPU tensor runs
+    ``count_inliers`` dispatches. Calls the operator
+    ``pvnet_torch::count_inliers``: a CPU tensor runs
     :func:`count_inliers_plain`; a CUDA tensor launches the kernel (and
     counts the launch in ``.launches``) or raises. The kernel reads the
     sample's coords, dirs and valid itself."""
@@ -374,27 +414,9 @@ def count_inliers(fg: ForegroundSample, hyps: torch.Tensor,
         raise ValueError(f"impl must be None or 'bf16', got {impl!r}")
     if thresh <= 0.0:
         raise ValueError(f"thresh must be > 0, got {thresh}")
-    if hyps.device.type == "cpu":
-        return count_inliers_plain(fg, hyps, thresh)
-    if hyps.device.type != "cuda":
-        raise ValueError(f"unsupported device {hyps.device}")
-    coords, dirs, valid, hyps = _count_kernel_args(fg, hyps)
-    b, hn, vn, _ = hyps.shape
-    tn = coords.shape[1]
-    counts = torch.empty((b, hn, vn), dtype=torch.int32, device=hyps.device)
-    if counts.numel() == 0:
-        return counts
-    if tn == 0:
-        return counts.zero_()
-    with torch.cuda.device(hyps.device):
-        err = kernel_lib.library().pvnet_count_inliers(
-            coords.data_ptr(), dirs.data_ptr(), valid.data_ptr(),
-            hyps.data_ptr(), counts.data_ptr(), b, vn, tn, hn,
-            float(thresh * thresh), 0,
-            torch.cuda.current_stream().cuda_stream)
-    kernel_lib.check(err, "pvnet_count_inliers")
-    count_inliers.launches += 1
-    return counts
+    kernel_lib.check_device(hyps)
+    return torch.ops.pvnet_torch.count_inliers(
+        *_count_kernel_args(fg, hyps), float(thresh))
 
 
 count_inliers.launches = 0
@@ -417,28 +439,30 @@ def _bf16_constants(thresh: float, device) -> Tuple[torch.Tensor,
             torch.tensor(_NORM_EPS_SQ, dtype=torch.bfloat16, device=device))
 
 
-def count_inliers_plain_bf16(fg: ForegroundSample, hyps: torch.Tensor,
-                             thresh: float, chunk: int = 64
-                             ) -> torch.Tensor:
-    """Plain version of :func:`count_inliers_bf16` (JAX's
-    ``count_inliers_xla_bf16``): coordinates recentred in float32 on each
-    image's foreground centroid, then bfloat16 throughout in the difference
-    form, every operation an eager bf16 one (so rounded), in K3's bf16
-    order. Runs on any device. Returns [b, hn, vn] int32."""
-    if thresh <= 0.0:
-        raise ValueError(f"thresh must be > 0, got {thresh}")
-    ctr = _centroid(fg.coords, fg.valid)
-    t2, eps2 = _bf16_constants(thresh, hyps.device)
+def _bf16_floats(thresh: float) -> Tuple[float, float]:
+    """:func:`_bf16_constants` as Python floats (exact)."""
+    return tuple(float(c) for c in _bf16_constants(thresh, "cpu"))
+
+
+def _count_bf16_plain(coords: torch.Tensor, dirs: torch.Tensor,
+                      valid: torch.Tensor, hyps: torch.Tensor,
+                      ctr: torch.Tensor, t2: float, eps2: float,
+                      chunk: int = 64) -> torch.Tensor:
+    """The bf16 count about the centroid ``ctr`` [b, 2] with the constants
+    t2 and eps2 (floats that bfloat16 holds exactly): every operation an
+    eager bf16 one (so rounded), in K3's bf16 order."""
     bf = torch.bfloat16
-    coords = (fg.coords - ctr[:, None, :]).to(bf)           # [b, tn, 2]
+    t2, eps2 = (torch.tensor(c, dtype=bf, device=hyps.device)
+                for c in (t2, eps2))
+    coords = (coords - ctr[:, None, :]).to(bf)              # [b, tn, 2]
     hc = (hyps - ctr[:, None, None, :]).to(bf)              # [b,hn,vn,2]
-    dirs = fg.dirs.to(bf)
+    dirs = dirs.to(bf)
     nx = dirs[..., 0].transpose(1, 2)[:, None]              # [b,1,vn,tn]
     ny = dirs[..., 1].transpose(1, 2)[:, None]
     n2 = nx * nx + ny * ny
     cx = coords[..., 0][:, None, None, :]                   # [b,1,1,tn]
     cy = coords[..., 1][:, None, None, :]
-    keep = fg.valid[:, None, None, :] & (n2 > eps2)
+    keep = valid[:, None, None, :] & (n2 > eps2)
     out = []
     for s in range(0, hyps.shape[1], chunk):
         hx = hc[:, s:s + chunk, :, 0, None]                 # [b,c,vn,1]
@@ -452,37 +476,68 @@ def count_inliers_plain_bf16(fg: ForegroundSample, hyps: torch.Tensor,
     return torch.cat(out, dim=1)
 
 
-def count_inliers_bf16(fg: ForegroundSample, hyps: torch.Tensor,
-                       thresh: float) -> torch.Tensor:
-    """Inlier counts [b, hn, vn] int32 in bfloat16 (K3's bf16 mode): what
-    JAX's ``count_inliers_xla_bf16`` computes. A CPU tensor runs
-    :func:`count_inliers_plain_bf16`; a CUDA tensor launches the kernel
-    (counted in ``.launches``) or raises. The centroid is computed here,
-    by :func:`_centroid`, on the sample's device."""
+def count_inliers_plain_bf16(fg: ForegroundSample, hyps: torch.Tensor,
+                             thresh: float, chunk: int = 64
+                             ) -> torch.Tensor:
+    """Plain version of :func:`count_inliers_bf16` (JAX's
+    ``count_inliers_xla_bf16``): coordinates recentred in float32 on each
+    image's foreground centroid, then bfloat16 throughout in the difference
+    form, every operation an eager bf16 one (so rounded), in K3's bf16
+    order. Runs on any device. Returns [b, hn, vn] int32."""
     if thresh <= 0.0:
         raise ValueError(f"thresh must be > 0, got {thresh}")
-    if hyps.device.type == "cpu":
-        return count_inliers_plain_bf16(fg, hyps, thresh)
-    if hyps.device.type != "cuda":
-        raise ValueError(f"unsupported device {hyps.device}")
-    coords, dirs, valid, hyps = _count_kernel_args(fg, hyps)
+    return _count_bf16_plain(fg.coords, fg.dirs, fg.valid, hyps,
+                             _centroid(fg.coords, fg.valid),
+                             *_bf16_floats(thresh), chunk)
+
+
+@torch.library.custom_op(f"{kernel_lib.NAMESPACE}::count_inliers_bf16",
+                         mutates_args=(), device_types="cpu")
+def _count_bf16_op(coords: torch.Tensor, dirs: torch.Tensor,
+                   valid: torch.Tensor, hyps: torch.Tensor,
+                   ctr: torch.Tensor, t2: float, eps2: float
+                   ) -> torch.Tensor:
+    return _count_bf16_plain(coords, dirs, valid, hyps, ctr, t2, eps2)
+
+
+@_count_bf16_op.register_kernel("cuda")
+def _count_bf16_cuda(coords, dirs, valid, hyps, ctr, t2, eps2):
     b, hn, vn, _ = hyps.shape
     tn = coords.shape[1]
-    counts = torch.empty((b, hn, vn), dtype=torch.int32, device=hyps.device)
+    counts = _count_outputs(hyps)
     if counts.numel() == 0:
         return counts
     if tn == 0:
         return counts.zero_()
-    ctr = _centroid(coords, valid)
-    t2, eps2 = (float(c) for c in _bf16_constants(thresh, "cpu"))
-    with torch.cuda.device(hyps.device):
-        err = kernel_lib.library().pvnet_count_inliers_bf16(
-            coords.data_ptr(), dirs.data_ptr(), valid.data_ptr(),
-            hyps.data_ptr(), ctr.data_ptr(), counts.data_ptr(), b, vn, tn,
-            hn, t2, eps2, 0, torch.cuda.current_stream().cuda_stream)
-    kernel_lib.check(err, "pvnet_count_inliers_bf16")
+    kernel_lib.launch("pvnet_count_inliers_bf16", hyps.device,
+                      coords.data_ptr(), dirs.data_ptr(), valid.data_ptr(),
+                      hyps.data_ptr(), ctr.contiguous().data_ptr(),
+                      counts.data_ptr(), b, vn, tn, hn, t2, eps2, 0)
     count_inliers_bf16.launches += 1
     return counts
+
+
+@_count_bf16_op.register_fake
+def _count_bf16_fake(coords, dirs, valid, hyps, ctr, t2, eps2):
+    return _count_outputs(hyps)
+
+
+def count_inliers_bf16(fg: ForegroundSample, hyps: torch.Tensor,
+                       thresh: float) -> torch.Tensor:
+    """Inlier counts [b, hn, vn] int32 in bfloat16 (K3's bf16 mode): what
+    JAX's ``count_inliers_xla_bf16`` computes. The centroid is computed
+    here, by :func:`_centroid`, on the sample's device; then the operator
+    ``pvnet_torch::count_inliers_bf16`` (the C entry
+    ``pvnet_count_inliers_bf16``): a CPU tensor runs the plain version
+    (:func:`count_inliers_plain_bf16`'s arithmetic), a CUDA tensor launches
+    the kernel (counted in ``.launches``) or raises."""
+    if thresh <= 0.0:
+        raise ValueError(f"thresh must be > 0, got {thresh}")
+    kernel_lib.check_device(hyps)
+    coords, dirs, valid, hyps = _count_kernel_args(fg, hyps)
+    return torch.ops.pvnet_torch.count_inliers_bf16(
+        coords, dirs, valid, hyps, _centroid(coords, valid),
+        *_bf16_floats(thresh))
 
 
 count_inliers_bf16.launches = 0

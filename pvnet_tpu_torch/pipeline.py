@@ -11,18 +11,23 @@ through PyTorch/cuDNN convolutions, selection and inlier counting through
 the port's CUDA kernels, the rest as PyTorch tensor code.
 
 The JAX pipeline's ``impl`` (the inlier count's mode: None float32, 'bf16'
-through K3's bf16 mode) and ``tail_quant`` (the packed tail's int8 branch)
-are arguments of the same names here; the model's own int8 stages come
-with the model (models/pvnet.build_model's quant options).
+through K3's bf16 mode), ``tail_quant`` (the packed tail's int8 branch) and
+``raw_uint8`` (uint8 images, packed and normalized on the device by
+:func:`normalize_packed_u8`, for a model with the packed4 stem) are
+arguments of the same names here; the model's own int8 stages come with the
+model (models/pvnet.build_model's quant options).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pvnet_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+from pvnet_tpu_torch.models.resnet import space_to_depth2
 from pvnet_tpu_torch.ops import packed_tail
 from pvnet_tpu_torch.ops import pnp as pnp_mod
 from pvnet_tpu_torch.ops import voting
@@ -46,6 +51,28 @@ class PoseEstimate(NamedTuple):
     fg_pixels: torch.Tensor   # [b] int32 foreground pixels of the mask
 
 
+def _no_grad(fn):
+    """``torch.no_grad()`` around ``fn`` where autograd is on; where it is
+    already off, no context at all (torch.export would trace the idle
+    grad-mode switch into the program, and splitting the graph around it
+    costs much of the tracing time)."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _bf16_autocast(device_type: str, enabled: bool):
+    """bfloat16 autocast where ``enabled``, else no context at all (an
+    idle autocast region would still be traced into an exported
+    program)."""
+    return (torch.autocast(device_type, dtype=torch.bfloat16) if enabled
+            else contextlib.nullcontext())
+
+
 def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
     """[b, h, w, 3] uint8 -> ImageNet-normalized float32 [b, h, w, 3], on
     the input's device."""
@@ -54,11 +81,27 @@ def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
     return (images_u8.to(torch.float32) / 255.0 - mean) / std
 
 
+def normalize_packed_u8(image_u8: torch.Tensor,
+                        dtype=torch.float32) -> torch.Tensor:
+    """[b, h, w, 3] uint8 -> [b, h/2, w/2, 12] ImageNet-normalized, for
+    models built with stem='packed4' (JAX pipeline.normalize_packed_u8).
+
+    The space-to-depth runs on the uint8 image, a quarter of the bytes of
+    packing the normalized float image, and the per-channel normalization
+    commutes with it exactly (mean and std tiled 4x): the result is
+    ``space_to_depth2(normalize_images(image_u8))`` bit for bit. An already
+    packed [b, h/2, w/2, 12] input is only normalized."""
+    xp = image_u8 if image_u8.shape[-1] == 12 else space_to_depth2(image_u8)
+    mean12 = torch.as_tensor(IMAGENET_MEAN, device=xp.device).repeat(4)
+    std12 = torch.as_tensor(IMAGENET_STD, device=xp.device).repeat(4)
+    return (xp.to(dtype) / 255.0 - mean12.to(dtype)) / std12.to(dtype)
+
+
 def predict_fields(model: torch.nn.Module, image: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """FCN forward: normalized [b, h, w, 3] -> (argmax mask [b, h, w],
-    channel-major vertex field [b, vn*2, h, w])
-    (ref train_linemod.py:99-102)."""
+    """FCN forward: normalized [b, h, w, 3] (or, for a packed4-stem model,
+    packed [b, h/2, w/2, 12]) -> (argmax mask [b, h, w], channel-major
+    vertex field [b, vn*2, h, w]) (ref train_linemod.py:99-102)."""
     seg, ver = model(image.permute(0, 3, 1, 2).contiguous())
     return torch.argmax(seg, dim=1), ver
 
@@ -125,7 +168,8 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
                           ) -> voting.ForegroundSample:
     """Foreground sample through the packed inference tail.
 
-    Runs the FCN on normalized [b, h, w, 3] images (h, w even) to the 2s
+    Runs the FCN on normalized [b, h, w, 3] images (h, w even; or packed
+    [b, h/2, w/2, 12] for a packed4-stem model) to the 2s
     stage (tail_depth=1), the 4s stage (2) or the 8s stage (3), computes
     the rest of the decoder on half-resolution packed lattices
     (ops/packed_tail.py) and samples the packed field directly through
@@ -139,8 +183,7 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
     x = image.permute(0, 3, 1, 2).contiguous()
     features = {3: "return_8s_features", 2: "return_4s_features",
                 1: "return_2s_features"}[tail_depth]
-    with torch.autocast(x.device.type, dtype=torch.bfloat16,
-                        enabled=fcn_bf16):
+    with _bf16_autocast(x.device.type, fcn_bf16):
         fm = model(x, **{features: True})
     if tail_depth == 3:
         fm8, x4s, x2s = fm
@@ -157,7 +200,7 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
                                            generator)
 
 
-@torch.no_grad()
+@_no_grad
 def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
                        params: VoteParams = VoteParams(),
                        noise: Optional[torch.Tensor] = None,
@@ -168,15 +211,18 @@ def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
                        cov_pair_u: Optional[torch.Tensor] = None,
                        cov_noise: Optional[torch.Tensor] = None,
                        fcn_bf16: bool = False, impl: Optional[str] = None,
-                       tail_quant: bool = False
+                       tail_quant: bool = False, raw_uint8: bool = False
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                   torch.Tensor]:
-    """Normalized images [b, h, w, 3] -> (keypoints [b, vn, 2], their
-    covariance [b, vn, 2, 2] or None, foreground pixels [b] int32): the
-    fields (or the packed tail), voting and, with uncertainty, the
-    hypothesis covariance. See :func:`estimate_poses` for the options and
-    draws; fcn_bf16=True runs the FCN under bfloat16 autocast (a bf16
-    recipe's model) and votes on its output in float32."""
+    """Normalized images [b, h, w, 3] (uint8 with raw_uint8) ->
+    (keypoints [b, vn, 2], their covariance [b, vn, 2, 2] or None,
+    foreground pixels [b] int32): the fields (or the packed tail), voting
+    and, with uncertainty, the hypothesis covariance. See
+    :func:`estimate_poses` for the options and draws; fcn_bf16=True runs
+    the FCN under bfloat16 autocast (a bf16 recipe's model) and votes on
+    its output in float32."""
+    if raw_uint8:
+        images = normalize_packed_u8(images)
     if fused_tail:
         fg = fused_tail_foreground(model, images, params.max_num, noise,
                                    generator, tail_dtype, tail_depth,
@@ -191,8 +237,7 @@ def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
                 cov_pair_u, generator, impl)
         fg_pixels = fg.total
     else:
-        with torch.autocast(images.device.type, dtype=torch.bfloat16,
-                            enabled=fcn_bf16):
+        with _bf16_autocast(images.device.type, fcn_bf16):
             mask, vertex = predict_fields(model, images)
         vertex = vertex.float()
         if uncertainty:
@@ -207,7 +252,7 @@ def estimate_keypoints(model: torch.nn.Module, images: torch.Tensor,
     return kps, cov, fg_pixels
 
 
-@torch.no_grad()
+@_no_grad
 def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
                    points_3d: torch.Tensor, K: torch.Tensor,
                    params: VoteParams = VoteParams(),
@@ -219,10 +264,16 @@ def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
                    cov_pair_u: Optional[torch.Tensor] = None,
                    cov_noise: Optional[torch.Tensor] = None,
                    fcn_bf16: bool = False, impl: Optional[str] = None,
-                   tail_quant: bool = False) -> PoseEstimate:
+                   tail_quant: bool = False,
+                   raw_uint8: bool = False) -> PoseEstimate:
     """The whole slice on normalized images [b, h, w, 3]: fields (or the
     packed tail), voting, optionally the covariance, PnP, plus each
     image's foreground pixel count.
+
+    raw_uint8=True takes uint8 images [b, h, w, 3] (or packed
+    [b, h/2, w/2, 12]) for a packed4-stem model and packs and normalizes
+    them on their device (:func:`normalize_packed_u8`), as the JAX
+    pipeline's option of that name.
 
     fused_tail=True takes the packed-tail path (``run_fused`` of the JAX
     pipeline) at ``tail_depth`` in {1, 2, 3} and ``tail_dtype``, its stage
@@ -236,7 +287,7 @@ def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
     kps, cov, fg_pixels = estimate_keypoints(
         model, images, params, noise, pair_u, generator, uncertainty,
         fused_tail, tail_depth, tail_dtype, cov_pair_u, cov_noise, fcn_bf16,
-        impl, tail_quant)
+        impl, tail_quant, raw_uint8)
     pose = poses_from_keypoints(points_3d, kps, K, covar=cov)
     return PoseEstimate(pose, kps, fg_pixels)
 
@@ -246,14 +297,16 @@ def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
                        uncertainty: bool = False, impl: Optional[str] = None,
                        fused_tail: bool = False, tail_depth: int = 1,
                        tail_dtype=torch.bfloat16, tail_quant: bool = False,
-                       fcn_bf16: bool = False, device=None):
+                       raw_uint8: bool = False, fcn_bf16: bool = False,
+                       device=None):
     """Build the image -> pose function (the JAX ``run`` closure, or
     ``run_fused`` with fused_tail=True; see :func:`estimate_poses`). The
     JAX function's arguments keep their names and order; fcn_bf16 stands
     for its model dtype, the port's model being float32 under autocast.
 
-    Returns run(images [b, h, w, 3] normalized float32 on the model's
-    device, generator=None) -> (pose [b, 3, 4], kps [b, vn, 2]).
+    Returns run(images [b, h, w, 3] normalized float32 (uint8 with
+    raw_uint8) on the model's device, generator=None) -> (pose [b, 3, 4],
+    kps [b, vn, 2]).
     ``generator`` supplies every random draw. The keypoints and K go to
     ``device``, by default the model's."""
     if device is None:
@@ -268,7 +321,8 @@ def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
                              generator=generator, uncertainty=uncertainty,
                              fused_tail=fused_tail, tail_depth=tail_depth,
                              tail_dtype=tail_dtype, fcn_bf16=fcn_bf16,
-                             impl=impl, tail_quant=tail_quant)
+                             impl=impl, tail_quant=tail_quant,
+                             raw_uint8=raw_uint8)
         return est.pose, est.kps
 
     return run

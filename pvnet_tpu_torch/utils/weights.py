@@ -15,6 +15,10 @@ Strict both ways: every leaf of the flax tree must be used, and
 :func:`quant_from_flax` and :func:`flax_quant_from_model` carry the int8
 models' calibrated activation scales (the flax ``quant`` collection, the
 port's QuantConv2d ``act_absmax`` buffers) across, strictly as well.
+
+:func:`fold_stem_state_dict` (the JAX ``fold_stem_params``) carries a
+conv7-stem state_dict onto a ``stem='packed4'`` model; :func:`load_weights`
+applies it when the model has the packed stem.
 """
 from __future__ import annotations
 
@@ -149,19 +153,39 @@ def flax_from_state_dict(sd) -> dict:
     return {"params": _nest(params), "batch_stats": _nest(stats)}
 
 
+def fold_stem_state_dict(sd) -> "OrderedDict[str, torch.Tensor]":
+    """Map a conv7-stem state_dict onto the packed4-stem model (the JAX
+    ``fold_stem_params``, pvnet_tpu/models/resnet.py:106): every
+    [cout, 3, 7, 7] kernel (only the stem's has that shape) is folded by
+    models.resnet.fold_conv7_to_packed4; every other tensor is shared
+    unchanged, so an already folded state_dict is returned as it is."""
+    from pvnet_tpu_torch.models.resnet import fold_conv7_to_packed4
+    return OrderedDict(
+        (k, fold_conv7_to_packed4(v) if k.endswith("weight")
+         and tuple(v.shape[1:]) == (3, 7, 7) else v) for k, v in sd.items())
+
+
+def _load(model: torch.nn.Module, sd) -> None:
+    """load_state_dict (strict), the stem folded for a packed4 model."""
+    if any(getattr(m, "stem", None) == "packed4" for m in model.modules()):
+        sd = fold_stem_state_dict(sd)
+    model.load_state_dict(sd, strict=True)
+
+
 def load_pvnet_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a flax msgpack PVNet checkpoint into ``model`` (strict)."""
-    model.load_state_dict(state_dict_from_flax(flax_msgpack.load(path)),
-                          strict=True)
+    """Load a flax msgpack PVNet checkpoint into ``model`` (strict; a
+    packed4-stem model takes a conv7 checkpoint's stem folded)."""
+    _load(model, state_dict_from_flax(flax_msgpack.load(path)))
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:
     """Load network weights into ``model`` (strict) from a flax msgpack
     checkpoint or from a port ``.pth`` checkpoint ({net, optim, epoch},
-    train/checkpoint.py)."""
+    train/checkpoint.py). A packed4-stem model takes a conv7 checkpoint
+    with its stem folded (:func:`fold_stem_state_dict`)."""
     if path.endswith(".pth"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        model.load_state_dict(ckpt["net"], strict=True)
+        _load(model, ckpt["net"])
     else:
         load_pvnet_checkpoint(model, path)
 

@@ -866,3 +866,69 @@ def test_int8_route_rejects_what_int_mm_cannot_take(cuda):
                                        device=cuda))
     with pytest.raises(TypeError):
         Q.conv_int8_acc(q.float(), torch.zeros(8, 8, 1, 1, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The registered operators (torch.ops.pvnet_torch.*), as an exported
+# program calls them
+# ---------------------------------------------------------------------------
+
+def _op_cases(dev):
+    """(operator, arguments) for each of K1-K3's operators at a small
+    shape, the tensors on ``dev``."""
+    g = torch.Generator().manual_seed(9)
+    score = (torch.rand(2, 16, 32, generator=g)
+             + 2.0 * (torch.rand(2, 16, 32, generator=g) < 0.3))
+    fg = _sample("cpu", 2, 200, 3, 9)
+    hyps = torch.empty(2, 130, 3, 2).uniform_(-20, 120, generator=g)
+    ctr = V._centroid(fg.coords, fg.valid)
+    t2, eps2 = V._bf16_floats(0.99)
+    ops = torch.ops.pvnet_torch
+    cases = [
+        (ops.select_cmajor, (score, torch.randn(2, 5, 16, 32, generator=g),
+                             4, 8)),
+        (ops.select_nhwc, (score, torch.randn(2, 16, 32, 7, generator=g),
+                           4, 8)),
+        (ops.select_nhwc, (score, torch.randn(2, 16, 32, 7, generator=g)
+                           .bfloat16(), 4, 8)),
+        (ops.count_inliers, (fg.coords, fg.dirs, fg.valid, hyps, 0.99)),
+        (ops.count_inliers_bf16, (fg.coords, fg.dirs, fg.valid, hyps, ctr,
+                                  t2, eps2)),
+    ]
+    return [(op, tuple(a.to(dev) if torch.is_tensor(a) else a
+                       for a in args)) for op, args in cases]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_registered_operator_cuda_equals_plain(cuda, case):
+    op, args = _op_cases(cuda)[case]
+    _, cpu_args = _op_cases("cpu")[case]
+    counters = {"select_cmajor": SK.stratified_select_cmajor,
+                "select_nhwc": SK.stratified_select,
+                "count_inliers": V.count_inliers,
+                "count_inliers_bf16": V.count_inliers_bf16}
+    counter = counters[op._qualified_op_name.split("::")[1]]
+    before = counter.launches
+    got = op(*args)
+    want = op(*cpu_args)                    # the CPU implementation: plain
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for x, y in zip(got, want):
+        assert x.is_cuda and x.dtype == y.dtype and torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_registered_operator_fake_shapes(cuda, case):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    op, args = _op_cases(cuda)[case]
+    real = op(*args)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake_args = tuple(mode.from_tensor(a) if torch.is_tensor(a) else a
+                          for a in args)
+        fake = op(*fake_args)
+    real = real if isinstance(real, tuple) else (real,)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    for r, f in zip(real, fake):
+        assert (f.shape, f.dtype, f.device) == (r.shape, r.dtype, r.device)
