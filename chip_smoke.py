@@ -24,7 +24,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
     as the path finds them in the L2 cache) and cold (K1 and K2: the score
     rotated over copies that exceed the 50 MB L2; K3 and its bf16 mode:
     all inputs rotated); time an empty kernel the same way (the launch
-    floor);
+    floor); at the voting variants' shapes, K3 at hn=4096 (vn=9, tn=1024),
+    K3 at vn=1, tn=4096, hn=512 and K1 at tn=4096 (a=bb=64, C=2, 480 rows
+    padded to 512), each exact and timed warm and cold;
 (c') hold the row-shift kernels K4 (shift_lanes) and K5 (shift_sublanes)
     against their plain versions at the training path's shapes (K4: pass V
     [64, 640, 480] and pass H [64, 480, 640]; K5: [64, 480, 640]), float32
@@ -126,9 +128,45 @@ Phases, each of which fails the run (non-zero exit) on any error:
     than requests each round, view 0 within 5 cm / 5 deg), a bad payload
     answered 4xx. Prints export, load and call seconds, the artifacts' MB,
     and the served latencies beside the card's name and power limit;
+(k) multi-object inference and the voting variants: 16 scenes of the
+    duck, box and cylinder at 480x640 (data/multiclass.generate_split,
+    LINEMOD_K, a fixed seed). (k1) make_multiclass_pose_pipeline on a
+    stand-in model returning one-hot*10 logits and the ground-truth
+    multi-class field: 3 requests, K1 and K3 exactly 3 launches each per
+    request, every class with >= 400 visible pixels posed within 5 deg /
+    2 cm; from these fields and the same draws the card equals the CPU in
+    every class's selection, hypotheses and counts, keypoints within 1e-2
+    px, poses within 0.05 deg / 1 mm. (k2) the real FCN (resnet18_8s,
+    seg_dim=4, ver_dim=18, float32 without TF32, weights from a seeded
+    generator), b=16: 3 requests with the same launch counts; from the
+    card's fields and the same draws the card equals the CPU in every
+    class's selection, hypotheses, counts and winner's inlier mask,
+    keypoints within 1e-2 px where the refit's float32 estimate
+    eps*cond(A)*|p| is at most 1e-3 px (A the normal matrix), poses within
+    0.05 deg / 1 mm where those keypoints are held and PnP reprojects
+    them within 1 px RMS (the rest printed with their inlier counts,
+    determinants and conditions: a random network's fields make both
+    ill-conditioned; (k1) holds every keypoint and pose); one request
+    with impl='bf16' (K3's bf16 mode 3 times, equal to its plain bf16
+    version); latency and stage ms (fcn; per class select, hypotheses +
+    count, refine; one PnP over b*C beside C pnp_batch calls). (k3) on the
+    duck fixture's ground-truth field (b=16): v2 (3 rounds), v4, v5,
+    estimate_voting_distribution (hn=4096), generate_hypotheses_with_counts,
+    center voting (tn=4096, vn=1, the centre's field), the vanishing point,
+    motion voting (the offset field) and top-k selection, each on the card
+    (its K1/K3 launches counted) and, with the same draws, on the CPU for
+    the first 4 images: integers equal, points within 1e-2 px, covariances
+    and variances within 1e-3 of their largest entry or 1e-4 px^2, v5's
+    confidence (a count at 0.999 that last-bit differences of the refined
+    points move) equal to the CPU's at the card's points; keypoints against
+    the fixture's projections. (k4) 3 float32 multi-class train_steps at
+    b=8 without augmentation (finite losses, targets from
+    compute_vertex_targets_multiclass), and one at b=2 on the card against
+    the CPU with (f)'s tolerances;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
-    bf16 mode with their cold times; launches summed over the phases that
-    drive their paths, (j)'s programs and server included), then, as the
+    bf16 mode with their cold times and (c)'s times at the variants'
+    shapes; launches summed over the phases that drive their paths, (j)'s
+    programs and server and (k) included), then, as the
     last line, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -321,17 +359,78 @@ def check_kernels(dev, fixture):
     k3 = check_k3(dev, g, fg)
     k3_bf16 = check_k3_bf16(dev, g, fg)
     k2 = check_k2(dev, g)
-    return [
-        {"name": "stratified_select_cmajor", "route": "cuda",
-         "source": "pvnet_tpu_torch/csrc/stratified_select.cu",
-         "replaces": "pvnet_tpu/ops/select_kernel.py:131",
-         "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
-         "cold_ms": k1_cold, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": "bytes", "library_ms": None},
-        k3,
-        k3_bf16,
-        k2,
-    ]
+    k1 = {"name": "stratified_select_cmajor", "route": "cuda",
+          "source": "pvnet_tpu_torch/csrc/stratified_select.cu",
+          "replaces": "pvnet_tpu/ops/select_kernel.py:131",
+          "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
+          "cold_ms": k1_cold, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+          "bound_by": "bytes", "library_ms": None}
+    check_slice_shapes(dev, g, mask, field, k1, k3)
+    return [k1, k3, k3_bf16, k2]
+
+
+def check_slice_shapes(dev, g, mask, field, k1, k3):
+    """Phase (c), the shapes the voting variants give K1 and K3: K3 at
+    hn=4096 (vn=9, tn=1024: estimate_voting_distribution's one pass), K3
+    at vn=1, tn=4096, hn=512 and K1 at tn=4096 (a=bb=64, C=2, the 480 rows
+    padded to 512: ransac_voting_center's defaults). Each equal to its plain
+    version exactly, timed warm and cold; the times go into the kernels'
+    entries (``hn4096_ms``, ``vn1_tn4096_ms``, ``tn4096_ms`` and their
+    cold times)."""
+    import torch
+    import torch.nn.functional as F
+    from pvnet_tpu_torch.ops import select_kernel, voting
+
+    def k3_exact(fg, hyps, what):
+        got = voting.count_inliers(fg, hyps, 0.99)
+        want = voting.count_inliers_plain(fg, hyps, 0.99)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"K3 {what} disagrees with plain"
+        run = lambda a: voting.count_inliers(a[0], a[1], 0.99)  # noqa: E731
+        warm = cuda_ms(lambda: run((fg, hyps)))
+        cold = cold_ms(run, k3_copies(fg, hyps))
+        plain = cuda_ms(lambda: voting.count_inliers_plain(fg, hyps, 0.99),
+                        iters=5)
+        pairs = int(fg.valid.sum()) * hyps.shape[1] * hyps.shape[2]
+        bound = pairs * K3_INSTR_PER_PAIR / INSTR_PER_S * 1e3
+        print(f"K3 {what}: equal to plain (max count {int(got.max())}); "
+              f"kernel {warm:.4f} ms warm, {cold:.4f} ms cold; plain "
+              f"{plain:.4f} ms; bound {bound:.4f} ms ({pairs / 1e6:.2f} M "
+              f"pairs); {SMI}", flush=True)
+        return warm, cold
+
+    fg = voting.sample_foreground(mask, field, 1024, generator=g)
+    hyps = voting.generate_hypotheses(fg, 4096, generator=g)
+    k3["hn4096_ms"], k3["hn4096_cold_ms"] = k3_exact(
+        fg, hyps, f"[b={BATCH}, hn=4096, vn={VN}, tn=1024]")
+    center = field[:, :2].contiguous()                  # [b, 2, h, w]
+    fg1 = voting.sample_foreground(mask, center, 4096, generator=g)
+    assert int(fg1.count.min()) > 0
+    hyps1 = voting.generate_hypotheses(fg1, 512, generator=g)
+    k3["vn1_tn4096_ms"], k3["vn1_tn4096_cold_ms"] = k3_exact(
+        fg1, hyps1, f"[b={BATCH}, hn=512, vn=1, tn=4096]")
+
+    a, bb = voting._phase_grid(4096)
+    pad = (-H) % a
+    assert (a, bb, pad) == (64, 64, 32)
+    scores = [F.pad((mask != 0).float() * 2.0
+                    + torch.rand((BATCH, H, W), generator=g, device=dev),
+                    (0, 0, 0, pad), value=-1.0) for _ in range(3)]
+    fieldp = F.pad(center, (0, 0, 0, pad)).contiguous()  # [b, 2, 512, 640]
+    k1f, k1p = (select_kernel.stratified_select_cmajor,
+                select_kernel.stratified_select_cmajor_plain)
+    same_selection(k1f(scores[0], fieldp, a, bb),
+                   k1p(scores[0], fieldp, a, bb), "K1 at tn=4096")
+    ms = cuda_ms(lambda: k1f(scores[0], fieldp, a, bb))
+    cold = cold_ms(lambda s: k1f(s, fieldp, a, bb), scores)
+    plain = cuda_ms(lambda: k1p(scores[0], fieldp, a, bb))
+    nbytes = scores[0].numel() * 4 + BATCH * 4096 * (2 * 4 + 8 + 2 * 4)
+    print(f"K1 [b={BATCH}, C=2, {H + pad}x{W} ({H} rows padded), a={a}, "
+          f"bb={bb}]: equal to plain; kernel {ms:.4f} ms warm, {cold:.4f} "
+          f"ms cold; plain {plain:.4f} ms; bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"({nbytes / 1e6:.2f} MB); {SMI}", flush=True)
+    k1["tn4096_ms"], k1["tn4096_cold_ms"] = ms, cold
 
 
 def random_sample(dev, g, b, tn, vn):
@@ -2124,6 +2223,698 @@ def run_deployment(dev, fixture, kernels):
         shutil.rmtree(EXPORT_DIR, ignore_errors=True)
 
 
+# --- phase (k): multi-object inference and the voting variants --------------
+
+MC_SCENES = 16          # (k1), (k2): scenes of 3 classes at 480x640
+MC_SEED = 17
+MC_MIN_VISIBLE = 400    # (k1): classes with fewer visible pixels are skipped
+MC_TRAIN_BATCH = 8      # (k4)
+VARIANT_CPU_IMAGES = 4  # (k3): the CPU repeats the first 4 of 16 images
+
+
+def reset_counters():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def stand_in_model(seg, field):
+    """A model returning fixed seg logits [b, C+1, h, w] and a fixed
+    channel-major field, whatever its input: the ground-truth stand-in of
+    JAX's test_multiclass_pose_pipeline_api."""
+    import torch
+
+    class StandIn(torch.nn.Module):
+        def forward(self, x):
+            return seg, field
+    return StandIn()
+
+
+def multiclass_scenes():
+    """(k1)'s scenes: data/multiclass.generate_split of the duck, box and
+    cylinder at 480x640, LINEMOD_K, seed MC_SEED."""
+    from pvnet_tpu_torch.config import LINEMOD_K
+    from pvnet_tpu_torch.data import multiclass as MC
+    classes = MC.build_class_set()
+    metas = [MC.class_meta(*c) for c in classes]
+    t0 = time.time()
+    images, masks, hcoords, poses = MC.generate_split(
+        classes, metas, MC_SCENES, LINEMOD_K, H, W, MC_SEED)
+    vis = {m.name: [int((masks == c + 1).sum((1, 2)).min()),
+                    int((masks == c + 1).sum((1, 2)).max())]
+           for c, m in enumerate(metas)}
+    print(f"(k) {MC_SCENES} multi-class scenes at {H}x{W} in "
+          f"{time.time() - t0:.1f} s; visible pixels per class [min, max] "
+          f"{vis}", flush=True)
+    return metas, LINEMOD_K.astype("float32"), images, masks, hcoords, poses
+
+
+def pose_errors(pred, gt):
+    """(rotation deg, translation m) of poses [..., 3, 4] on the CPU, in
+    float64. The angle is 2 asin(|R1 - R2|_F / sqrt(8)), the geodesic
+    angle for rotations: the arccos of (trace(R1 R2^T) - 1) / 2 reads
+    0.02-0.04 deg between a float32 rotation and itself, its rows being
+    orthonormal only to float32 rounding."""
+    import torch
+    pred, gt = pred.cpu().double(), gt.cpu().double()
+    chord = (pred[..., :3] - gt[..., :3]).flatten(-2).norm(dim=-1)
+    rot = torch.rad2deg(2 * torch.asin((chord / 8 ** 0.5).clamp(max=1.0)))
+    return rot, (pred[..., 3] - gt[..., 3]).norm(dim=-1)
+
+
+def run_multiclass_gt(dev, scenes, kernels):
+    """(k1) the multi-class pipeline on the ground-truth stand-in: K1 and
+    K3 once per class per request, every class with >= MC_MIN_VISIBLE
+    visible pixels posed within 5 deg / 2 cm."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.data.vertex import compute_vertex_targets_multiclass
+
+    metas, K, images, masks, hcoords, poses = scenes
+    C = len(metas)
+    masks_t = torch.from_numpy(masks).to(dev)
+    field = compute_vertex_targets_multiclass(
+        masks_t, torch.from_numpy(hcoords).to(dev))
+    seg = torch.nn.functional.one_hot(masks_t.long(), C + 1).permute(
+        0, 3, 1, 2).float() * 10.0
+    pts = np.stack([m.points_3d for m in metas])
+    run = pl.make_multiclass_pose_pipeline(stand_in_model(seg, field), pts,
+                                           K, pl.VoteParams(), device=dev)
+    x = pl.normalize_images(torch.from_numpy(images).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    run(x, gen)                                             # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    lat, results = [], []
+    for _ in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        results.append(run(x, gen))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counters()
+    assert counts == {"stratified_select": 0,
+                      "stratified_select_cmajor": C * N_REQUESTS,
+                      "count_inliers": C * N_REQUESTS,
+                      "count_inliers_bf16": 0}, counts
+    add_launches(kernels, counts)
+    vis = torch.from_numpy((masks[:, None] == np.arange(1, C + 1)[None, :,
+                            None, None]).sum((2, 3)))       # [b, C]
+    sel = vis >= MC_MIN_VISIBLE
+    gt = torch.from_numpy(poses)
+    for p, _ in results:
+        assert p.shape == (MC_SCENES, C, 3, 4) and torch.isfinite(p).all()
+        rot, trans = pose_errors(p, gt)
+        bad = sel & ~((rot < 5.0) & (trans < 0.02))
+        assert not bad.any(), \
+            f"(k1) {int(bad.sum())} classes off by more than 5 deg / 2 cm: " \
+            f"rot {rot[bad].tolist()} trans {trans[bad].tolist()}"
+    print(f"(k1) {N_REQUESTS} multi-class requests of {MC_SCENES} scenes "
+          f"({C} classes, ground-truth stand-in) at {H}x{W}: latency ms "
+          f"{[round(v, 3) for v in lat]}; launches {counts}; "
+          f"{int(sel.sum())} of {sel.numel()} (image, class) pairs with >= "
+          f"{MC_MIN_VISIBLE} visible px, all within 5 deg / 2 cm: rotation "
+          f"deg median {float(rot[sel].median()):.4f} max "
+          f"{float(rot[sel].max()):.4f}, translation m median "
+          f"{float(trans[sel].median()):.5f} max "
+          f"{float(trans[sel].max()):.5f}; {SMI}", flush=True)
+    card_vs_cpu("(k1)", masks_t, field, C, pts, K, gen, dev, strict=True)
+
+
+def card_vs_cpu(tag, labels, vertex, C, pts, K, gen, dev, strict):
+    """The multi-class vote and PnP on the card and on the CPU from the
+    same labels, field and draws: every class's selection, hypotheses,
+    counts and winner's inlier mask equal; keypoints within 1e-2 px where
+    the refit is well conditioned (see :func:`refit_conditioning`), poses
+    within 0.05 deg / 1 mm (float64 angles) where every keypoint of the
+    pair is held and PnP is well posed (the CPU pose reprojects the CPU
+    keypoints within 1 px RMS). With ``strict`` every keypoint and pose is
+    held. Returns (noise, pair_u) for reuse."""
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.ops import voting
+
+    params = pl.VoteParams()
+    b = labels.shape[0]
+    noise = torch.rand((C, b, H, W), generator=gen, device=dev)
+    pair_u = torch.rand((C, b, params.hyp_num, 2), generator=gen,
+                        device=dev)
+    pts_t, K_t = torch.from_numpy(pts), torch.from_numpy(K)
+    with torch.no_grad():
+        layer = voting.ransac_voting_multiclass(
+            labels, vertex, C + 1, params.hyp_num, params.inlier_thresh,
+            params.max_num, params.min_num, noise=noise, pair_u=pair_u)
+        outs = [multiclass_parts(labels.to(where), vertex.to(where), C,
+                                 params, noise.to(where), pair_u.to(where),
+                                 pts_t.to(where), K_t.to(where))
+                for where in (dev, torch.device("cpu"))]
+    (parts_g, kps_g, pose_g), (parts_c, kps_c, pose_c) = outs
+    assert torch.equal(layer, kps_g), "ransac_voting_multiclass != its parts"
+    names = ("coords", "dirs", "valid", "hyps", "counts")
+    for c in range(C):
+        for name, a, b_ in zip(names, parts_g[c], parts_c[c]):
+            assert torch.equal(a.cpu(), b_), \
+                f"{tag} class {c + 1}: card != CPU on {name}"
+    inl, det, cond = refit_conditioning(parts_g, parts_c,
+                                        params.inlier_thresh)
+    diff = (kps_g.cpu() - kps_c).abs().amax(-1)             # [b, C, vn]
+    norm = kps_c.double().norm(dim=-1)
+    est = torch.where(cond.isinf(), cond, EPS32 * cond * norm)   # px
+    held = est <= 1e-3
+    w = int(diff.argmax())
+    at = (w // (C * VN), w // VN % C + 1, w % VN)
+    print(f"{tag} card vs CPU, same fields and draws: selections, "
+          f"hypotheses, counts and the winners' inlier masks equal for every "
+          f"class; keypoints max diff {float(diff.max()):.3e} px at (image, "
+          f"class, keypoint) {at}: {int(inl.flatten()[w])} inliers, normal "
+          f"matrix det {float(det.flatten()[w]):.4e}, condition "
+          f"{float(cond.flatten()[w]):.4e}, {float(norm.flatten()[w]):.1f} px "
+          f"from the origin, float32 estimate eps*cond*|p| "
+          f"{float(est.flatten()[w]):.3e} px; median condition "
+          f"{float(cond.median()):.3e}, median keypoint "
+          f"{float(norm.median()):.1f} px from the origin; "
+          f"{int(held.sum())} of {held.numel()} keypoints with estimate <= "
+          f"1e-3 px, held within 1e-2 px (max diff "
+          f"{float(diff[held].max()) if held.any() else 0.0:.3e}); "
+          f"diff / estimate max "
+          f"{float((diff / est)[est > 0].max()):.3e}", flush=True)
+    assert (diff[held] < 1e-2).all(), f"{tag} well-conditioned keypoints " \
+        f"off by {float(diff[held].max()):.3e} px"
+
+    rot, trans = pose_errors(pose_g, pose_c)
+    rms = reprojection_rms(pose_c, pts_t, kps_c, K_t)       # [b, C]
+    posed = held.all(-1) & (rms <= 1.0)
+    with torch.no_grad():
+        pose_cg = pl.multiclass_poses_from_keypoints(pts_t, kps_g.cpu(), K_t)
+    rot_same, trans_same = pose_errors(pose_g, pose_cg)
+    w = int(rot.argmax())
+    print(f"{tag} poses max diff {float(rot.max()):.3e} deg, "
+          f"{float(trans.max()):.3e} m (worst pair (image, class) "
+          f"{(w // C, w % C + 1)}: CPU pose reprojects its keypoints at "
+          f"{float(rms.flatten()[w]):.3e} px RMS); reprojection RMS median "
+          f"{float(rms.median()):.3e} px; {int(posed.sum())} of "
+          f"{posed.numel()} pairs well posed and held within 0.05 deg / 1 mm "
+          f"(max {float(rot[posed].max()) if posed.any() else 0.0:.3e} deg, "
+          f"{float(trans[posed].max()) if posed.any() else 0.0:.3e} m); PnP "
+          f"on the CPU from the card's keypoints against the card's pose: "
+          f"max {float(rot_same.max()):.3e} deg, "
+          f"{float(trans_same.max()):.3e} m", flush=True)
+    assert (rot[posed] < 0.05).all() and (trans[posed] < 1e-3).all(), \
+        f"{tag} well-posed poses differ"
+    if strict:
+        assert bool(held.all()) and bool(posed.all()), \
+            f"{tag}: {int((~held).sum())} keypoints ill-conditioned, " \
+            f"{int((~posed).sum())} pairs not held"
+    return noise, pair_u
+
+
+EPS32 = 2.0 ** -23      # float32's unit roundoff
+
+
+def refit_conditioning(parts_g, parts_c, thresh):
+    """The WLS refit's inputs at every (image, class, keypoint), [b, C, vn]
+    each: the winner's inlier count, the determinant of its normal matrix
+    A = sum n n^T (float64; n = (dy, -dx) of each inlier's field vector,
+    unit on a ground-truth field, of any length from a network) and A's
+    condition number (inf where A is singular: the refit keeps the
+    winner). The
+    float32 refit on two devices sums A and A^T b in other orders, so its
+    keypoints differ by about eps32 * cond(A) * |p|. Asserts the card's
+    winner inlier masks equal the CPU's: no pixel flips at the cosine
+    threshold."""
+    import torch
+    from pvnet_tpu_torch.ops import voting
+    inl, det, cond = [], [], []
+    for pg, pc in zip(parts_g, parts_c):
+        masks = []
+        for coords, dirs, valid, hyps, counts in (pg, pc):
+            fg = voting.ForegroundSample(coords, dirs, valid, None, None)
+            masks.append(voting.inliers_for_points(
+                fg, voting._winner_points(hyps, counts), thresh).cpu())
+        assert torch.equal(*masks), "winner inlier masks: card != CPU"
+        dirs = pc[1].double()                               # [b, tn, vn, 2]
+        n = torch.stack([dirs[..., 1], -dirs[..., 0]], -1).transpose(1, 2)
+        A = torch.einsum("bvt,bvti,bvtj->bvij", masks[1].double(), n, n)
+        lam = torch.linalg.eigvalsh(A)                      # ascending
+        inl.append(masks[1].sum(-1))
+        det.append(torch.linalg.det(A))
+        cond.append(torch.where(lam[..., 0] > 0,
+                                lam[..., 1] / lam[..., 0].clamp(min=1e-300),
+                                torch.full_like(lam[..., 0], float("inf"))))
+    return (torch.stack(inl, 1), torch.stack(det, 1), torch.stack(cond, 1))
+
+
+def reprojection_rms(poses, pts, kps, K):
+    """RMS px by which poses [b, C, 3, 4] reproject pts [C, vn, 3] onto kps
+    [b, C, vn, 2] through K [3, 3], float64 -> [b, C]."""
+    import torch
+    poses, pts, kps, K = (t.cpu().double() for t in (poses, pts, kps, K))
+    cam = torch.einsum("bcij,cvj->bcvi", poses[..., :3], pts) \
+        + poses[..., None, :, 3]
+    uv = cam @ K.T
+    proj = uv[..., :2] / uv[..., 2:]
+    return (proj - kps).pow(2).sum(-1).mean(-1).sqrt()
+
+
+def multiclass_parts(labels, vertex, C, params, noise, pair_u, pts, K,
+                     impl=None):
+    """ransac_voting_multiclass's v3 form spelled out class by class, with
+    its intermediate tensors, then the one PnP: [(coords, dirs, valid,
+    hyps, counts) per class], kps [b, C, vn, 2], poses [b, C, 3, 4]."""
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.ops import voting
+    vertex = vertex.float().contiguous()
+    parts, kps = [], []
+    for c in range(1, C + 1):
+        fg = voting.sample_foreground(labels == c, vertex, params.max_num,
+                                      noise=noise[c - 1])
+        hyps = voting.generate_hypotheses(fg, params.hyp_num,
+                                          pair_u=pair_u[c - 1])
+        counts = voting.count_inliers(fg, hyps, params.inlier_thresh, impl)
+        kps.append(voting.vote_argmax_refine(fg, hyps, counts,
+                                             params.inlier_thresh,
+                                             params.min_num))
+        parts.append((*fg[:3], hyps, counts))
+    kps = torch.stack(kps, dim=1)
+    return parts, kps, pl.multiclass_poses_from_keypoints(pts, kps, K)
+
+
+def multiclass_stage_ms(model, x, C, pts, K, params, dev):
+    """One multi-class request's stages by CUDA events: fcn; per class
+    select, hypotheses+count, refine; one PnP over b*C; and beside them C
+    pnp_batch calls on the same keypoints."""
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.ops import pnp, voting
+
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+    out = {}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        e0 = event()
+        labels, vertex = pl.predict_fields(model, x)
+        vertex = vertex.contiguous()
+        out["fcn (+ the field's one copy)"] = (e0, event())
+        kps = []
+        for c in range(1, C + 1):
+            a = event()
+            fg = voting.sample_foreground(labels == c, vertex,
+                                          params.max_num, generator=g)
+            b_ = event()
+            hyps = voting.generate_hypotheses(fg, params.hyp_num,
+                                              generator=g)
+            counts = voting.count_inliers(fg, hyps, params.inlier_thresh)
+            c_ = event()
+            kps.append(voting.vote_argmax_refine(
+                fg, hyps, counts, params.inlier_thresh, params.min_num))
+            out[f"class {c} select"] = (a, b_)
+            out[f"class {c} hypotheses+count"] = (b_, c_)
+            out[f"class {c} refine"] = (c_, event())
+        kps = torch.stack(kps, dim=1)
+        a = event()
+        pl.multiclass_poses_from_keypoints(pts, kps, K)
+        b_ = event()
+        out[f"pnp (one call, {kps.shape[0] * C} problems)"] = (a, b_)
+        for c in range(C):
+            pnp.pnp_batch(pts[c], kps[:, c], K)
+        out[f"pnp ({C} pnp_batch calls)"] = (b_, event())
+        torch.cuda.synchronize()
+    return {k: s.elapsed_time(e) for k, (s, e) in out.items()}
+
+
+def run_multiclass_fcn(dev, scenes, kernels):
+    """(k2) the multi-class pipeline with the real FCN (resnet18_8s,
+    seg_dim=4, ver_dim=18, float32 without TF32, weights from a seeded
+    generator): 3 requests, launches, card vs CPU from the same fields and
+    draws, one request with bf16 counts, stage ms."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.models.resnet import init_weights
+    from pvnet_tpu_torch.ops import voting
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    metas, K, images = scenes[:3]
+    C = len(metas)
+    model = build_model("resnet18_8s", ver_dim=2 * VN, seg_dim=C + 1)
+    init_weights(model, torch.Generator().manual_seed(3))
+    model = model.to(dev).eval()
+    pts = np.stack([m.points_3d for m in metas])
+    params = pl.VoteParams()
+    run = pl.make_multiclass_pose_pipeline(model, pts, K, params,
+                                           device=dev)
+    x = pl.normalize_images(torch.from_numpy(images).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    run(x, gen)                                             # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    lat = []
+    for _ in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        p, _ = run(x, gen)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        assert p.shape == (MC_SCENES, C, 3, 4)
+    counts = read_counters()
+    assert counts == {"stratified_select": 0,
+                      "stratified_select_cmajor": C * N_REQUESTS,
+                      "count_inliers": C * N_REQUESTS,
+                      "count_inliers_bf16": 0}, counts
+    add_launches(kernels, counts)
+    print(f"(k2) {N_REQUESTS} multi-class requests, resnet18_8s seg_dim="
+          f"{C + 1} (seeded weights, float32), b={MC_SCENES}, {H}x{W}: "
+          f"latency ms {[round(v, 3) for v in lat]}; launches {counts}",
+          flush=True)
+
+    # card vs CPU from the card's fields and the same draws: the integers
+    # and inlier masks are held, keypoints and poses where well conditioned
+    with torch.no_grad():
+        labels, vertex = pl.predict_fields(model, x)
+    noise, pair_u = card_vs_cpu("(k2)", labels, vertex, C, pts, K, gen, dev,
+                                strict=False)
+    pts_t, K_t = torch.from_numpy(pts), torch.from_numpy(K)
+
+    # one request with bf16 counts: K3's bf16 mode once per class
+    run_bf16 = pl.make_multiclass_pose_pipeline(model, pts, K, params,
+                                                impl="bf16", device=dev)
+    reset_counters()
+    run_bf16(x, gen)
+    torch.cuda.synchronize()
+    counts_bf16 = read_counters()
+    assert counts_bf16 == {"stratified_select": 0,
+                           "stratified_select_cmajor": C,
+                           "count_inliers": 0,
+                           "count_inliers_bf16": C}, counts_bf16
+    add_launches(kernels, counts_bf16)
+    with torch.no_grad():
+        parts_b, _, _ = multiclass_parts(labels, vertex, C, params, noise,
+                                         pair_u, pts_t.to(dev),
+                                         K_t.to(dev), impl="bf16")
+        for c, (coords, dirs, valid, hyps, counts) in enumerate(parts_b):
+            fg = voting.ForegroundSample(coords, dirs, valid, None, None)
+            want = voting.count_inliers_plain_bf16(fg, hyps,
+                                                   params.inlier_thresh)
+            assert torch.equal(counts, want), \
+                f"(k2) class {c + 1}: K3's bf16 mode != its plain version"
+    print(f"(k2) one request with impl='bf16': launches {counts_bf16}; "
+          f"K3's bf16 counts equal to the plain bf16 version for every "
+          f"class", flush=True)
+
+    stages = [multiclass_stage_ms(model, x, C, pts_t.to(dev), K_t.to(dev),
+                                  params, dev) for _ in range(3)]
+    med = {k: sorted(s[k] for s in stages)[1] for k in stages[0]}
+    print(f"(k2) stage ms (median of 3 requests of {MC_SCENES} images, "
+          f"{C} classes; {SMI}): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in med.items()), flush=True)
+
+
+def variant_layers(fixture, dev, g):
+    """(k3)'s inputs on ``dev`` and its layers: {name: (fn(where, n)
+    -> tuple of tensors, kernels the layer launches)}, each fn running the
+    layer on the first n images with draws made once here."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.data.vertex import compute_vertex_targets
+    from pvnet_tpu_torch.ops import voting
+
+    idx = np.arange(BATCH) % len(fixture["masks"])
+    mask = torch.from_numpy(fixture["masks"][idx]).to(dev)
+    cam = np.einsum("bij,nj->bni", fixture["poses"][idx, :, :3],
+                    fixture["points_3d"]) + fixture["poses"][idx, None, :, 3]
+    uv = cam @ fixture["K"].T
+    hc = np.concatenate([uv[..., :2] / uv[..., 2:],
+                         np.ones_like(uv[..., :1])], -1).astype(np.float32)
+    hc = torch.from_numpy(hc).to(dev)                       # [b, vn, 3]
+    field = compute_vertex_targets(mask, hc)                # [b, 18, h, w]
+    center = field[:, 2 * VN - 2:].contiguous()             # the centre
+    offsets = compute_vertex_targets(mask, hc, use_motion=True)
+
+    def u(*shape):
+        return torch.rand((BATCH, *shape), generator=g, device=dev)
+    d = {"noise": u(H, W), "flat": u(H * W), "p1024": u(1024, 2),
+         "p512": u(512, 2), "p4096": u(4096, 2), "pvp": u(1024, VN, 2)}
+
+    def at(where, n):
+        t = {k: v[:n].to(where) for k, v in d.items()}
+        return (mask[:n].to(where), field[:n].to(where),
+                center[:n].to(where), offsets[:n].to(where), t)
+
+    def topk(where, n):
+        m, f, _, _, t = at(where, n)
+        return tuple(voting.sample_foreground(m, f, 1024, noise=t["flat"],
+                                              method="topk"))
+
+    def v2(where, n):
+        m, f, _, _, t = at(where, n)
+        return (voting.ransac_voting_v2(m, f, refine_iter_num=3,
+                                        noise=t["noise"],
+                                        pair_u=t["p1024"]),)
+
+    def v4(where, n):
+        m, f, _, _, t = at(where, n)
+        return voting.ransac_voting_v4(m, f, noise=t["noise"],
+                                       pair_u=t["p1024"])
+
+    def v5(where, n):
+        m, f, _, _, t = at(where, n)
+        return voting.ransac_voting_v5(m, f, noise=t["noise"],
+                                       pair_u=t["p1024"])
+
+    def v5_confidence_at(kps, n):
+        """v5's confidence on the CPU at the given refined points: a count
+        of inliers at 0.999, which the refit's last-bit differences can
+        move; at the card's points it must equal the card's."""
+        m, f, _, _, t = at(torch.device("cpu"), n)
+        fg = voting.sample_foreground(m, f, 1024, noise=t["noise"])
+        inl = voting.inliers_for_points(fg, kps.cpu(), 0.999)
+        return inl.sum(-1).to(torch.float32) \
+            / fg.count.clamp(min=1).to(torch.float32)[:, None]
+
+    def dist(where, n):
+        m, f, _, _, t = at(where, n)
+        return voting.estimate_voting_distribution(m, f, noise=t["noise"],
+                                                   pair_u=t["p4096"])
+
+    def counts(where, n):
+        m, f, _, _, t = at(where, n)
+        return voting.generate_hypotheses_with_counts(
+            m, f, noise=t["noise"], pair_u=t["p512"])
+
+    def ctr(where, n):
+        m, _, c, _, t = at(where, n)
+        return voting.ransac_voting_center(m, c, noise=t["noise"],
+                                           pair_u=t["p512"])
+
+    def vanish(where, n):
+        m, f, _, _, t = at(where, n)
+        return (voting.ransac_voting_vanish_point(m, f, noise=t["noise"],
+                                                  pair_u=t["pvp"]),)
+
+    def motion(where, n):
+        m, _, _, o, t = at(where, n)
+        return (voting.ransac_motion_voting(m, o, noise=t["noise"]),)
+
+    k1k3 = ("stratified_select_cmajor", "count_inliers")
+    layers = {"sample_foreground(method='topk')": (topk, ()),
+              "v2 (refine_iter_num=3)": (v2, k1k3), "v4": (v4, k1k3),
+              "v5": (v5, k1k3),
+              "estimate_voting_distribution (hn=4096)": (dist, k1k3),
+              "generate_hypotheses_with_counts": (counts, k1k3),
+              "center (tn=4096, vn=1)": (ctr, k1k3),
+              "vanishing point": (vanish, ("stratified_select_cmajor",)),
+              "motion": (motion, ("stratified_select_cmajor",))}
+    return layers, hc, v5_confidence_at
+
+
+def compare_variant(name, got, want):
+    """Card against CPU for one layer's outputs: integer and bool tensors
+    equal; the top-k selection and the center's instance mask equal; points
+    within 1e-2 px; covariances and variances within 1e-3 of their largest
+    entry or 1e-4 px^2 (the points' tolerance squared), whichever is
+    larger; v5's confidence only printed here (the caller holds it); unit
+    vanishing points within 1e-4 and their pixels within 1e-2 px. Returns
+    the largest float difference."""
+    import torch
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.cpu()
+        assert a.shape == b.shape and a.dtype == b.dtype, (name, i)
+        if not a.dtype.is_floating_point:
+            assert torch.equal(a, b), f"(k3) {name} output {i}: card != CPU"
+            continue
+        diff = float((a - b).abs().max()) if a.numel() else 0.0
+        worst = max(worst, diff)
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        if i == 1 and name.startswith(("estimate", "v4")):
+            # px^2: on a clean field these are rounding-sized, so the
+            # floor is the square of the points' 1e-2 px
+            ok = diff <= max(1e-3 * scale, 1e-4)
+        elif i == 1 and name.startswith("v5"):
+            ok = True               # held at the card's points (run_variants)
+        elif name.startswith("vanishing"):
+            px = (a[..., :2] / a[..., 2:] - b[..., :2] / b[..., 2:]).abs()
+            ok = diff <= 1e-4 and float(px.max()) < 1e-2
+        elif name.startswith("sample") or i == 1 and name.startswith("cen"):
+            ok = diff == 0.0
+        else:
+            ok = diff < 1e-2
+        assert ok, f"(k3) {name} output {i}: card vs CPU diff {diff}"
+    return worst
+
+
+def run_variants(dev, fixture, kernels):
+    """(k3) the voting variants on the duck fixture's ground-truth field
+    at b=16, 480x640: each on the card (its K1/K3 launches counted) and,
+    on the first VARIANT_CPU_IMAGES images with the same draws, on the
+    CPU; the keypoints against the fixture's projections."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    layers, hc, v5_confidence_at = variant_layers(fixture, dev, g)
+    n_cpu = VARIANT_CPU_IMAGES
+    for name, (fn, needs) in layers.items():
+        fn(dev, BATCH)                                      # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        got = fn(dev, BATCH)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counters()
+        for k in needs:
+            assert counts[k] >= 1, f"(k3) {name} launched no {k}: {counts}"
+        add_launches(kernels, counts)
+        t0 = time.perf_counter()
+        want = fn(torch.device("cpu"), n_cpu)
+        cpu_s = time.perf_counter() - t0
+        worst = compare_variant(name, [t[:n_cpu] for t in got], want)
+        msg = ""
+        if name.startswith("v5"):
+            conf = v5_confidence_at(got[0][:n_cpu], n_cpu)
+            assert torch.equal(got[1][:n_cpu].cpu(), conf), \
+                "(k3) v5: the card's confidence != the CPU's at its points"
+            msg = f"; confidence equal to the CPU's at the card's points " \
+                  f"(at the CPU's own, max diff " \
+                  f"{float((got[1][:n_cpu].cpu() - want[1]).abs().max()):.4f})"
+        if name.startswith(("v2", "v4", "v5", "motion")):
+            err = float((got[0] - hc[..., :2]).norm(dim=-1).median())
+            msg += f"; keypoints median {err:.4f} px from the projections"
+            assert err < 0.5, (name, err)
+        elif name.startswith("center"):
+            err = float((got[0] - hc[:, -1, :2]).norm(dim=-1).max())
+            msg = f"; centre max {err:.4f} px off, win ratio min " \
+                  f"{float(got[2].min()):.3f}"
+            assert err < 1.0, (name, err)
+        elif name.startswith("vanishing"):
+            px = got[0][..., :2] / got[0][..., 2:]
+            err = float((px - hc[..., :2]).norm(dim=-1).median())
+            msg = f"; x/z, y/z median {err:.4f} px from the projections"
+            assert err < 0.5, (name, err)
+        print(f"(k3) {name}: b={BATCH} on the card {ms:.3f} ms (host clock),"
+              f" launches {counts}; card = CPU on {n_cpu} images (largest "
+              f"float diff {worst:.3e}; CPU {cpu_s:.2f} s){msg}", flush=True)
+
+
+def run_multiclass_training(dev, scenes):
+    """(k4) multi-class training: 3 float32 train_steps at b=8, 480x640 on
+    the generated scenes without augmentation, targets from
+    compute_vertex_targets_multiclass; then one step at b=2 on the card
+    and on the CPU with phase (f)'s tolerances."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.config import TrainConfig
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.models.resnet import init_weights
+    from pvnet_tpu_torch.train import trainer as TT
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    metas, _, images, masks, hcoords, _ = scenes
+    C = len(metas)
+
+    def batch(n, where):
+        return {"image": pl.normalize_images(torch.from_numpy(images[:n]))
+                .permute(0, 3, 1, 2).contiguous().to(where),
+                "mask": torch.from_numpy(masks[:n]).to(where),
+                "hcoords": torch.from_numpy(hcoords[:n]).to(where)}
+
+    def state_on(where):
+        model = build_model("resnet18_8s", ver_dim=2 * VN, seg_dim=C + 1)
+        init_weights(model, torch.Generator().manual_seed(5))
+        return TT.create_train_state(model.to(where), TrainConfig())
+
+    calls = []
+    targets = TT.compute_vertex_targets_multiclass
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return targets(*args, **kw)
+    TT.compute_vertex_targets_multiclass = counted
+    try:
+        state, data = state_on(dev), batch(MC_TRAIN_BATCH, dev)
+        step_ms, losses = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            met = TT.train_step(state, data)
+            losses.append(float(met["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        TT.compute_vertex_targets_multiclass = targets
+    assert len(calls) == 3 and all(np.isfinite(losses)), (calls, losses)
+    print(f"(k4) 3 float32 multi-class train steps, b={MC_TRAIN_BATCH}, "
+          f"{H}x{W}, seg_dim={C + 1}: losses {[round(v, 5) for v in losses]}"
+          f", step ms {[round(v, 1) for v in step_ms]}; targets from "
+          f"compute_vertex_targets_multiclass each step", flush=True)
+    del state, data
+    torch.cuda.empty_cache()
+
+    out = []
+    for where in (dev, torch.device("cpu")):
+        state = state_on(where)
+        met = TT.train_step(state, batch(2, where))
+        out.append((float(met["loss"]),
+                    {n: p.grad.detach().double().cpu()
+                     for n, p in state.model.named_parameters()}))
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    rel = {n: float((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm())
+           for n in g_cpu}
+    total = float(sum(((g_gpu[n] - g_cpu[n]) ** 2).sum() for n in g_cpu)
+                  ** 0.5 / sum((g ** 2).sum() for g in g_cpu.values())
+                  ** 0.5)
+    worst = max(rel, key=rel.get)
+    print(f"(k4) f32 multi-class step b=2 (TF32 off), card vs CPU: loss "
+          f"{l_gpu:.7f} vs {l_cpu:.7f}; gradients: worst tensor {worst} "
+          f"{rel[worst]:.2e} of its norm, all {total:.2e}", flush=True)
+    assert abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu)
+    assert rel[worst] < 3e-2 and total < 5e-3
+
+
+def run_multiclass(dev, fixture, kernels):
+    """Phase (k): multi-object inference and the voting variants (see the
+    module docstring)."""
+    import torch
+    scenes = multiclass_scenes()
+    for part in (run_multiclass_gt, run_multiclass_fcn):
+        part(dev, scenes, kernels)
+        torch.cuda.empty_cache()
+    run_variants(dev, fixture, kernels)
+    torch.cuda.empty_cache()
+    run_multiclass_training(dev, scenes)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2171,6 +2962,8 @@ def main() -> int:
     phase("(i) preset", run_preset, dev, fixture, kernels, plain_stages,
           packed_stages, split)
     phase("(j) deployment", run_deployment, dev, fixture, kernels)
+    phase("(k) multi-object, variants", run_multiclass, dev, fixture,
+          kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -10,7 +10,8 @@ port draws the same random numbers in the same order from the same
 the result in memory: :func:`generate_synthetic_linemod` returns the
 arrays (raw, never JPEG-encoded), the ground-truth poses, the object's
 metadata and the split. The machine that runs the port on the GPU has no
-PIL.
+PIL. The box and cylinder meshes and :func:`render_multiclass_view` are the
+JAX module's fuse-style multi-class scenes (data/multiclass.py builds them).
 """
 from __future__ import annotations
 
@@ -132,6 +133,92 @@ def make_distractor_mesh(rng: np.random.RandomState,
                    colors=colors)
 
 
+def make_box_mesh(scale: float = 0.045, height_ratio: float = 1.8,
+                  texture_asym: float = 0.15) -> PlyMesh:
+    """A square-base cuboid — 90-degree rotation symmetric in SHAPE.
+
+    The symmetric eval class for the ADD-S branch (the reference's
+    eggbox/glue, ref lib/utils/config.py:70 + evaluation_utils.py:119-130):
+    a pose estimator can confuse the four symmetry-equivalent orientations,
+    making plain ADD fail while ADD-S (nearest-point) scores correctly.
+    ``texture_asym`` adds a mild color gradient so keypoint training still
+    converges (like the real eggbox's texture); set 0 for a perfectly
+    ambiguous object."""
+    s, hh = scale, scale * height_ratio
+    corners = np.array([[sx, sy, sz] for sz in (-hh, hh)
+                        for sy in (-s, s) for sx in (-s, s)], np.float32)
+    # subdivide each face 4x4 so the rasterizer shades smoothly
+    verts, faces = [], []
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1),
+             (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    n = 4
+    for q in quads:
+        a, b, c, d = corners[list(q)]
+        base = len(verts)
+        for i in range(n + 1):
+            for j in range(n + 1):
+                u, v = i / n, j / n
+                verts.append((1 - u) * ((1 - v) * a + v * b)
+                             + u * ((1 - v) * d + v * c))
+        for i in range(n):
+            for j in range(n):
+                p0 = base + i * (n + 1) + j
+                p1, p2, p3 = p0 + 1, p0 + n + 1, p0 + n + 2
+                faces.append([p0, p1, p2])
+                faces.append([p1, p3, p2])
+    verts = np.asarray(verts, np.float32)
+    rel = (verts - verts.min(0)) / np.maximum(verts.max(0) - verts.min(0),
+                                              1e-9)
+    colors = np.stack([
+        150 + 60 * texture_asym * (2 * rel[:, 0] - 1) * 4,
+        90 + 80 * rel[:, 2],
+        60 + 40 * np.sin(rel[:, 2] * 9.0),
+    ], axis=-1)
+    return PlyMesh(vertices=verts, faces=np.asarray(faces, np.int32),
+                   colors=np.clip(colors, 0, 255).astype(np.uint8))
+
+
+def make_cylinder_mesh(radius: float = 0.035, half_h: float = 0.07,
+                       n_phi: int = 24, n_z: int = 8) -> PlyMesh:
+    """A capped cylinder with a painted stripe breaking the rotational
+    symmetry visually (shape is continuously symmetric about its axis) —
+    the third class for fuse-style composites."""
+    verts, faces = [], []
+    for i in range(n_z + 1):
+        z = -half_h + 2 * half_h * i / n_z
+        for j in range(n_phi):
+            ph = 2 * np.pi * j / n_phi
+            verts.append([radius * np.cos(ph), radius * np.sin(ph), z])
+    for i in range(n_z):
+        for j in range(n_phi):
+            a = i * n_phi + j
+            b = i * n_phi + (j + 1) % n_phi
+            c = (i + 1) * n_phi + j
+            d = (i + 1) * n_phi + (j + 1) % n_phi
+            faces.append([a, b, c])
+            faces.append([b, d, c])
+    top, bot = len(verts), len(verts) + 1
+    verts.append([0.0, 0.0, half_h])
+    verts.append([0.0, 0.0, -half_h])
+    for j in range(n_phi):
+        a = n_z * n_phi + j
+        b = n_z * n_phi + (j + 1) % n_phi
+        faces.append([a, b, top])
+        a2, b2 = j, (j + 1) % n_phi
+        faces.append([b2, a2, bot])
+    verts = np.asarray(verts, np.float32)
+    ph = np.arctan2(verts[:, 1], verts[:, 0])
+    stripe = np.exp(-((ph - 0.8) ** 2) / 0.25)
+    rel_z = (verts[:, 2] + half_h) / (2 * half_h)
+    colors = np.stack([
+        60 + 160 * stripe,
+        170 - 90 * rel_z,
+        90 + 120 * rel_z * (1 - stripe),
+    ], axis=-1)
+    return PlyMesh(vertices=verts, faces=np.asarray(faces, np.int32),
+                   colors=np.clip(colors, 0, 255).astype(np.uint8))
+
+
 def _render_object(mesh: PlyMesh, pose: np.ndarray, K: np.ndarray,
                    h: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
     """(shaded color [h,w,3] float32, depth [h,w]; depth 0 = background)."""
@@ -200,6 +287,36 @@ def render_synthetic_view(mesh: PlyMesh, pose: np.ndarray, K: np.ndarray,
     drawing it first leaves the stream as the JAX function leaves it."""
     rng = rng or np.random.RandomState(0)
     return _paint(mesh, pose, K, h, w, distractors, _background(rng, h, w))
+
+
+def render_multiclass_view(meshes_poses, K: np.ndarray, h: int, w: int,
+                           rng: Optional[np.random.RandomState] = None
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Fuse-style composite: render every (mesh, pose), z-buffer them, and
+    label each pixel with its owning class.
+
+    Args:
+      meshes_poses: [(mesh, pose [3,4])] — class c = index + 1.
+    Returns:
+      (rgb uint8 [h, w, 3], label mask uint8 [h, w], 0 = background).
+    The reference's analog composites pre-rendered LINEMOD crops into fuse
+    images with per-class masks (ref lib/datasets/linemod_dataset.py fuse
+    branch + data_utils.py:304-334)."""
+    rng = rng or np.random.RandomState(0)
+    depth = np.full((h, w), np.inf)
+    owner = np.full((h, w), -1, np.int32)
+    color = np.zeros((h, w, 3), np.float32)
+    for ci, (mesh, pose) in enumerate(meshes_poses):
+        col, dd = _render_object(mesh, pose, K, h, w)
+        dd = np.where(dd > 0, dd, np.inf)
+        closer = dd < depth
+        depth = np.where(closer, dd, depth)
+        owner = np.where(closer, ci, owner)
+        color = np.where(closer[..., None], col, color)
+    rgb = _background(rng, h, w)
+    vis = owner >= 0
+    rgb[vis] = color[vis].astype(np.uint8)
+    return rgb, (owner + 1).astype(np.uint8)
 
 
 def sample_object_pose(rng: np.random.RandomState,

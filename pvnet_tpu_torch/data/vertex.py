@@ -3,7 +3,8 @@
 Port of pvnet_tpu/data/vertex.py: unit vectors pixel -> keypoint inside the
 object mask (ref lib/datasets/linemod_dataset.py:68-81,
 compute_vertex_hcoords), as a host numpy function and as a batched tensor
-function that runs on the training step's device.
+function that runs on the training step's device, plus the multi-class
+form whose pixels point at the keypoints of their own class.
 """
 from __future__ import annotations
 
@@ -86,3 +87,31 @@ def compute_vertex_targets(mask: torch.Tensor, hcoords: torch.Tensor,
         return v.reshape(b, k * 2, h, w)
     v = torch.stack([vx, vy], -1) * fg[..., None, None]         # [b,h,w,k,2]
     return v.reshape(b, h, w, k * 2)
+
+
+def compute_vertex_targets_multiclass(mask: torch.Tensor,
+                                      hcoords: torch.Tensor,
+                                      layout: str = "NCHW") -> torch.Tensor:
+    """Multi-class field targets: one field shared by the classes, where
+    each pixel's vectors point at the keypoints of its own class (the
+    semantics the multi-class voting layer assumes, ref
+    ransac_voting_gpu.py:10-97). The sum over classes of
+    :func:`compute_vertex_targets` on each class's mask, from zeros, as the
+    JAX function adds them.
+
+    Args:
+      mask:    [b, h, w] integer labels, 0 = background, 1..C = classes.
+      hcoords: [b, C, k, 3] per-class homogeneous keypoints.
+      layout:  as :func:`compute_vertex_targets`.
+    Returns:
+      float32 field [b, k*2, h, w] ('NCHW') or [b, h, w, k*2], zero outside
+      every class.
+    """
+    b, h, w = mask.shape
+    n_cls, k = hcoords.shape[1], hcoords.shape[2]
+    shape = (b, k * 2, h, w) if layout == "NCHW" else (b, h, w, k * 2)
+    out = torch.zeros(shape, dtype=torch.float32, device=mask.device)
+    for c in range(n_cls):          # class regions are disjoint
+        out = out + compute_vertex_targets(
+            (mask == c + 1).to(torch.int32), hcoords[:, c], layout=layout)
+    return out

@@ -4,7 +4,8 @@ PyTorch port of the plain and the uncertainty-weighted PnP of
 pvnet_tpu/ops/pnp.py (the functional equivalents of the reference's
 ``cv2.solvePnP(..., SOLVEPNP_ITERATIVE)``, ref
 lib/utils/evaluation_utils.py:19-52, and of its Ceres
-``uncertainty_pnp``, ref extend_utils.py:63-114). Every
+``uncertainty_pnp``, ref extend_utils.py:63-114, with 2x2 weight rows or,
+``uncertainty_pnp_v2``, covariances, ref :116-177). Every
 function takes a leading batch dimension written out where the JAX code
 uses ``vmap``; all solvers run in float32 on conditioned (centred /
 normalized) points. K is one [3, 3] matrix for the whole batch or one per
@@ -452,3 +453,36 @@ def uncertainty_pnp_batch(pts2d: torch.Tensor, weights: torch.Tensor,
     b = pts2d.shape[0]
     return uncertainty_pnp(pts2d, weights, pts3d.expand(b, *pts3d.shape), K,
                            iters)
+
+
+def uncertainty_pnp_v2(pts2d: torch.Tensor, covars: torch.Tensor,
+                       pts3d: torch.Tensor, K: torch.Tensor, iters: int = 16
+                       ) -> torch.Tensor:
+    """Covariance-input uncertainty PnP, batched (ref
+    extend_utils.py:116-177): each keypoint weighted by the scalar
+    1 / lambda_max of its covariance (0 where var_x < 1e-5), EPnP with
+    those weights, then the multi-start LM with isotropic weight rows.
+
+    pts2d [N, n, 2], covars [N, n, 2, 2], pts3d [N, n, 3], K [3, 3] or
+    [N, 3, 3] -> [N, 3, 4]."""
+    a = covars[..., 0, 0]
+    b = 0.5 * (covars[..., 0, 1] + covars[..., 1, 0])
+    d = covars[..., 1, 1]
+    gap = torch.sqrt(torch.clamp(0.25 * (a - d) * (a - d) + b * b, min=0.0))
+    lam_max = 0.5 * (a + d) + gap
+    wscalar = torch.where(a < 1e-5, 0.0,
+                          1.0 / torch.clamp(lam_max, min=1e-12))
+    w3 = torch.stack([wscalar, torch.zeros_like(wscalar), wscalar], dim=-1)
+    pose0 = epnp(pts3d, pts2d, K, weights=wscalar)
+    return _lm_multi_start(pose0, pts3d, pts2d, K, w3, iters)
+
+
+def uncertainty_pnp_v2_batch(pts2d: torch.Tensor, covars: torch.Tensor,
+                             pts3d: torch.Tensor, K: torch.Tensor,
+                             iters: int = 16) -> torch.Tensor:
+    """:func:`uncertainty_pnp_v2` for one object's keypoints pts3d [n, 3]
+    shared by a batch of observations pts2d [b, n, 2] with covariances
+    [b, n, 2, 2]; K [3, 3] or [b, 3, 3]. Returns poses [b, 3, 4]."""
+    b = pts2d.shape[0]
+    return uncertainty_pnp_v2(pts2d, covars, pts3d.expand(b, *pts3d.shape),
+                              K, iters)

@@ -1,4 +1,4 @@
-"""End-to-end single-object inference: image -> FCN -> voting -> PnP.
+"""End-to-end inference: image -> FCN -> voting -> PnP.
 
 Port of pvnet_tpu/pipeline.py's ``make_pose_pipeline``: the plain ``run``
 path (the full-resolution FCN, selection through K1) and the packed-tail
@@ -16,6 +16,11 @@ through K3's bf16 mode), ``tail_quant`` (the packed tail's int8 branch) and
 :func:`normalize_packed_u8`, for a model with the packed4 stem) are
 arguments of the same names here; the model's own int8 stages come with the
 model (models/pvnet.build_model's quant options).
+
+Multi-object inference (``make_multiclass_pose_pipeline``): one forward of
+a model with seg_dim = C+1, per-class voting over the labelled argmax mask
+(ops/voting.ransac_voting_multiclass: K1 and K3 once per class), and one
+PnP call over every (image, class) pair.
 """
 from __future__ import annotations
 
@@ -324,5 +329,85 @@ def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
                              impl=impl, tail_quant=tail_quant,
                              raw_uint8=raw_uint8)
         return est.pose, est.kps
+
+    return run
+
+
+def multiclass_poses_from_keypoints(points_3d_per_class: torch.Tensor,
+                                    kps: torch.Tensor,
+                                    K: torch.Tensor) -> torch.Tensor:
+    """One batched PnP over every (image, class): points_3d_per_class
+    [C, vn, 3], kps [b, C, vn, 2], K [3, 3] or one per image [b, 3, 3] ->
+    poses [b, C, 3, 4]. (The JAX pipeline stacks C calls of ``pnp_batch``;
+    a PnP call costs about as many host-issued operations whatever its
+    batch, so one call over b*C problems costs about a C-th.)"""
+    b, C, vn, _ = kps.shape
+    pts = points_3d_per_class.expand(b, C, vn, 3).reshape(b * C, vn, 3)
+    if K.dim() == 3:
+        K = K.repeat_interleave(C, dim=0)
+    return pnp_mod.pnp(pts, kps.reshape(b * C, vn, 2), K).reshape(
+        b, C, 3, 4)
+
+
+@_no_grad
+def estimate_multiclass_poses(model: torch.nn.Module, images: torch.Tensor,
+                              points_3d_per_class: torch.Tensor,
+                              K: torch.Tensor,
+                              params: VoteParams = VoteParams(),
+                              refine_iter_num: Optional[int] = None,
+                              impl: Optional[str] = None,
+                              select_method: str = "stratified",
+                              noise: Optional[torch.Tensor] = None,
+                              pair_u: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalized images [b, h, w, 3] -> (poses [b, C, 3, 4], kps
+    [b, C, vn, 2]): :func:`predict_fields` once (labels 0..C), then
+    voting.ransac_voting_multiclass (v3 with ``params.inlier_thresh``, or
+    v2 with ``refine_iter_num`` rounds at its own 0.999), then
+    :func:`multiclass_poses_from_keypoints`. ``noise`` [C, b, ...] and
+    ``pair_u`` [C, b, hn, 2] are optional per-class draws."""
+    C = points_3d_per_class.shape[0]
+    labels, vertex = predict_fields(model, images)
+    kps = voting.ransac_voting_multiclass(
+        labels, vertex, C + 1, hyp_num=params.hyp_num,
+        inlier_thresh=(None if refine_iter_num is not None
+                       else params.inlier_thresh),
+        max_num=params.max_num, min_num=params.min_num,
+        refine_iter_num=refine_iter_num, impl=impl, noise=noise,
+        pair_u=pair_u, generator=generator, select_method=select_method)
+    return multiclass_poses_from_keypoints(points_3d_per_class, kps, K), kps
+
+
+def make_multiclass_pose_pipeline(model: torch.nn.Module,
+                                  points_3d_per_class, K,
+                                  params: VoteParams = VoteParams(),
+                                  refine_iter_num: Optional[int] = None,
+                                  impl: Optional[str] = None,
+                                  select_method: str = "stratified",
+                                  device=None):
+    """Build the multi-object image -> poses function (the JAX
+    ``make_multiclass_pose_pipeline``, its arguments in their order, then
+    ``select_method``: 'stratified' through K1, or 'topk', which JAX's
+    'auto' picks off the TPU).
+
+    ``model`` emits seg_dim = C+1 logits and one shared vn*2 field
+    (data/vertex.compute_vertex_targets_multiclass);
+    ``points_3d_per_class`` [C, vn, 3] are the canonical keypoints, class c
+    being label c+1. Returns run(images [b, h, w, 3] normalized float32 on
+    the model's device, generator=None) -> (poses [b, C, 3, 4], kps
+    [b, C, vn, 2]); see :func:`estimate_multiclass_poses`. The keypoints
+    and K go to ``device``, by default the model's."""
+    if device is None:
+        device = next(model.parameters()).device
+    pts = torch.as_tensor(np.asarray(points_3d_per_class, np.float32),
+                          device=device)
+    K = torch.as_tensor(np.asarray(K, np.float32), device=device)
+
+    def run(images: torch.Tensor,
+            generator: Optional[torch.Generator] = None):
+        return estimate_multiclass_poses(
+            model, images, pts, K, params, refine_iter_num, impl,
+            select_method, generator=generator)
 
     return run

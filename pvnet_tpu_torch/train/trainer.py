@@ -21,7 +21,8 @@ import torch
 
 from pvnet_tpu_torch.config import TrainConfig
 from pvnet_tpu_torch.data.augment_device import AugDraws, augment_batch
-from pvnet_tpu_torch.data.vertex import compute_vertex_targets
+from pvnet_tpu_torch.data.vertex import (compute_vertex_targets,
+                                        compute_vertex_targets_multiclass)
 from pvnet_tpu_torch.train.loss import total_loss
 
 
@@ -67,7 +68,12 @@ def apply_device_aug(batch: Dict[str, torch.Tensor], aug_cfg,
                      ) -> Dict[str, torch.Tensor]:
     """Augment a raw batch (uint8 0..255 frames) on its device: the image
     comes out normalized and channel-major [b, 3, h, w]; mask and hcoords
-    follow the warp. The JAX step's ``_apply_device_aug``."""
+    follow the warp. The JAX step's ``_apply_device_aug``. Multi-class
+    hcoords [b, C, k, 3] are refused: the augmentation warps one object's
+    keypoints."""
+    if batch["hcoords"].dim() != 3:
+        raise ValueError(f"device augmentation takes hcoords [b, k, 3], got "
+                         f"{tuple(batch['hcoords'].shape)}")
     image, mask, hcoords = augment_batch(
         batch["image"], batch["mask"], batch["hcoords"], aug_hw, aug_cfg,
         draws=draws, generator=generator)
@@ -79,10 +85,20 @@ def batch_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     """Forward pass and loss of an augmented batch (image [b, 3, h, w]
     normalized, mask [b, h, w], hcoords [b, k, 3], optional ignore [b]):
     vertex targets and weights on the device, the FCN under bf16 autocast
-    when asked, the loss in float32."""
-    mask = batch["mask"]
-    vertex = compute_vertex_targets(mask, batch["hcoords"], use_motion,
-                                    layout="NCHW")
+    when asked, the loss in float32. Multi-class hcoords [b, C, k, 3]
+    (mask labels 0..C) take the shared multi-class targets
+    (:func:`compute_vertex_targets_multiclass`), as the JAX step's
+    ``_batch_vertex`` chooses; a motion model with them is refused, as
+    there."""
+    mask, hcoords = batch["mask"], batch["hcoords"]
+    if hcoords.dim() == 4:
+        if use_motion:
+            raise ValueError("motion model + multi-class unsupported")
+        vertex = compute_vertex_targets_multiclass(mask, hcoords,
+                                                   layout="NCHW")
+    else:
+        vertex = compute_vertex_targets(mask, hcoords, use_motion,
+                                        layout="NCHW")
     vw = (mask > 0)[:, None].to(torch.float32)              # [b, 1, h, w]
     if "ignore" in batch:
         vw = vw * (1.0 - batch["ignore"])[:, None, None, None]

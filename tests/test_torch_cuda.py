@@ -932,3 +932,95 @@ def test_registered_operator_fake_shapes(cuda, case):
     fake = fake if isinstance(fake, tuple) else (fake,)
     for r, f in zip(real, fake):
         assert (f.shape, f.dtype, f.device) == (r.shape, r.dtype, r.device)
+
+
+# --- the voting variants' shapes and paths ------------------------------------
+
+@pytest.mark.parametrize("b,tn,vn,hn", [(2, 1024, 9, 4096), (4, 4096, 1, 512),
+                                        (1, 4096, 1, 4096)])
+def test_count_kernel_at_the_variants_shapes(cuda, b, tn, vn, hn):
+    """K3 at estimate_voting_distribution's hn=4096 and at center voting's
+    vn=1, tn=4096 (hn=512 by default)."""
+    fg = _sample(cuda, b, tn, vn, seed=hn + tn)
+    g = torch.Generator().manual_seed(tn)
+    hyps = (torch.rand(b, hn, vn, 2, generator=g) * 140 - 20).to(cuda)
+    before = V.count_inliers.launches
+    got = V.count_inliers(fg, hyps, 0.99)
+    want = V.count_inliers_plain(fg, hyps, 0.99)
+    torch.cuda.synchronize()
+    assert V.count_inliers.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,h,c", [(2, 480, 2), (1, 512, 18), (3, 100, 2)])
+def test_select_kernel_at_tn4096(cuda, b, h, c):
+    """K1 at tn=4096 (a=bb=64) through sample_foreground: rows padded to a
+    multiple of 64 (480 -> 512), the phase grid 64x64."""
+    g = torch.Generator().manual_seed(h)
+    mask = (torch.rand(b, h, 640, generator=g) < 0.4).to(torch.uint8)
+    field = torch.randn(b, c, h, 640, generator=g)
+    noise = torch.rand(b, h, 640, generator=g)
+    before = SK.stratified_select_cmajor.launches
+    got = V.sample_foreground(mask.to(cuda), field.to(cuda), 4096,
+                              noise=noise.to(cuda))
+    want = V.sample_foreground(mask, field, 4096, noise=noise)
+    torch.cuda.synchronize()
+    assert SK.stratified_select_cmajor.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("layout", ["cmajor", "nhwc"])
+def test_topk_selection_on_cuda_equals_cpu_on_ties(cuda, layout):
+    """Top-k selection on a tie-heavy noise map (4 distinct values): the
+    stable sort puts the lower index first on the card as on the CPU."""
+    g = torch.Generator().manual_seed(1)
+    b, h, w, vn = 2, 120, 160, 3
+    mask = (torch.rand(b, h, w, generator=g) < 0.3).to(torch.uint8)
+    noise = torch.randint(0, 4, (b, h * w), generator=g).float() * 2 ** -23
+    field = torch.randn(b, 2 * vn, h, w, generator=g)
+    if layout == "nhwc":
+        field = field.permute(0, 2, 3, 1).reshape(b, h, w, vn, 2)
+    got = V.sample_foreground(mask.to(cuda), field.to(cuda), 1000,
+                              noise=noise.to(cuda), method="topk")
+    want = V.sample_foreground(mask, field, 1000, noise=noise,
+                               method="topk")
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.parametrize("refine_iter_num,method", [
+    (None, "stratified"), (2, "stratified"), (None, "topk")])
+def test_multiclass_voting_on_cuda_equals_cpu(cuda, refine_iter_num,
+                                              method):
+    """ransac_voting_multiclass on the card against the CPU with the same
+    per-class draws: K1 (stratified) and K3 once per class; keypoints
+    within 1e-2 px (the refits sum in another order)."""
+    from pvnet_tpu_torch.data.vertex import compute_vertex_targets_multiclass
+    g = torch.Generator().manual_seed(2)
+    b, h, w, C, vn, hn = 2, 96, 128, 3, 9, 256
+    mask = torch.zeros(b, h, w, dtype=torch.uint8)
+    for c in range(C):
+        mask[:, 10:40, 10 + 38 * c:40 + 38 * c] = c + 1
+    hc = torch.cat([torch.rand(b, C, vn, 2, generator=g) * 100,
+                    torch.ones(b, C, vn, 1)], -1)
+    field = compute_vertex_targets_multiclass(mask, hc)
+    shape = (C, b, h, w) if method == "stratified" else (C, b, h * w)
+    noise = torch.rand(shape, generator=g)
+    pair = torch.rand(C, b, hn, 2, generator=g)
+    before = (SK.stratified_select_cmajor.launches, V.count_inliers.launches)
+    got = V.ransac_voting_multiclass(
+        mask.to(cuda), field.to(cuda), C + 1, hyp_num=hn, max_num=512,
+        refine_iter_num=refine_iter_num, noise=noise.to(cuda),
+        pair_u=pair.to(cuda), select_method=method)
+    want = V.ransac_voting_multiclass(
+        mask, field, C + 1, hyp_num=hn, max_num=512,
+        refine_iter_num=refine_iter_num, noise=noise, pair_u=pair,
+        select_method=method)
+    torch.cuda.synchronize()
+    k1 = C if method == "stratified" else 0
+    assert (SK.stratified_select_cmajor.launches - before[0],
+            V.count_inliers.launches - before[1]) == (k1, C)
+    assert got.shape == (b, C, vn, 2)
+    assert float((got.cpu() - want).abs().max()) < 1e-2
+    assert float((want - hc[..., :2]).abs().max()) < 0.1
