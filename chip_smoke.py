@@ -163,10 +163,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
     b=8 without augmentation (finite losses, targets from
     compute_vertex_targets_multiclass), and one at b=2 on the card against
     the CPU with (f)'s tolerances;
+(l) the model family, training from the CLI and the study: (l1)
+    resnet34_8s and resnet50_8s, their backbones from synthesized
+    torchvision ImageNet checkpoints (utils/torchvision_manifest) loaded on
+    the card through utils/weights.load_imagenet_backbone (every tensor
+    equal to the file's), the heads seeded; forward ms in float32 (no TF32)
+    and bf16 at b=16, 480x640; 3 plain requests of 16 images through
+    infer_batch (K1 and K3 once each a request, counted), their latency
+    and stage ms; on 2 images the FCN card vs CPU (argmax on >= 99.9 % of pixels,
+    values within 1e-3 of their max abs) and (k2)'s rules from the card's
+    fields (integers and inlier masks equal; keypoints and poses where
+    well conditioned). (l2) ``python -m pvnet_tpu_torch.train --synthetic``
+    in a process of its own: configs/synthetic_train.json with pose
+    evaluation from epoch 0, 480x640, a 64-image split (32 train, 6 val
+    images), the backbone from a synthesized resnet18 checkpoint, 10
+    epochs of 2 bf16 steps; its last line's launches (K4 twice a step, K1
+    and K3 in the two pose evaluations) added in, finite losses; prints
+    epoch seconds, step ms and generation seconds. (l3) the multi-class
+    study at reduced depth (64 + 16 scenes, 10 epochs, 360x480) in this
+    process: finite losses, the last epoch's below the first's, K1 and K3
+    once per class in the evaluation; the per-class rates printed, not
+    gated;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
     bf16 mode with their cold times and (c)'s times at the variants'
     shapes; launches summed over the phases that drive their paths, (j)'s
-    programs and server and (k) included), then, as the
+    programs and server, (k) and (l) included), then, as the
     last line, {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2915,6 +2936,238 @@ def run_multiclass(dev, fixture, kernels):
     torch.cuda.empty_cache()
 
 
+# --- phase (l): the model family, --synthetic training, the study ----------
+
+FAMILY = ("resnet34_8s", "resnet50_8s")   # (l1)
+DEVICE = "cuda"                           # (l2)'s --device
+FAMILY_SEED = 23
+FAMILY_CPU_IMAGES = 2                     # (l1): card vs CPU
+SYNTH_IMAGES, SYNTH_EPOCHS = 64, 10       # (l2): 32 train images, 2 steps
+STUDY_ARGS = ["--train_images", "64", "--test_images", "16", "--epochs",
+              "10", "--height", "360", "--width", "480"]      # (l3)
+
+
+def synthesized_backbone(arch, path, seed):
+    """A torchvision-layout ImageNet checkpoint of ``arch`` drawn from
+    ``seed`` (utils/torchvision_manifest.synthesize_state_dict), saved to
+    ``path``; returns it as tensors."""
+    import torch
+    from pvnet_tpu_torch.utils.torchvision_manifest import \
+        synthesize_state_dict
+    sd = {k: torch.from_numpy(v)
+          for k, v in synthesize_state_dict(arch, seed).items()}
+    torch.save(sd, path)
+    return sd
+
+
+def run_family_model(dev, fixture, kernels, network, tmp):
+    """(l1) one deeper network: its backbone from a synthesized ImageNet
+    checkpoint loaded on the card (the heads seeded), forward ms in f32
+    and bf16 at b=16, 3 plain serving requests with their launches and
+    stage ms, and card vs CPU on 2 images by (k2)'s rules."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import infer, pipeline as pl
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.models.resnet import init_weights
+    from pvnet_tpu_torch.utils.weights import load_imagenet_backbone
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = network.split("_")[0]
+    path = os.path.join(tmp, f"{arch}.pth")
+    sd = synthesized_backbone(arch, path, FAMILY_SEED)
+    model = build_model(network, ver_dim=2 * VN)
+    init_weights(model, torch.Generator().manual_seed(FAMILY_SEED))
+    model = model.to(dev).eval()
+    load_imagenet_backbone(model, path, arch=arch)
+    own = model.backbone.state_dict()
+    n = 0
+    for k, v in sd.items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        assert own[k].device.type == dev.type, k
+        assert torch.equal(own[k].cpu(), v), \
+            f"(l1) {network}: {k} differs from the checkpoint"
+        n += 1
+    n_params = sum(p.numel() for p in model.parameters())
+
+    x = pl.normalize_images(torch.from_numpy(
+        request_images(fixture["images"], 0)[0]).to(dev)).permute(
+            0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        f32_ms = cuda_ms(lambda: model(x), iters=10)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            bf16_ms = cuda_ms(lambda: model(x), iters=10)
+    print(f"(l1) {network} ({n_params / 1e6:.2f} M parameters): {n} "
+          f"backbone tensors loaded on the card from a synthesized "
+          f"{arch} ImageNet checkpoint, equal to the file's; forward at "
+          f"b={BATCH}, {H}x{W}: f32 (no TF32) {f32_ms:.3f} ms, bf16 "
+          f"{bf16_ms:.3f} ms; {SMI}", flush=True)
+
+    pts = torch.as_tensor(fixture["points_3d"], device=dev)
+    K = torch.as_tensor(fixture["K"], device=dev)
+    params = pl.VoteParams()
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    views = fixture["images"]
+    infer.infer_batch(model, request_images(views, -1)[0], pts, K, params,
+                      gen)                                  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    latencies = []
+    for r in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        est = infer.infer_batch(model, request_images(views, r)[0], pts, K,
+                                params, gen)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        assert est.pose.shape == (BATCH, 3, 4)
+        assert torch.isfinite(est.pose).all()
+    counts = read_counters()
+    assert counts == {"stratified_select": 0,
+                      "stratified_select_cmajor": N_REQUESTS,
+                      "count_inliers": N_REQUESTS,
+                      "count_inliers_bf16": 0}, counts
+    add_launches(kernels, counts)
+    stages = [stage_ms(model, request_images(views, r)[0], pts, K, params,
+                       dev) for r in range(3)]
+    med = {k: sorted(s[k] for s in stages)[1] for k in stages[0]}
+    print(f"(l1) {network}: {N_REQUESTS} plain requests of {BATCH} images, "
+          f"latency ms {[round(v, 3) for v in latencies]}, launches "
+          f"{counts}; stage ms (median of 3) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+          + f"; {SMI}", flush=True)
+
+    # card vs CPU: the FCN on 2 images, then (k2)'s rules from the card's
+    # fields
+    imgs = torch.from_numpy(request_images(views, 2)[0][:FAMILY_CPU_IMAGES])
+    with torch.no_grad():
+        seg_g, ver_g = model(pl.normalize_images(imgs.to(dev)).permute(
+            0, 3, 1, 2).contiguous())
+        cpu = build_model(network, ver_dim=2 * VN)
+        cpu.load_state_dict({k: v.cpu()
+                             for k, v in model.state_dict().items()})
+        seg_c, ver_c = cpu.eval()(pl.normalize_images(imgs).permute(
+            0, 3, 1, 2).contiguous())
+    agree = float((seg_g.argmax(1).cpu() == seg_c.argmax(1)).double()
+                  .mean())
+    errs = [float((g.cpu() - c).abs().max() / c.abs().max())
+            for g, c in ((seg_g, seg_c), (ver_g, ver_c))]
+    print(f"(l1) {network} FCN card vs CPU on {FAMILY_CPU_IMAGES} images "
+          f"(f32, no TF32): argmax agrees on {agree:.6f} of the pixels, "
+          f"seg / ver max diff {errs[0]:.2e} / {errs[1]:.2e} of their max "
+          f"abs", flush=True)
+    assert agree >= 0.999 and max(errs) < 1e-3, (agree, errs)
+    card_vs_cpu(f"(l1) {network}", seg_g.argmax(1), ver_g, 1,
+                fixture["points_3d"][None].astype(np.float32),
+                fixture["K"].astype(np.float32), gen, dev, strict=False)
+    del model, cpu
+    torch.cuda.empty_cache()
+
+
+def run_synthetic_training(tmp, kernels):
+    """(l2) ``python -m pvnet_tpu_torch.train --synthetic`` in a process of
+    its own: configs/synthetic_train.json (bf16, b=16) with pose
+    evaluation from epoch 0, 480x640, a 64-image split, the backbone from
+    a synthesized resnet18 checkpoint; 10 epochs of 2 steps. Checks: the
+    step count, K4 twice a step, K1 and K3 in the validations, finite
+    losses."""
+    import numpy as np
+    with open(RECIPE) as f:
+        recipe = json.load(f)
+    recipe.update(eval_epoch=True, eval_epoch_begin=0)
+    cfg_file = os.path.join(tmp, "recipe.json")
+    with open(cfg_file, "w") as f:
+        json.dump(recipe, f)
+    pth = os.path.join(tmp, "resnet18.pth")
+    synthesized_backbone("resnet18", pth, FAMILY_SEED)
+    cmd = [sys.executable, "-m", "pvnet_tpu_torch.train", "--synthetic",
+           "--cfg_file", cfg_file, "--synthetic_images", str(SYNTH_IMAGES),
+           "--epochs", str(SYNTH_EPOCHS), "--buckets", f"{H}x{W}",
+           "--imagenet_pth", pth, "--data_dir", os.path.join(tmp, "data"),
+           "--model_dir", os.path.join(tmp, "model"), "--device", DEVICE]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+    assert proc.returncode == 0, f"(l2) the training CLI exited " \
+        f"{proc.returncode}"
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    epochs = summary["epochs"]
+    steps = sum(e["steps"] for e in epochs)
+    losses = [x for e in epochs for x in e["losses"]]
+    launches = summary["launches"]
+    pose_evals = [line for line in proc.stdout.splitlines()
+                  if line.startswith("ADD metric")]
+    batch = recipe["train_batch_size"]
+    per_epoch = max(summary["train_images"], batch) // batch
+    assert len(epochs) == SYNTH_EPOCHS, epochs
+    assert steps == per_epoch * SYNTH_EPOCHS, epochs
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert launches["shift_lanes"] == 2 * steps, launches
+    assert launches["stratified_select_cmajor"] >= 1, launches
+    assert launches["count_inliers"] >= 1, launches
+    assert len(pose_evals) == 2, pose_evals     # epochs 0 and 5
+    add_launches(kernels, launches)
+    step_ms = [e["seconds"] / e["steps"] * 1e3 for e in epochs]
+    print(f"(l2) python -m pvnet_tpu_torch.train --synthetic: "
+          f"{summary['train_images']} train / {summary['val_images']} val "
+          f"images at {H}x{W}, generated in {summary['generate_s']:.2f} s; "
+          f"{steps} {'bf16' if recipe['bf16'] else 'f32'} steps of "
+          f"b={batch} from the synthesized resnet18 "
+          f"backbone; epoch s {[round(e['seconds'], 3) for e in epochs]}; "
+          f"step ms (epoch s / steps, epoch 0 with cuDNN's tuning) "
+          f"{[round(v, 1) for v in step_ms]}; loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; pose evaluations {pose_evals}; launches "
+          f"{launches}; the process took {wall:.1f} s; {SMI}", flush=True)
+
+
+def run_study(dev, tmp, kernels):
+    """(l3) the multi-class study at reduced depth (64 + 16 scenes, 10
+    epochs, 360x480), in this process: finite losses, the last epoch's
+    below the first's, K1 and K3 once per class in the evaluation; the
+    rates printed."""
+    import numpy as np
+    from pvnet_tpu_torch import multiclass_study as MS
+    out = os.path.join(tmp, "study")
+    reset_counters()
+    t0 = time.time()
+    assert MS.main(STUDY_ARGS + ["--out_dir", out, "--device",
+                                 str(dev)]) == 0
+    wall = time.time() - t0
+    counts = read_counters()
+    with open(os.path.join(out, "metrics.json")) as f:
+        metrics = json.load(f)
+    loss = metrics["epoch_loss"]
+    assert all(np.isfinite(loss)) and loss[-1] < loss[0], loss
+    assert counts["stratified_select_cmajor"] == 3, counts
+    assert counts["count_inliers"] == 3, counts
+    add_launches(kernels, counts)
+    print(f"(l3) the study ({' '.join(STUDY_ARGS)}): epoch loss "
+          f"{[round(v, 4) for v in loss]}; seg accuracy "
+          f"{metrics['seg_accuracy']}; per class (2D, ADD(-S), 5cm5deg) "
+          + "; ".join(f"{r['class']} {r['metric']} {r['proj']} {r['add']} "
+                      f"{r['cm5deg5']}" for r in metrics["rows"])
+          + f"; generation {metrics['generate_s']:.1f} s, training "
+          f"{metrics['train_s']:.1f} s, evaluation {metrics['eval_s']:.1f} "
+          f"s, in all {wall:.1f} s; launches {counts}; {SMI}", flush=True)
+
+
+def run_family(dev, fixture, kernels):
+    """Phase (l): the model family, --synthetic training and the study
+    (see the module docstring)."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        for network in FAMILY:
+            run_family_model(dev, fixture, kernels, network, tmp)
+        run_synthetic_training(tmp, kernels)
+        run_study(dev, tmp, kernels)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2963,6 +3216,8 @@ def main() -> int:
           packed_stages, split)
     phase("(j) deployment", run_deployment, dev, fixture, kernels)
     phase("(k) multi-object, variants", run_multiclass, dev, fixture,
+          kernels)
+    phase("(l) model family, training, study", run_family, dev, fixture,
           kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())

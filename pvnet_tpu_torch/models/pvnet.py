@@ -1,16 +1,20 @@
 """PVNet: fully-convolutional segmentation + vector-field network (PyTorch).
 
-Port of pvnet_tpu/models/pvnet.py (``PVNet``, ``pvnet_resnet18``,
-``build_model``), the reference's ``Resnet18_8s``
-(ref lib/networks/model_repository.py:7-80): a dilated ResNet18 backbone at
-output stride 8, a 3x3-conv "fc" head, and a skip-connected decoder that
-upsamples 8s -> 4s -> 2s -> full resolution (bilinear, align_corners=True)
-and emits ``seg_dim + ver_dim`` channels through a 1x1 head.
+Port of pvnet_tpu/models/pvnet.py (``PVNet``, ``PVNet2o``,
+``pvnet_resnet18/34/50``, ``pvnet_resnet50_2o``, ``build_model``), the
+reference's ``Resnet18_8s`` family (ref lib/networks/model_repository.py:
+7-300): a dilated ResNet backbone (18, 34 or 50 layers) at output stride 8,
+a 3x3-conv "fc" head, and a skip-connected decoder that upsamples 8s -> 4s
+-> 2s -> full resolution (bilinear, align_corners=True) and emits
+``seg_dim + ver_dim`` channels through a 1x1 head. ``PVNet2o`` stops at
+half resolution.
 
 Outputs are channel-major — seg [b, seg_dim, h, w], ver [b, ver_dim, h, w]
 — which is the JAX model's head_layout='NCHW' emission and PyTorch's
 native layout. Module names follow the reference (resnet18_8s.fc,
-conv8s, conv4s, conv2s, convraw), so a reference state_dict loads as is.
+conv8s, conv4s, conv2s, convraw; the backbone is ``resnet34_8s`` or
+``resnet50_8s`` at the other depths), so a reference state_dict loads as
+is.
 The feature-return flags of the JAX model feed the packed inference tail
 (ops/packed_tail.py). ``quant_stages``, ``quant_mode`` and
 ``quant_decoder`` are the JAX model's int8 options (ops/quant_conv.py):
@@ -19,7 +23,8 @@ they change no parameter, so the same checkpoint loads either way.
 model then also takes a space-to-depth-packed image [b, 12, h/2, w/2], and
 unpacks it for the raw head's image term. A conv7 checkpoint loads into it
 through utils/weights.load_weights, which folds the stem's kernel. The
-TPU-only pieces (channel-major head conv, PVNet2o) are not ported.
+TPU-only layout switches (channel-major head conv, NCHW stem input) are
+not ported: the port is channel-major throughout.
 
 For training, the JAX model's ``dtype=bfloat16`` with float32 parameters
 is the caller's ``torch.autocast(dtype=torch.bfloat16)`` around the
@@ -36,9 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pvnet_tpu_torch.models.resnet import (_BN_EPS, BatchNorm2d,
-                                          depth_to_space2_cm,
-                                          resnet18_backbone)
+from pvnet_tpu_torch.models.resnet import (_BN_EPS, BasicBlock,
+                                          BatchNorm2d, Bottleneck,
+                                          ResNetBackbone, arch_layout,
+                                          arch_name, depth_to_space2_cm)
 from pvnet_tpu_torch.ops.quant_conv import QuantConv2d
 
 
@@ -52,12 +58,33 @@ def _upsample(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=True)
 
 
-class PVNet(nn.Module):
+def _fc_head(backbone: ResNetBackbone, fcdim: int, conv=nn.Conv2d) -> None:
+    """The fc head lives under the backbone module, as in the reference
+    (ref model_repository.py:21-26)."""
+    backbone.fc = nn.Sequential(
+        conv(backbone.inplanes, fcdim, 3, padding=1, bias=False),
+        BatchNorm2d(fcdim, eps=_BN_EPS),
+        nn.ReLU(inplace=True))
+
+
+class _Backbone:
+    """The backbone module of a model that names it after its depth
+    (``resnet18_8s``, ``resnet34_8s``, ``resnet50_8s``), as the
+    reference's state_dicts do."""
+
+    @property
+    def backbone(self) -> ResNetBackbone:
+        return getattr(self, f"{self.arch}_8s")
+
+
+class PVNet(_Backbone, nn.Module):
     """FCN emitting segmentation logits + keypoint vector field.
 
     Args mirror the reference constructor (ref model_repository.py:8):
       ver_dim: vector-field channels (2 * keypoint count).
       seg_dim: segmentation classes (2 for a single object).
+      block, stage_sizes: the backbone's (BasicBlock (2, 2, 2, 2) is
+        ResNet18, (3, 4, 6, 3) ResNet34; Bottleneck (3, 4, 6, 3) ResNet50).
       fcdim/s8dim/s4dim/s2dim/raw_dim: decoder widths.
       quant_stages, quant_mode: backbone stages run in int8 at inference
         (models/resnet.ResNetBackbone).
@@ -66,27 +93,27 @@ class PVNet(nn.Module):
       stem: 'conv7' or 'packed4' (models/resnet.ResNetBackbone).
     """
 
-    def __init__(self, ver_dim: int, seg_dim: int = 2, fcdim: int = 256,
+    def __init__(self, ver_dim: int, seg_dim: int = 2, block=BasicBlock,
+                 stage_sizes=(2, 2, 2, 2), fcdim: int = 256,
                  s8dim: int = 128, s4dim: int = 64, s2dim: int = 32,
                  raw_dim: int = 32, quant_stages=(),
                  quant_mode: str = "dynamic", quant_decoder: bool = False,
                  stem: str = "conv7"):
         super().__init__()
         self.ver_dim, self.seg_dim = ver_dim, seg_dim
-        backbone = resnet18_backbone(output_stride=8,
-                                     quant_stages=tuple(quant_stages),
-                                     quant_mode=quant_mode, stem=stem)
+        self.arch = arch_name(block, stage_sizes)
+        backbone = ResNetBackbone(stage_sizes=tuple(stage_sizes),
+                                  output_stride=8, block=block,
+                                  quant_stages=tuple(quant_stages),
+                                  quant_mode=quant_mode, stem=stem)
         dconv = (partial(QuantConv2d, mode=quant_mode) if quant_decoder
                  else nn.Conv2d)
-        # the fc head lives under the backbone module, as in the reference
-        # (ref model_repository.py:21-26)
-        backbone.fc = nn.Sequential(
-            dconv(backbone.inplanes, fcdim, 3, padding=1, bias=False),
-            BatchNorm2d(fcdim, eps=_BN_EPS),
-            nn.ReLU(inplace=True))
-        self.resnet18_8s = backbone
-        self.conv8s = _conv_bn_lrelu(128 + fcdim, s8dim, dconv)
-        self.conv4s = _conv_bn_lrelu(64 + s8dim, s4dim)
+        _fc_head(backbone, fcdim, dconv)
+        setattr(self, f"{self.arch}_8s", backbone)
+        # the skips' widths: x8s is layer2's, x4s layer1's
+        e = block.expansion
+        self.conv8s = _conv_bn_lrelu(128 * e + fcdim, s8dim, dconv)
+        self.conv4s = _conv_bn_lrelu(64 * e + s8dim, s4dim)
         self.conv2s = _conv_bn_lrelu(64 + s4dim, s2dim)
         self.convraw = nn.Sequential(
             nn.Conv2d(3 + s2dim, raw_dim, 3, padding=1, bias=False),
@@ -108,8 +135,8 @@ class PVNet(nn.Module):
         stage's activation before its upsample and the backbone skips;
         return_4s_features -> (fm4 [b, s4dim, h/4, w/4], x2s);
         return_2s_features -> fm2 [b, s2dim, h/2, w/2]."""
-        x2s, x4s, x8s, _, x32s = self.resnet18_8s(x)
-        xfc = self.resnet18_8s.fc(x32s)
+        x2s, x4s, x8s, _, x32s = self.backbone(x)
+        xfc = self.backbone.fc(x32s)
         fm = self.conv8s(torch.cat([xfc, x8s], 1))
         if return_8s_features:
             return fm, x4s, x2s
@@ -128,18 +155,89 @@ class PVNet(nn.Module):
         return out[:, :self.seg_dim], out[:, self.seg_dim:]
 
 
+def downsample_bilinear_half(x: torch.Tensor) -> torch.Tensor:
+    """[b, c, h, w] -> [b, c, h/2, w/2] (h, w even): the JAX function's 0.5x
+    bilinear downsample with half-pixel sampling (torch F.interpolate(
+    scale_factor=0.5, mode='bilinear', align_corners=False)), which samples
+    each output between two input pixels: the mean of every 2x2 block."""
+    return F.avg_pool2d(x, 2)
+
+
+class PVNet2o(_Backbone, nn.Module):
+    """Half-resolution-output PVNet (ref Resnet50_8s_2o,
+    model_repository.py:158-224; the JAX ``PVNet2o``).
+
+    The decoder stops at stride 2: conv8s -> up -> conv4s -> up -> a 2s
+    stage whose input concatenates the decoder features, the backbone's
+    x2s skip and a 0.5x bilinear copy of the input image (ref :219-220),
+    then a 1x1 head (``conv2s.3``) emits seg_dim + ver_dim channels at
+    h/2 x w/2. forward(x [b, 3, h, w], h and w even) -> (seg [b, seg_dim,
+    h/2, w/2], ver [b, ver_dim, h/2, w/2])."""
+
+    def __init__(self, ver_dim: int, seg_dim: int = 2, block=Bottleneck,
+                 stage_sizes=(3, 4, 6, 3), fcdim: int = 384,
+                 s8dim: int = 256, s4dim: int = 128, s2dim: int = 64,
+                 quant_stages=(), quant_mode: str = "dynamic"):
+        super().__init__()
+        self.ver_dim, self.seg_dim = ver_dim, seg_dim
+        self.arch = arch_name(block, stage_sizes)
+        backbone = ResNetBackbone(stage_sizes=tuple(stage_sizes),
+                                  output_stride=8, block=block,
+                                  quant_stages=tuple(quant_stages),
+                                  quant_mode=quant_mode)
+        _fc_head(backbone, fcdim)
+        setattr(self, f"{self.arch}_8s", backbone)
+        e = block.expansion
+        self.conv8s = _conv_bn_lrelu(128 * e + fcdim, s8dim)
+        self.conv4s = _conv_bn_lrelu(64 * e + s8dim, s4dim)
+        self.conv2s = _conv_bn_lrelu(s4dim + 64 + 3, s2dim)
+        self.conv2s.append(nn.Conv2d(s2dim, seg_dim + ver_dim, 1))
+
+    def forward(self, x: torch.Tensor):
+        x2s, x4s, x8s, _, x32s = self.backbone(x)
+        xfc = self.backbone.fc(x32s)
+        fm = self.conv8s(torch.cat([xfc, x8s], 1))
+        fm = _upsample(fm, *x4s.shape[2:])
+        fm = self.conv4s(torch.cat([fm, x4s], 1))
+        fm = _upsample(fm, *x2s.shape[2:])
+        out = self.conv2s(torch.cat([fm, x2s, downsample_bilinear_half(x)],
+                                    1))
+        return out[:, :self.seg_dim], out[:, self.seg_dim:]
+
+
 def pvnet_resnet18(ver_dim: int, seg_dim: int = 2, **kw) -> PVNet:
     """Resnet18_8s equivalent — the production model
     (ref model_repository.py:7-80, train_linemod.py:256)."""
-    return PVNet(ver_dim=ver_dim, seg_dim=seg_dim, **kw)
+    return PVNet(ver_dim, seg_dim, *arch_layout("resnet18"), **kw)
+
+
+def pvnet_resnet34(ver_dim: int, seg_dim: int = 2, **kw) -> PVNet:
+    """Resnet34_8s equivalent (ref model_repository.py:226-300)."""
+    return PVNet(ver_dim, seg_dim, *arch_layout("resnet34"), **kw)
+
+
+def pvnet_resnet50(ver_dim: int, seg_dim: int = 2, **kw) -> PVNet:
+    """Resnet50_8s equivalent (ref model_repository.py:82-156), with its
+    wider decoder."""
+    kw = {"fcdim": 384, "s8dim": 256, "s4dim": 128, "s2dim": 64,
+          "raw_dim": 64, **kw}
+    return PVNet(ver_dim, seg_dim, *arch_layout("resnet50"), **kw)
+
+
+def pvnet_resnet50_2o(ver_dim: int, seg_dim: int = 2, **kw) -> PVNet2o:
+    """Resnet50_8s_2o equivalent — half-resolution output
+    (ref model_repository.py:158-224)."""
+    return PVNet2o(ver_dim, seg_dim, **kw)
 
 
 def build_model(network: str, ver_dim: int, seg_dim: int = 2,
-                **kw) -> PVNet:
+                **kw) -> nn.Module:
     """Factory keyed by the recipe's ``network`` field; ``kw`` (decoder
-    widths, the quant options) goes to the model. Only 'resnet18_8s' is
-    ported so far."""
-    factories = {"resnet18_8s": pvnet_resnet18}
+    widths, the quant options) goes to the model."""
+    factories = {"resnet18_8s": pvnet_resnet18,
+                 "resnet34_8s": pvnet_resnet34,
+                 "resnet50_8s": pvnet_resnet50,
+                 "resnet50_8s_2o": pvnet_resnet50_2o}
     if network not in factories:
         raise ValueError(f"unknown network '{network}'; "
                          f"expected one of {sorted(factories)}")

@@ -1,15 +1,17 @@
 """Dilated ResNet backbone (PyTorch, NCHW).
 
-Port of pvnet_tpu/models/resnet.py (``BasicBlock``, ``ResNetBackbone``,
-``resnet18_backbone``), itself a re-implementation of the reference's
+Port of pvnet_tpu/models/resnet.py (``BasicBlock``, ``Bottleneck``,
+``ResNetBackbone``, ``resnet18/34/50_backbone``), itself a
+re-implementation of the reference's
 torchvision-derived dilated ResNet (ref lib/networks/resnet.py): strides
 turn into dilations once the requested output stride is reached, 3x3
 convs pad by their dilation, and the forward pass returns every
 intermediate feature map for the decoder's skip connections.
 
 Module and parameter names follow the reference (conv1/bn1,
-layer{1..4}.{i}.conv{1,2}/bn{1,2}/downsample.{0,1}), so a reference
-state_dict loads without a converter. ``quant_stages`` runs the listed
+layer{1..4}.{i}.conv{1,2[,3]}/bn{1,2[,3]}/downsample.{0,1}), which are
+also torchvision's, so a reference or an ImageNet state_dict loads by
+name (utils/weights.py). ``quant_stages`` runs the listed
 stages' convolutions in int8 at inference (ops/quant_conv.py), as the JAX
 module's of the same name. ``stem='packed4'`` is the JAX module's packed
 stem: the 7x7/2 stem convolution folded exactly into a 4x4/1 one over the
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pvnet_tpu_torch.ops.quant_conv import QuantConv2d
+from pvnet_tpu_torch.utils.torchvision_manifest import ARCHS
 
 _BN_EPS = 1e-5
 # stddev of a standard normal truncated to [-2, 2] (flax variance_scaling)
@@ -172,11 +175,46 @@ class BasicBlock(nn.Module):
         return self.relu(y + residual)
 
 
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (strided, dilated) -> 1x1 x4 with a projection shortcut
+    where the shapes differ (ref resnet.py:73-113, the JAX ``Bottleneck``).
+    ``conv`` builds all four convolutions, as in :class:`BasicBlock`."""
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 dilation: int = 1, conv=nn.Conv2d):
+        super().__init__()
+        out = planes * self.expansion
+        self.conv1 = conv(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes, eps=_BN_EPS)
+        self.conv2 = conv(planes, planes, 3, stride=stride,
+                          padding=dilation, dilation=dilation, bias=False)
+        self.bn2 = BatchNorm2d(planes, eps=_BN_EPS)
+        self.conv3 = conv(planes, out, 1, bias=False)
+        self.bn3 = BatchNorm2d(out, eps=_BN_EPS)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or inplanes != out:
+            self.downsample = nn.Sequential(
+                conv(inplanes, out, 1, stride=stride, bias=False),
+                BatchNorm2d(out, eps=_BN_EPS))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return self.relu(y + residual)
+
+
 class ResNetBackbone(nn.Module):
     """Dilated ResNet trunk returning all skip features.
 
     forward(x [b, 3, h, w]) -> (x2s, x4s, x8s, x16s, x32s): feature maps at
     strides 2/4/8/8/8 for output_stride=8 (ref resnet.py:200-220).
+
+    block: BasicBlock or Bottleneck; each stage's width is planes x
+    block.expansion, and the next stage's input follows it.
 
     quant_stages: 0-based stages (0 = layer1) whose convolutions, the 1x1
     downsample included, are QuantConv2d in ``quant_mode``: int8 in eval
@@ -187,7 +225,8 @@ class ResNetBackbone(nn.Module):
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
-                 output_stride: int = 8, quant_stages: Sequence[int] = (),
+                 output_stride: int = 8, block=BasicBlock,
+                 quant_stages: Sequence[int] = (),
                  quant_mode: str = "dynamic", stem: str = "conv7"):
         super().__init__()
         if stem not in ("conv7", "packed4"):
@@ -217,10 +256,10 @@ class ResNetBackbone(nn.Module):
                     if stage in quant_stages else nn.Conv2d)
             blocks = []
             for i in range(n_blocks):
-                blocks.append(BasicBlock(inplanes, planes,
-                                         stride=stride if i == 0 else 1,
-                                         dilation=dilation, conv=conv))
-                inplanes = planes
+                blocks.append(block(inplanes, planes,
+                                    stride=stride if i == 0 else 1,
+                                    dilation=dilation, conv=conv))
+                inplanes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.inplanes = inplanes
 
@@ -237,5 +276,36 @@ class ResNetBackbone(nn.Module):
         return x2s, x4s, x8s, x16s, x32s
 
 
+def arch_layout(arch: str):
+    """(block class, stage_sizes) of 'resnet18', 'resnet34' or 'resnet50'
+    (the architectures of utils/torchvision_manifest.ARCHS)."""
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; expected one of "
+                         f"{sorted(ARCHS)}")
+    stage_sizes, bottleneck = ARCHS[arch]
+    return (Bottleneck if bottleneck else BasicBlock), tuple(stage_sizes)
+
+
+def arch_name(block, stage_sizes: Sequence[int]) -> str:
+    """The inverse of :func:`arch_layout`."""
+    for arch in ARCHS:
+        if arch_layout(arch) == (block, tuple(stage_sizes)):
+            return arch
+    raise ValueError(f"no arch has {block.__name__} x {tuple(stage_sizes)}")
+
+
+def resnet_backbone(arch: str, **kw) -> ResNetBackbone:
+    block, stage_sizes = arch_layout(arch)
+    return ResNetBackbone(stage_sizes=stage_sizes, block=block, **kw)
+
+
 def resnet18_backbone(**kw) -> ResNetBackbone:
-    return ResNetBackbone(stage_sizes=(2, 2, 2, 2), **kw)
+    return resnet_backbone("resnet18", **kw)
+
+
+def resnet34_backbone(**kw) -> ResNetBackbone:
+    return resnet_backbone("resnet34", **kw)
+
+
+def resnet50_backbone(**kw) -> ResNetBackbone:
+    return resnet_backbone("resnet50", **kw)

@@ -143,3 +143,17 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = getattr(library(), name)(
             *args, torch.cuda.current_stream().cuda_stream)
     check(err, name)
+
+
+def launch_counts() -> dict:
+    """{kernel: launches so far in this process} of the five kernels' CUDA
+    wrappers (each adds one where it launches its kernel): K1
+    ``stratified_select_cmajor``, K2 ``stratified_select``, K3
+    ``count_inliers`` and its bf16 mode ``count_inliers_bf16``, K4
+    ``shift_lanes``, K5 ``shift_sublanes``."""
+    from pvnet_tpu_torch.ops import row_shift, select_kernel, voting
+    fns = (select_kernel.stratified_select_cmajor,
+           select_kernel.stratified_select, voting.count_inliers,
+           voting.count_inliers_bf16, row_shift.shift_lanes,
+           row_shift.shift_sublanes)
+    return {fn.__name__: fn.launches for fn in fns}

@@ -3,6 +3,9 @@ branch with ``--device_data`` — the set held on the device, augmentation on
 the device, channel-major model input and head — and its ``--test_model``
 branch on the synthetic split).
 
+  python -m pvnet_tpu_torch.train --synthetic --epochs 3 \\
+      [--imagenet_pth resnet18-f37072fd.pth]
+
   python -m pvnet_tpu_torch.train --cfg_file configs/synthetic_train.json \\
       --data assets/duck_views_480x640.npz --buckets 480x640 \\
       --init assets/duck_ckpt.msgpack --steps 10 --device cuda
@@ -12,7 +15,23 @@ branch on the synthetic split).
       --synthetic_clutter 2 --init assets/duck_ckpt.msgpack \\
       [--use_uncertainty_pnp] [--tail_depth 3]
 
-``--data`` is an .npz with the keys of tools/make_torch_fixture.py:
+The network is the recipe's (``network``: resnet18_8s, resnet34_8s,
+resnet50_8s). ``--imagenet_pth`` starts its backbone from a torchvision
+ImageNet checkpoint, the heads from the seeded draw (the reference's
+standard init); ``--init`` starts every weight from a checkpoint.
+
+``--synthetic`` (without ``--test_model``) trains as tools/train.py
+--synthetic does: the JAX package's synthetic split
+(data/synthetic.generate_synthetic_linemod, seed 0; only its train and val
+lists are rendered, and cached as an .npz under ``--data_dir``), training
+on the train list (the recipe's ``use_real_train``; the split has no
+render or fuse set) and validating on the val list on the JAX loop's
+schedule, with pose evaluation when the recipe's ``eval_epoch`` says so.
+The port trains on the raw renders; JAX trains on their JPEG round trip.
+The last line is a JSON object: the split's sizes, the generation seconds,
+every epoch's seconds, steps and losses, and the kernels' launches.
+
+Otherwise ``--data`` is an .npz with the keys of tools/make_torch_fixture.py:
 images [n, h, w, 3] uint8, masks [n, h, w] uint8, poses [n, 3, 4],
 points_3d [k, 3] and K [3, 3]; the keypoint targets are the projections of
 points_3d. A set smaller than one batch is repeated to fill one.
@@ -41,15 +60,20 @@ import numpy as np
 import torch
 
 from pvnet_tpu_torch.config import TrainConfig
-from pvnet_tpu_torch.data.dataset import eval_batches, load_training_set
+from pvnet_tpu_torch.data.dataset import (eval_batches, keypoint_targets,
+                                          load_training_set)
 from pvnet_tpu_torch.data.synthetic import (evaluation_order,
-                                            generate_synthetic_linemod)
+                                            generate_synthetic_linemod,
+                                            split_indices)
 from pvnet_tpu_torch.eval.evaluator import Evaluator
+from pvnet_tpu_torch.ops.kernel_lib import launch_counts
 from pvnet_tpu_torch.train.checkpoint import load_net
 from pvnet_tpu_torch.train.loop import TrainLoop
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+# the keys of a generated split that hold one entry per image
+_PER_IMAGE = ("images", "masks", "poses", "index")
 
 
 def parse_buckets(spec: str) -> Optional[List[Tuple[int, int]]]:
@@ -86,6 +110,10 @@ def parse_args(argv=None):
                         "duck_{model_name})")
     p.add_argument("--init", default=None,
                    help="initial weights: a flax msgpack or a .pth")
+    p.add_argument("--imagenet_pth", default=None,
+                   help="torchvision ImageNet .pth of the recipe's backbone "
+                        "(resnet18/34/50) to start the backbone from; the "
+                        "heads stay at their seeded draw")
     p.add_argument("--device", default="cuda")
     p.add_argument("--test_model", action="store_true",
                    help="evaluate instead of training (needs --synthetic)")
@@ -99,7 +127,8 @@ def parse_args(argv=None):
                    help="checkpoint epoch to evaluate without --init "
                         "(-1: the latest)")
     p.add_argument("--synthetic", action="store_true",
-                   help="evaluate on the generated synthetic split")
+                   help="train (or with --test_model evaluate) on the "
+                        "generated synthetic split")
     p.add_argument("--synthetic_images", type=int, default=64)
     p.add_argument("--synthetic_occluder_prob", type=float, default=0.0,
                    help="probability of an occluder object per image")
@@ -110,21 +139,21 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def synthetic_test_split(args) -> Tuple[Dict[str, np.ndarray], float]:
-    """The synthetic split's test half in evaluation order, from the cache
-    under --data_dir or generated (and cached); with the seconds
-    generating it took (0 from the cache)."""
+def synthetic_split(args, part: str, order: np.ndarray
+                    ) -> Tuple[Dict[str, np.ndarray], float]:
+    """The images ``order`` of the synthetic split, in that order, from the
+    cache ``..._{part}.npz`` under --data_dir or generated (and cached);
+    with the seconds generating them took (0 from the cache)."""
     n, occ, clutter = (args.synthetic_images, args.synthetic_occluder_prob,
                        args.synthetic_clutter)
     path = os.path.join(args.data_dir, f"synthetic_duck_{n}_occ{occ:g}_"
-                                       f"clutter{clutter}_seed0_test.npz")
+                                       f"clutter{clutter}_seed0_{part}.npz")
     if os.path.exists(path):
         with np.load(path) as z:
             return {k: z[k] for k in z.files}, 0.0
-    order = evaluation_order(n)
-    print(f"generating the test half of the synthetic split ({len(order)} "
-          f"of {n} images, occluder_prob={occ}, clutter<={clutter}) ...",
-          flush=True)
+    print(f"generating the {part} images of the synthetic split "
+          f"({len(order)} of {n} images, occluder_prob={occ}, "
+          f"clutter<={clutter}) ...", flush=True)
     t0 = time.time()
     split = generate_synthetic_linemod(
         n, occluder_prob=occ, max_clutter=clutter, render=order,
@@ -132,12 +161,34 @@ def synthetic_test_split(args) -> Tuple[Dict[str, np.ndarray], float]:
     seconds = time.time() - t0
     pos = {int(k): i for i, k in enumerate(split["index"])}
     perm = np.asarray([pos[int(k)] for k in order])
-    for k in ("images", "masks", "poses", "index"):
+    for k in _PER_IMAGE:
         split[k] = split[k][perm]
     os.makedirs(args.data_dir, exist_ok=True)
     np.savez(path, **split)
     print(f"generated in {seconds:.1f} s; cached as {path}", flush=True)
     return split, seconds
+
+
+def synthetic_test_split(args) -> Tuple[Dict[str, np.ndarray], float]:
+    """The synthetic split's test half in evaluation order
+    (:func:`synthetic_split`)."""
+    return synthetic_split(args, "test",
+                           evaluation_order(args.synthetic_images))
+
+
+def synthetic_train_val(args) -> Tuple[Dict[str, np.ndarray],
+                                       Dict[str, np.ndarray], float]:
+    """(train list, val list, generation seconds) of the synthetic split:
+    LineModImageDB's ``train_real_set`` and ``val_real_set`` of the JAX
+    generator's tree (train.txt and val.txt, in their order)."""
+    lists = split_indices(args.synthetic_images)
+    n_train = len(lists["train"])
+    both, gen_s = synthetic_split(
+        args, "trainval", np.concatenate([lists["train"], lists["val"]]))
+    train, val = ({k: v[sl] if k in _PER_IMAGE else v
+                   for k, v in both.items()}
+                  for sl in (slice(None, n_train), slice(n_train, None)))
+    return train, val, gen_s
 
 
 def run_test_model(args, cfg: TrainConfig, model_dir: str, device) -> int:
@@ -191,19 +242,38 @@ def main(argv=None) -> int:
     model_dir = args.model_dir or os.path.join(_REPO, "data", "model", name)
     if args.test_model:
         return run_test_model(args, cfg, model_dir, device)
-    images, masks, hcoords = load_training_set(args.data)
+    gen_s, val = 0.0, None
+    if args.synthetic:
+        if not cfg.use_real_train:
+            raise SystemExit("no training records: the synthetic split has "
+                             "only its real train list (use_real_train)")
+        train, val, gen_s = synthetic_train_val(args)
+        images, masks = train["images"], train["masks"]
+        hcoords = keypoint_targets(train["poses"], train["points_3d"],
+                                   train["K"])
+    else:
+        images, masks, hcoords = load_training_set(args.data)
+    n_train = len(images)
     if len(images) < cfg.train_batch_size:
         # a set smaller than one batch (the 2-view fixture) is repeated to
         # fill one, as chip_smoke.py's training phase does
         tile = np.arange(cfg.train_batch_size) % len(images)
         images, masks, hcoords = images[tile], masks[tile], hcoords[tile]
+    n_val = len(val["images"]) if val else 0
     print(f"train set: {len(images)} images at {images.shape[1]}x"
           f"{images.shape[2]}; batch {cfg.train_batch_size}; "
           f"{'bf16' if cfg.bf16 else 'f32'}; device {device}", flush=True)
+    if val:
+        print(f"synthetic split: {n_train} train, {n_val} val images; "
+              f"{cfg.network}", flush=True)
     loop = TrainLoop(cfg, model_dir, record_dir=model_dir,
                      buckets=parse_buckets(args.buckets), device=device)
-    loop.fit(images, masks, hcoords, init=args.init, max_steps=args.steps)
+    loop.fit(images, masks, hcoords, init=args.init,
+             imagenet_pth=args.imagenet_pth, max_steps=args.steps, val=val)
     print(f"checkpoints in {model_dir}", flush=True)
+    print(json.dumps({"train_images": n_train, "val_images": n_val,
+                      "generate_s": gen_s, "epochs": loop.epoch_log,
+                      "launches": launch_counts()}), flush=True)
     return 0
 
 

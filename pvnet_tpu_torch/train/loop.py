@@ -15,9 +15,13 @@ training runs float, the evaluation int8, with static scales from
 :meth:`TrainLoop.calibrate_quant` once it has run and per-image scales
 before.
 
+A run starts from the JAX loop's He fan-out draw, from an ImageNet
+backbone (``imagenet_pth``: the reference's standard init, the heads
+fresh) and/or from the weights of a checkpoint (``init``).
+
 Not ported yet: the host-augmentation and host-batch paths (``PoseDataset``,
-``Prefetcher``), ImageNet backbone initialization and the
-intermediate-result dumps of ``--save_inter_result``.
+``Prefetcher``) and the intermediate-result dumps of
+``--save_inter_result``.
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ from pvnet_tpu_torch.ops import quant_conv
 from pvnet_tpu_torch.train import trainer as trainer_mod
 from pvnet_tpu_torch.train.checkpoint import load_model, save_model
 from pvnet_tpu_torch.train.recorder import AverageMeter, Recorder
-from pvnet_tpu_torch.utils.weights import load_weights
+from pvnet_tpu_torch.utils.weights import (load_imagenet_backbone,
+                                           load_weights)
 
 _METRICS = ("loss", "seg_loss", "ver_loss", "precision", "recall")
 
@@ -57,16 +62,25 @@ class TrainLoop:
         self.recorder = Recorder(record_dir)
         self.buckets = buckets
         self.device = torch.device(device)
+        # per trained epoch: {epoch, steps, seconds, losses (every step's)}
+        self.epoch_log: List[Dict] = []
 
     # -- state ------------------------------------------------------------
-    def init_state(self, init: Optional[str] = None
+    def init_state(self, init: Optional[str] = None,
+                   imagenet_pth: Optional[str] = None
                    ) -> trainer_mod.TrainState:
-        """A fresh train state: He fan-out weights drawn from cfg.seed, or
-        the weights of ``init`` (a flax msgpack or a port ``.pth``). The
-        model has the recipe's int8 options (float in training)."""
+        """A fresh train state: He fan-out weights drawn from cfg.seed;
+        with ``imagenet_pth`` the backbone from a torchvision ImageNet
+        checkpoint, its arch read off cfg.network as the JAX loop does
+        (resnet18_8s -> resnet18); then with ``init`` all weights from it
+        (a flax msgpack or a port ``.pth``). The model has the recipe's
+        int8 options (float in training)."""
         model = build_model(self.cfg.network, ver_dim=self.vote_num * 2,
                             seg_dim=2, **model_kwargs(self.cfg))
         init_weights(model, torch.Generator().manual_seed(self.cfg.seed))
+        if imagenet_pth:
+            load_imagenet_backbone(model, imagenet_pth,
+                                   arch=self.cfg.network.split("_")[0])
         if init:
             load_weights(model, init)
         model.to(self.device)
@@ -113,7 +127,7 @@ class TrainLoop:
         seed = np.random.SeedSequence([self.cfg.seed, 7919 * (epoch + 1)])
         gen = torch.Generator(self.device).manual_seed(
             int(seed.generate_state(1)[0]))
-        pending = []
+        pending, losses = [], []
         steps = 0
         for idx, batch_ihw in enumerate(sampler):
             if max_steps is not None and steps >= max_steps:
@@ -135,13 +149,18 @@ class TrainLoop:
                 for met in pending:
                     for k, m in meters.items():
                         m.update(float(met[k]))
+                    losses.append(float(met["loss"]))
                 pending.clear()
                 self.recorder.rec_loss_batch(
                     {f"train/scalar/{k}": m.avg for k, m in meters.items()},
                     epoch * size + idx, epoch)
                 for m in meters.values():
                     m.reset()
-        print(f"epoch {epoch} training cost {time.time() - begin:.1f} s "
+        losses += [float(met["loss"]) for met in pending]
+        seconds = time.time() - begin
+        self.epoch_log.append({"epoch": epoch, "steps": steps,
+                               "seconds": seconds, "losses": losses})
+        print(f"epoch {epoch} training cost {seconds:.1f} s "
               f"({steps} steps)", flush=True)
         return state, steps
 
@@ -283,19 +302,21 @@ class TrainLoop:
 
     # -- orchestration ----------------------------------------------------
     def fit(self, images: np.ndarray, masks: np.ndarray, hcoords: np.ndarray,
-            init: Optional[str] = None, epochs: Optional[int] = None,
+            init: Optional[str] = None, imagenet_pth: Optional[str] = None,
+            epochs: Optional[int] = None,
             max_steps: Optional[int] = None,
             val: Optional[Dict[str, np.ndarray]] = None
             ) -> trainer_mod.TrainState:
         """Full training run with resume and a checkpoint per epoch
-        (ref train_net() :305-347); stops after ``max_steps`` steps in all
-        when given, saving the epoch it stopped in. With a validation split
+        (ref train_net() :305-347), from :meth:`init_state`'s weights
+        (``init``, ``imagenet_pth``); stops after ``max_steps`` steps in
+        all when given, saving the epoch it stopped in. With a validation split
         ``val`` (the fixture's layout plus model_pts and diameter), the
         validation pass runs on the JAX loop's schedule: with pose
         evaluation every ``eval_inter`` epochs from ``eval_epoch_begin``
         when cfg.eval_epoch, the loss meters alone every ``val_inter``
         epochs and after the last epoch."""
-        state = self.init_state(init)
+        state = self.init_state(init, imagenet_pth)
         state, begin_epoch = self.resume(state)
         data = self.build_device_dataset(images, masks, hcoords)
         sampler = ImageSizeBatchSampler(

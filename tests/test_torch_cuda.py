@@ -1024,3 +1024,103 @@ def test_multiclass_voting_on_cuda_equals_cpu(cuda, refine_iter_num,
     assert got.shape == (b, C, vn, 2)
     assert float((got.cpu() - want).abs().max()) < 1e-2
     assert float((want - hc[..., :2]).abs().max()) < 0.1
+
+
+# --- the model family (ResNet34 / ResNet50 backbones, ImageNet init) ---------
+
+def _no_tf32():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _seeded(network, seed=0):
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.models.resnet import init_weights
+    model = build_model(network, ver_dim=18)
+    return init_weights(model, torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("network", ["resnet34_8s", "resnet50_8s",
+                                     "resnet50_8s_2o"])
+def test_family_forward_on_cuda_equals_cpu(cuda, network):
+    """The deeper backbones' forward in float32 (TF32 off) at 64x64, b=2,
+    card against CPU within tests/test_torch_model.py's tolerance."""
+    _no_tf32()
+    model = _seeded(network).eval()
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet34", "resnet50"])
+def test_load_imagenet_backbone_onto_a_cuda_model(cuda, arch):
+    """The synthesized checkpoint's tensors land on the card unchanged;
+    the heads keep their values."""
+    from pvnet_tpu_torch.utils.torchvision_manifest import \
+        synthesize_state_dict
+    from pvnet_tpu_torch.utils.weights import load_imagenet_backbone
+    sd = synthesize_state_dict(arch, seed=2)
+    model = _seeded(f"{arch}_8s").to(cuda)
+    heads = {k: v.clone() for k, v in model.state_dict().items()
+             if not k.startswith(f"{arch}_8s.") or ".fc." in k}
+    load_imagenet_backbone(model, sd, arch=arch)
+    own = model.backbone.state_dict()
+    for k, v in sd.items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        assert own[k].is_cuda and torch.equal(own[k].cpu(),
+                                              torch.from_numpy(v)), k
+    after = model.state_dict()
+    for k, v in heads.items():
+        assert torch.equal(after[k], v), k
+
+
+def test_resnet50_train_step_on_cuda_equals_cpu(cuda):
+    """One resnet50_8s train step at 64x64, b=2, card against CPU. The
+    loss within phase (f)'s rtol 1e-3. The gradients: at this random init
+    a float32 gradient lies ~2 % from the float64 one on any device
+    (tests/test_torch_model_family.py), more than phase (f)'s bounds,
+    which hold a well-conditioned step from the duck checkpoint. So the
+    step runs in float64 on both sides, every gradient within 1e-6 of its
+    norm, and the card's float32 gradient must lie no farther from the
+    float64 one than 4x the CPU's float32 gradient does."""
+    from pvnet_tpu_torch.train import trainer as TT
+    _no_tf32()
+    g = torch.Generator().manual_seed(3)
+    b, h, w = 2, 64, 64
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    batch = {"image": torch.randn(b, 3, h, w, generator=g),
+             "mask": torch.stack([((yy - 30 - 4 * i) ** 2 + (xx - 34) ** 2
+                                   < 300).int() for i in range(b)]),
+             "hcoords": torch.cat([torch.rand(b, 9, 2, generator=g) * w,
+                                   torch.ones(b, 9, 1)], -1)}
+    base = _seeded("resnet50_8s", seed=4)
+
+    def step(where, dtype):
+        model = _seeded("resnet50_8s", seed=4).to(where, dtype)
+        model.load_state_dict(base.state_dict())
+        model.train()
+        loss, _ = TT.batch_loss(model, {
+            k: (v.to(where, dtype) if v.is_floating_point() else v.to(where))
+            for k, v in batch.items()}, 1.0, False, False)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.double().cpu()
+                             for n, p in model.named_parameters()}
+
+    def dist(a, ref):
+        return float(sum(((a[n] - ref[n]) ** 2).sum() for n in ref) ** 0.5
+                     / sum((r ** 2).sum() for r in ref.values()) ** 0.5)
+    l64c, g64c = step("cpu", torch.float64)
+    l64g, g64g = step(cuda, torch.float64)
+    assert abs(l64g - l64c) <= 1e-9 * abs(l64c)
+    for n in g64c:
+        assert float((g64g[n] - g64c[n]).norm() / g64c[n].norm()) < 1e-6, n
+    l32c, g32c = step("cpu", torch.float32)
+    l32g, g32g = step(cuda, torch.float32)
+    assert abs(l32g - l32c) <= 1e-3 * abs(l32c)
+    assert dist(g32g, g64c) <= 4 * dist(g32c, g64c)

@@ -69,4 +69,4 @@ def test_backbone_strides_and_dilations():
 
 def test_build_model_rejects_unknown_network():
     with pytest.raises(ValueError):
-        build_model("resnet50_8s", ver_dim=18)
+        build_model("resnet101_8s", ver_dim=18)
