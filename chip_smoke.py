@@ -184,11 +184,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
     process: finite losses, the last epoch's below the first's, K1 and K3
     once per class in the evaluation; the per-class rates printed, not
     gated;
+(m) LINEMOD from disk: assets/linemod_mini (a LINEMOD tree of 24 duck
+    frames at 480x640, an Occlusion LINEMOD tree of 2 frames, 8 Truncation
+    crops and cases/ at the decoder's edges; tools/make_torch_linemod_
+    fixture.py) copied to a temporary directory (the databases write
+    posedb/). (m1) every image file decoded on the card through
+    data/image_io (the C entropy decoder and PNG unfilter, the CUDA pixel
+    kernel) equal to the manifest's sha256 of the JAX readers' output;
+    (m2) the C entropy decoder equal to the plain Python one on 2 frames,
+    host ms a frame on one thread and frames/s on 8; (m3) the pixel kernel
+    equal to its plain version on the 24 frames (b=24) and on random
+    coefficients at 9 more geometries (extremes included), kernel, plain
+    and bound ms; (m4) the port's LINEMOD, Occlusion and Truncation
+    records against the JAX package's (RT to 1e-6, keypoints to 1e-4 px);
+    (m5) ``python -m pvnet_tpu_torch.train --linemod_cls duck --init
+    <duck checkpoint> --steps 6 --buckets 480x640`` in this process (the
+    bf16 recipe, the 12 train frames repeated to a batch of 16): finite
+    losses, K4 twice a step, the decode kernel launched; (m6)
+    ``--test_model --occluded --truncated`` in float32 for RANSAC seeds 0,
+    1 and 2: each set's three-seed mean of each rate within the JAX
+    reference's range over its seeds widened by two images (the
+    manifest), K1, K3 and one decode launch per JPEG;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
     bf16 mode with their cold times and (c)'s times at the variants'
     shapes; launches summed over the phases that drive their paths, (j)'s
-    programs and server, (k) and (l) included), then, as the
-    last line, {"ok": true, "device": {...}}.
+    programs and server, (k), (l) and (m) included; the JPEG decoder's
+    pixel kernel from (m)), then, as the last line,
+    {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -3168,6 +3190,341 @@ def run_family(dev, fixture, kernels):
     torch.cuda.empty_cache()
 
 
+# --- phase (m): LINEMOD from disk --------------------------------------------
+
+LINEMOD_MINI = os.path.join(REPO, "assets", "linemod_mini")
+M_STEPS = 6               # (m4): training steps of the CLI
+M_SEEDS = (0, 1, 2)       # (m5): RANSAC seeds of --test_model
+M_POOL = 8                # (m2): host threads of the entropy decoder
+# the decode kernel's arithmetic in 32-bit operations (the least it
+# needs; the kernel itself runs libjpeg's 64-bit intermediates and
+# recomputes a halo of chroma blocks): per 8x8 block, 64 dequantizing
+# multiplies and 16 one-dimensional passes of 12 multiplies, 32 adds and
+# subtracts, 8 rounding adds and 8 shifts, and 128 saturations; per output
+# pixel, each upsampled chroma sample 9 operations (h2v2: two column sums
+# of a multiply and an add, the weighted sum, its bias and shift, four
+# index clamps) and the colour conversion 15 (three products, five adds,
+# three shifts, three clamps and the gray copy's select)
+DECODE_OPS_PER_BLOCK = 64 + 16 * (12 + 32 + 8 + 8) + 128
+DECODE_OPS_PER_CHROMA = 9
+DECODE_OPS_PER_PIXEL = 15
+
+
+def reset_all_counters():
+    """Every kernel wrapper's launch count (K1-K5 and the JPEG decoder's
+    pixel stage) to 0."""
+    from pvnet_tpu_torch.ops import kernel_lib
+    for fn in kernel_lib.launch_counters().values():
+        fn.launches = 0
+
+
+def read_all_counters():
+    from pvnet_tpu_torch.ops import kernel_lib
+    return kernel_lib.launch_counts()
+
+
+def decode_bound_ms(geo, batch: int):
+    """(bound ms, 'bytes' or 'operations') of jpeg_pixels on ``batch``
+    images of geometry ``geo``: int16 coefficients and int32 tables read
+    once and uint8 RGB written once over the memory rate, against
+    DECODE_OPS_* over the instruction rate."""
+    nbytes = batch * (geo.total_blocks() * 64 * 2 + geo.nc * 64 * 4
+                      + geo.height * geo.width * 3)
+    pixels = geo.height * geo.width
+    ops = batch * (geo.total_blocks() * DECODE_OPS_PER_BLOCK
+                   + pixels * ((geo.nc - 1) * DECODE_OPS_PER_CHROMA
+                               + DECODE_OPS_PER_PIXEL))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_decoder(dev, root, manifest):
+    """(m1)-(m3): every file of the tree decoded on the card equal to the
+    manifest's sha256 of the JAX readers' output; the C entropy decoder
+    against the plain Python one on 2 files (coefficients and tables); the
+    CUDA pixel stage against its plain PyTorch version on all 24 frames
+    (exact); host and device times. Returns the kernel's JSON entry."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.data import image_io as IO
+
+    t0 = time.time()
+    for rel, e in sorted(manifest["files"].items()):
+        p = os.path.join(root, rel)
+        a = (IO.read_rgb(p, dev).cpu().numpy() if e["reader"] == "rgb"
+             else IO.read_mask(p, dev))
+        got = hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+        assert got == e["sha256"] and list(a.shape) == e["shape"], \
+            f"(m1) {rel} decoded on the card differs from the JAX reader's"
+    torch.cuda.synchronize()
+    print(f"(m1) {len(manifest['files'])} files of {LINEMOD_MINI} decoded "
+          f"on the card (C entropy decoder and PNG unfilter, CUDA pixel "
+          f"stage), each equal to the sha256 of the JAX package's "
+          f"read_rgb_np / read_mask_np output, in {time.time() - t0:.2f} s",
+          flush=True)
+    frames = sorted(os.path.join(root, rel) for rel in manifest["files"]
+                    if rel.startswith(os.path.join("LINEMOD", "duck",
+                                                   "JPEGImages")))
+    blobs = [open(p, "rb").read() for p in frames]
+    for p, blob in zip(frames[:2], blobs[:2]):
+        a = IO.jpeg_coefficients_plain(blob, p)
+        b = IO.jpeg_coefficients_native(blob, p)
+        assert a.geometry == b.geometry and np.array_equal(a.coef, b.coef) \
+            and np.array_equal(a.qt, b.qt), f"(m2) {p}: C != Python"
+    coefs = [IO.jpeg_coefficients_native(b) for b in blobs]
+    geo = coefs[0].geometry
+    assert all(c.geometry == geo for c in coefs)
+    n = len(coefs)
+    coef = torch.from_numpy(np.stack([c.coef for c in coefs])).to(dev)
+    qt = torch.from_numpy(np.stack([c.qt for c in coefs])).to(dev)
+    got = IO.jpeg_pixels(coef, qt, geo)
+    want = IO.jpeg_pixels_plain(coef, qt, geo)
+    torch.cuda.synchronize()
+    err = float((got.int() - want.int()).abs().max())
+    assert err == 0.0 and torch.equal(got, want), \
+        "(m3) the CUDA pixel stage differs from its plain version"
+    # host: the C entropy decoder alone, then on a pool of threads
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for b in blobs:
+            IO.jpeg_coefficients_native(b)
+    host_ms = (time.perf_counter() - t0) / (reps * n) * 1e3
+    with ThreadPoolExecutor(M_POOL) as pool:
+        list(pool.map(IO.jpeg_coefficients_native, blobs))
+        t0 = time.perf_counter()
+        list(pool.map(IO.jpeg_coefficients_native, blobs * 4 * reps))
+        pool_fps = 4 * reps * n / (time.perf_counter() - t0)
+    ms = cuda_ms(lambda: IO.jpeg_pixels(coef, qt, geo), iters=20)
+    plain_ms = cuda_ms(lambda: IO.jpeg_pixels_plain(coef, qt, geo), iters=5)
+    one = coef[:1], qt[:1]
+    ms1 = cuda_ms(lambda: IO.jpeg_pixels(*one, geo), iters=50)
+    bound, by = decode_bound_ms(geo, n)
+    bound1, _ = decode_bound_ms(geo, 1)
+    print(f"(m2) C entropy decoder == plain Python (coefficients, tables) "
+          f"on {frames[0]} and {frames[1]}; host entropy decoding "
+          f"{host_ms:.3f} ms per {geo.height}x{geo.width} frame on one "
+          f"thread, {pool_fps:.1f} frames/s on {M_POOL} threads", flush=True)
+    print(f"(m3) jpeg_pixels (CUDA) == jpeg_pixels_plain on the {n} frames "
+          f"({geo.height}x{geo.width}, sampling h={list(geo.h)} "
+          f"v={list(geo.v)}), exact; kernel {ms:.4f} ms for {n} frames "
+          f"({ms / n:.4f} ms a frame), {ms1:.4f} ms for one; plain "
+          f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({by}; one frame "
+          f"{bound1:.4f}); {SMI}", flush=True)
+    return {"name": "jpeg_pixels", "route": "cuda",
+            "source": "pvnet_tpu_torch/csrc/jpeg_decode.cu",
+            "replaces": "pvnet_tpu/data/linemod.py:43",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+# (m3): geometries of the pixel kernel besides the frames' 4:2:0 480x640:
+# (height, width, h factors, v factors); the last with coefficients and
+# tables at their extremes (the 16-bit wrap and both saturations)
+DECODE_GEOMETRIES = [(37, 53, (1, 1, 1), (1, 1, 1)),
+                     (37, 53, (2, 1, 1), (1, 1, 1)),
+                     (37, 53, (2, 1, 1), (2, 1, 1)),
+                     (17, 3, (2, 1, 1), (2, 1, 1)),
+                     (9, 2, (2, 1, 1), (1, 1, 1)),
+                     (1, 1, (2, 1, 1), (2, 1, 1)),
+                     (61, 83, (1,), (1,)),
+                     (40, 72, (2, 2, 2), (1, 1, 1)),
+                     (256, 256, (2, 1, 1), (2, 1, 1))]
+
+
+def check_decoder_geometries(dev):
+    """(m3) jpeg_pixels against its plain version on random coefficients
+    at DECODE_GEOMETRIES, b=3, exact; the last also at the extremes."""
+    import torch
+    from pvnet_tpu_torch.data import image_io as IO
+    g = torch.Generator().manual_seed(12)
+    for i, (h, w, hs, vs) in enumerate(DECODE_GEOMETRIES):
+        geo = IO.JpegGeometry(h, w, hs, vs)
+        for extreme in ((False, True) if i == len(DECODE_GEOMETRIES) - 1
+                        else (False,)):
+            n = geo.total_blocks()
+            if extreme:
+                coef = torch.randint(-32768, 32768, (3, n, 64), generator=g)
+                qt = torch.randint(1, 65536, (3, geo.nc, 64), generator=g)
+            else:
+                coef = (torch.randn(3, n, 64, generator=g)
+                        * torch.linspace(300, 5, 64)).round()
+                coef[..., 0] = torch.randint(-1024, 1024, (3, n),
+                                             generator=g)
+                qt = torch.randint(1, 100, (3, geo.nc, 64), generator=g)
+            coef = coef.to(torch.int16).to(dev)
+            qt = qt.to(torch.int32).to(dev)
+            got = IO.jpeg_pixels(coef, qt, geo)
+            want = IO.jpeg_pixels_plain(coef, qt, geo)
+            assert torch.equal(got, want), \
+                f"(m3) jpeg_pixels != plain at {geo}, extreme={extreme}"
+    print(f"(m3) jpeg_pixels == jpeg_pixels_plain also on random "
+          f"coefficients at {len(DECODE_GEOMETRIES)} geometries (4:4:4, "
+          f"4:2:2, 4:2:0, gray, 1 to 3 pixels wide, 256x256 also at int16 "
+          f"and 16-bit table extremes), b=3", flush=True)
+
+
+def check_records(root, manifest):
+    """(m4): the port's LINEMOD, Occlusion and Truncation records against
+    the JAX package's in the manifest (RT to 1e-6, keypoints to 1e-4 px)."""
+    import numpy as np
+    from pvnet_tpu_torch.config import PathConfig
+    from pvnet_tpu_torch.data.linemod import (LineModImageDB,
+                                              OcclusionLineModImageDB,
+                                              TruncatedLineModImageDB)
+    paths = PathConfig(data_dir=root)
+    db = LineModImageDB("duck", has_render_set=False, has_fuse_set=False,
+                        paths=paths)
+    sets = {"real": db.real_set, "test": db.test_real_set + db.val_real_set,
+            "occluded": OcclusionLineModImageDB("duck",
+                                                paths=paths).test_real_set,
+            "truncated": TruncatedLineModImageDB("duck", paths=paths).set}
+    worst = {}
+    for name, recs in sets.items():
+        want = manifest["records"][name]
+        assert [r["rgb_pth"] for r in recs] == \
+            [w["rgb_pth"] for w in want], f"(m4) {name}: other records"
+        rt = kp = 0.0
+        for r, w in zip(recs, want):
+            rt = max(rt, float(np.abs(np.asarray(r["RT"], np.float64)
+                                      - w["RT"]).max()))
+            for k in ("corners", "farthest", "center", "small_bbox"):
+                kp = max(kp, float(np.abs(np.asarray(r[k], np.float64)
+                                          - w[k]).max()))
+        assert rt <= 1e-6 and kp <= 1e-4, (name, rt, kp)
+        worst[name] = (len(recs), rt, kp)
+    print("(m4) records equal the JAX package's (count, max |RT| diff, max "
+          "keypoint px diff): " + "; ".join(
+              f"{k} {v[0]}, {v[1]:.2e}, {v[2]:.2e}"
+              for k, v in worst.items()), flush=True)
+
+
+def run_cli(argv):
+    """python -m pvnet_tpu_torch.train ``argv`` in this process; returns
+    the JSON object of its last line and the seconds it took."""
+    import contextlib
+    import io
+    from pvnet_tpu_torch.train import __main__ as T
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = T.main(argv)
+    wall = time.time() - t0
+    out = buf.getvalue()
+    assert rc == 0, out[-3000:]
+    return json.loads(out.strip().splitlines()[-1]), wall, out
+
+
+def linemod_training(dev, root, tmp, kernels):
+    """(m5): ``--linemod_cls duck --data_dir <tree> --init <duck ckpt>
+    --steps 6 --buckets 480x640`` (the bf16 recipe, b=16: the 12 train
+    frames repeated to one batch); finite losses, K4 twice a step, the
+    decode kernel launched for the device set and the validations."""
+    import numpy as np
+    reset_all_counters()
+    summary, wall, _ = run_cli([
+        "--linemod_cls", "duck", "--data_dir", root, "--init", CKPT,
+        "--steps", str(M_STEPS), "--buckets", f"{H}x{W}", "--model_dir",
+        os.path.join(tmp, "model"), "--device", str(dev)])
+    counts = read_all_counters()
+    losses = [x for e in summary["epochs"] for x in e["losses"]]
+    steps = sum(e["steps"] for e in summary["epochs"])
+    assert steps == M_STEPS and len(losses) == steps, summary["epochs"]
+    assert all(np.isfinite(losses)), losses
+    assert counts["shift_lanes"] == 2 * steps, counts
+    assert counts["jpeg_pixels"] >= 1, counts
+    add_launches(kernels, counts)
+    print(f"(m5) python -m pvnet_tpu_torch.train --linemod_cls duck: "
+          f"{summary['train_images']} train records, "
+          f"{summary['val_images']} val, {steps} bf16 steps at {H}x{W}; "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; epoch s "
+          f"{[round(e['seconds'], 3) for e in summary['epochs']]}; "
+          f"launches {counts}; {wall:.1f} s in all", flush=True)
+
+
+def linemod_rates(dev, root, tmp, manifest, kernels):
+    """(m6): ``--test_model --occluded --truncated`` with the duck
+    checkpoint in float32 for RANSAC seeds 0, 1 and 2; each set's mean
+    rates within the JAX reference's range over its seeds widened by two
+    images; K1, K3 and the decode kernel launched."""
+    import numpy as np
+    with open(RECIPE) as f:
+        recipe = json.load(f)
+    recipe["bf16"] = False
+    cfg_file = os.path.join(tmp, "f32.json")
+    with open(cfg_file, "w") as f:
+        json.dump(recipe, f)
+    runs = {}
+    reset_all_counters()
+    t0 = time.time()
+    for seed in M_SEEDS:
+        out, _, _ = run_cli([
+            "--test_model", "--linemod_cls", "duck", "--data_dir", root,
+            "--init", CKPT, "--occluded", "--truncated", "--cfg_file",
+            cfg_file, "--vote_seed", str(seed), "--model_dir",
+            os.path.join(tmp, "model_test"), "--device", str(dev)])
+        for name, r in out["sets"].items():
+            runs.setdefault(name, []).append(r)
+    wall = time.time() - t0
+    counts = read_all_counters()
+    # one launch per JPEG of the test list and of the crops (the
+    # Occlusion frames are PNG), per seed
+    jpegs = len(manifest["records"]["test"]) + len(
+        manifest["records"]["truncated"])
+    assert counts["stratified_select_cmajor"] >= 1, counts
+    assert counts["count_inliers"] >= 1, counts
+    assert counts["jpeg_pixels"] == len(M_SEEDS) * jpegs, counts
+    add_launches(kernels, counts)
+    names = {"val": "test", "occ_val": "occluded", "trun_test": "truncated"}
+    assert set(runs) == set(names), runs.keys()
+    for name, ref_name in names.items():
+        ref = manifest["rates"][ref_name]
+        n = ref["images"]
+        tol = 2.0 / n
+        got = np.array([[r[m] for m in ("proj", "add", "cm")]
+                        for r in runs[name]])
+        assert all(r["images"] == n for r in runs[name])
+        mean = got.mean(0)
+        for j, m in enumerate(("proj", "add", "cm")):
+            js = [r[m] for r in ref["runs"]]
+            print(f"(m6) {name} ({n} images) {m}: seeds {list(M_SEEDS)} "
+                  f"{[round(x * n) for x in got[:, j]]} of {n}, mean "
+                  f"{mean[j]:.4f}; JAX (CPU) seeds "
+                  f"{[round(x * n) for x in js]}; tolerance {tol:.4f}",
+                  flush=True)
+            assert min(js) - tol <= mean[j] <= max(js) + tol, \
+                f"(m6) {name} {m}: mean {mean[j]} outside " \
+                f"[{min(js) - tol}, {max(js) + tol}]"
+    per_s = sum(r["images"] for rs in runs.values() for r in rs) / sum(
+        r["evaluate_s"] for rs in runs.values() for r in rs)
+    print(f"(m6) --test_model f32, tail_depth 0, seeds {list(M_SEEDS)}: "
+          f"{wall:.1f} s for three runs, {per_s:.1f} images/s in the "
+          f"evaluations; launches {counts}; {SMI}", flush=True)
+
+
+def run_linemod(dev, kernels):
+    """Phase (m): the LINEMOD read path from disk (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+    import torch
+    with open(os.path.join(LINEMOD_MINI, "manifest.json")) as f:
+        manifest = json.load(f)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        root = os.path.join(tmp, "data")
+        shutil.copytree(LINEMOD_MINI, root)   # the databases write posedb/
+        kernels.append(check_decoder(dev, root, manifest))
+        check_decoder_geometries(dev)
+        check_records(root, manifest)
+        linemod_training(dev, root, tmp, kernels)
+        linemod_rates(dev, root, tmp, manifest, kernels)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3219,6 +3576,7 @@ def main() -> int:
           kernels)
     phase("(l) model family, training, study", run_family, dev, fixture,
           kernels)
+    phase("(m) LINEMOD from disk", run_linemod, dev, kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -36,6 +37,13 @@ INTRINSIC_MATRICES = {
     "pascal": PASCAL_K,
 }
 
+LINEMOD_CLS_NAMES = [
+    "ape", "cam", "cat", "duck", "glue", "iron", "phone",
+    "benchvise", "can", "driller", "eggbox", "holepuncher", "lamp",
+]
+OCC_LINEMOD_CLS_NAMES = [
+    "ape", "can", "cat", "driller", "duck", "eggbox", "glue", "holepuncher",
+]
 # classes evaluated with ADD-S (ref lib/utils/config.py:70)
 SYMMETRIC_CLS_NAMES = ["glue", "eggbox"]
 
@@ -43,6 +51,38 @@ SYMMETRIC_CLS_NAMES = ["glue", "eggbox"]
 # (ref lib/datasets/linemod_dataset.py:185-195).
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def repo_root() -> str:
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@dataclass
+class PathConfig:
+    """Filesystem layout (ref lib/utils/config.py:11-37): the LINEMOD,
+    LINEMOD_ORIG and OCCLUSION_LINEMOD trees under one data root."""
+    data_dir: str = field(default_factory=lambda: os.path.join(repo_root(),
+                                                               "data"))
+
+    @property
+    def linemod_dir(self) -> str:
+        return os.path.join(self.data_dir, "LINEMOD")
+
+    @property
+    def linemod_orig_dir(self) -> str:
+        return os.path.join(self.data_dir, "LINEMOD_ORIG")
+
+    @property
+    def occlusion_linemod_dir(self) -> str:
+        return os.path.join(self.data_dir, "OCCLUSION_LINEMOD")
+
+    @property
+    def model_dir(self) -> str:
+        return os.path.join(self.data_dir, "model")
+
+    @property
+    def record_dir(self) -> str:
+        return os.path.join(self.data_dir, "record")
 
 
 @dataclass

@@ -1,21 +1,331 @@
-"""Data on the host: the multi-resolution batch sampler, copied from
-pvnet_tpu/data/dataset.py (``ImageSizeBatchSampler``, pure numpy), the
-reader of a training set stored as one .npz, and the batches of an
-evaluation split held as arrays.
+"""Data on the host, ported from pvnet_tpu/data/dataset.py: the vote-type
+registry (``VotingType``), per-record samples of the LINEMOD layout in raw
+mode (``PoseDataset``: full-frame uint8 pixels for the device
+augmentation), their batches (``collate``), the threaded look-ahead over
+them (``Prefetcher``), the multi-resolution batch sampler
+(``ImageSizeBatchSampler``), and the port's own readers: a record list
+decoded onto the device in one go (:func:`load_device_set`, the
+counterpart of JAX's ``TrainLoop.build_device_dataset``), a training set
+stored as one .npz, and the batches of an evaluation split held as arrays.
 
-The rest of that module (``PoseDataset``, ``Prefetcher``, reading the
-LINEMOD layout from disk) is not ported yet: the port trains from arrays
-held on the device (train/loop.TrainLoop.build_device_dataset) and
-evaluates arrays (:func:`eval_batches`).
+Frames are decoded by data/image_io (the port's own JPEG/PNG decoder; on a
+CUDA device its C entropy decoder and CUDA pixel kernel). Not ported: the
+host augmentation (``PoseDataset(augment=True)``, data/augment.py, which
+needs cv2's warps) and host-side vertex targets; the port trains only on
+the route of JAX's ``--device_aug --device_data``.
 """
 from __future__ import annotations
 
+import os
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from pvnet_tpu_torch.config import AugConfig
+from pvnet_tpu_torch.config import AugConfig, LINEMOD_CLS_NAMES
+from pvnet_tpu_torch.data.image_io import (DECODE_THREADS, decode_rgb_into,
+                                           image_size, read_mask, read_rgb)
 from pvnet_tpu_torch.data.pose_transforms import project_np
+
+
+class VotingType:
+    """Vote-type registry (ref linemod_dataset.py:83-169)."""
+    BB8 = "BB8"
+    BB8C = "BB8C"
+    BB8S = "BB8S"
+    Farthest = "Farthest"
+    Farthest4 = "Farthest4"
+    Farthest12 = "Farthest12"
+    Farthest16 = "Farthest16"
+    Farthest20 = "Farthest20"
+
+    _FARTHEST_KEY = {
+        Farthest: "farthest", Farthest4: "farthest4",
+        Farthest12: "farthest12", Farthest16: "farthest16",
+        Farthest20: "farthest20",
+    }
+    _FARTHEST_NUM = {
+        Farthest: 8, Farthest4: 4, Farthest12: 12, Farthest16: 16,
+        Farthest20: 20,
+    }
+
+    @classmethod
+    def vote_num(cls, vote_type: str) -> int:
+        """Keypoint count incl. center (ref train_linemod.py:38-59)."""
+        if vote_type == cls.BB8:
+            return 8
+        if vote_type in (cls.BB8C, cls.BB8S):
+            return 9
+        return cls._FARTHEST_NUM[vote_type] + 1
+
+    @classmethod
+    def get_data_pts_2d(cls, vote_type: str, data: dict) -> np.ndarray:
+        """Homogeneous 2D target keypoints from an image record
+        (ref :94-140)."""
+        if vote_type == cls.BB8:
+            cor = data["corners"].copy()
+            return np.concatenate(
+                [cor, np.ones([8, 1], np.float32)], 1).astype(np.float32)
+        if vote_type == cls.BB8C:
+            pts = np.concatenate([data["corners"].copy(),
+                                  data["center"].copy()], 0)
+        elif vote_type == cls.BB8S:
+            pts = np.concatenate([data["small_bbox"].copy(),
+                                  data["center"].copy()], 0)
+        else:
+            far = data[cls._FARTHEST_KEY[vote_type]].copy()
+            pts = np.concatenate([far, data["center"].copy()], 0)
+        return np.concatenate(
+            [pts, np.ones([pts.shape[0], 1], np.float32)],
+            1).astype(np.float32)
+
+    @classmethod
+    def get_pts_3d(cls, vote_type: str, class_type: str,
+                   modeldb) -> np.ndarray:
+        """Canonical 3D keypoints for PnP (ref :142-169), from a
+        data/linemod.LineModModelDB."""
+        if vote_type == cls.BB8:
+            return modeldb.get_corners_3d(class_type)
+        if vote_type == cls.BB8C:
+            base = modeldb.get_corners_3d(class_type)
+        elif vote_type == cls.BB8S:
+            base = modeldb.get_small_bbox(class_type)
+        else:
+            base = modeldb.get_farthest_3d(class_type,
+                                           cls._FARTHEST_NUM[vote_type])
+        return np.concatenate(
+            [base, modeldb.get_centers_3d(class_type)[None, :]], 0)
+
+
+@dataclass
+class Sample:
+    """One raw sample: full-frame pixels for the device augmentation."""
+    rgb: torch.Tensor         # [h, w, 3] uint8 on the dataset's device
+    mask: np.ndarray          # [h, w] uint8, 0/1
+    hcoords: np.ndarray       # [k, 3] float32 homogeneous 2D keypoints
+    pose: np.ndarray          # [3, 4] float32
+    K: Optional[np.ndarray] = None      # [3, 3] per-image intrinsics
+    ignore_vertex: bool = False         # zero the vertex loss weight
+                                        # (fuse set, ref :242)
+    out_hw: Optional[Tuple[int, int]] = None   # the sampler's target size
+
+
+def record_mask(mask: np.ndarray, rec: dict) -> np.ndarray:
+    """The training mask of a record's decoded mask file, uint8 0/1 (JAX
+    PoseDataset, pvnet_tpu/data/dataset.py:184-191): a real record's
+    colour mask is its non-black pixels, a fuse record's mask the pixels of
+    its class's label (class index + 1), any other value above 1 is
+    foreground."""
+    if rec["rnd_typ"] == "real" and mask.ndim == 3:
+        mask = np.asarray(np.sum(mask, 2) > 0, np.int32)
+    if rec["rnd_typ"] == "fuse":
+        mask = np.asarray(
+            mask == (LINEMOD_CLS_NAMES.index(rec["cls_typ"]) + 1), np.int32)
+    mask = mask.astype(np.int32)
+    if mask.max() > 1:
+        mask = (mask > 0).astype(np.int32)
+    return np.ascontiguousarray(mask, np.uint8)
+
+
+class PoseDataset:
+    """One record's raw sample (JAX PoseDataset with raw=True, ref
+    LineModDatasetRealAug :174-290 without the host augmentation): the
+    frame decoded onto ``device``, the mask by the record's rule, the
+    vote type's 2D keypoints, the pose, and with ``use_intrinsic`` the
+    record's own K."""
+
+    def __init__(self, imagedb: Sequence[dict], data_prefix: str,
+                 vote_type: str = VotingType.Farthest,
+                 aug_cfg: Optional[AugConfig] = None,
+                 use_intrinsic: bool = False, device="cpu"):
+        self.imagedb = list(imagedb)
+        self.data_prefix = data_prefix
+        self.vote_type = vote_type
+        self.cfg = aug_cfg or AugConfig()
+        self.use_intrinsic = use_intrinsic
+        self.device = torch.device(device)
+
+    def __len__(self) -> int:
+        return len(self.imagedb)
+
+    def __getitem__(self, index_hw: Tuple[int, int, int]) -> Sample:
+        """index_hw = (index, target_h, target_w), the batch sampler's
+        tuple (ref :200-201)."""
+        index, height, width = index_hw
+        rec = self.imagedb[index]
+        rgb = read_rgb(os.path.join(self.data_prefix, rec["rgb_pth"]),
+                       self.device)
+        mask = record_mask(read_mask(os.path.join(self.data_prefix,
+                                                  rec["dpt_pth"]),
+                                     self.device), rec)
+        K = rec["K"].astype(np.float32) if self.use_intrinsic else None
+        return Sample(
+            rgb=rgb, mask=mask,
+            hcoords=VotingType.get_data_pts_2d(self.vote_type, rec),
+            pose=rec["RT"].astype(np.float32), K=K,
+            ignore_vertex=(rec["rnd_typ"] == "fuse"
+                           and self.cfg.ignore_fuse_ms_vertex),
+            out_hw=(height, width))
+
+
+def collate(samples: List[Sample]) -> Dict[str, object]:
+    """A batch of raw samples (JAX collate's raw branch): image uint8
+    [b, h, w, 3] (a tensor on the dataset's device), mask uint8 [b, h, w],
+    hcoords, pose, out_hw, ignore and, with per-image intrinsics, K."""
+    batch = {
+        "image": torch.stack([s.rgb for s in samples]),
+        "mask": np.stack([s.mask for s in samples]).astype(np.uint8),
+        "hcoords": np.stack([s.hcoords for s in samples]),
+        "pose": np.stack([s.pose for s in samples]),
+        "out_hw": np.asarray(samples[0].out_hw, np.int32),
+        "ignore": np.array([s.ignore_vertex for s in samples], np.float32),
+    }
+    if samples[0].K is not None:
+        batch["K"] = np.stack([s.K for s in samples])
+    return batch
+
+
+LOAD_CHUNK = 256    # frames decoded at a time by load_device_set
+
+
+def load_device_set(records: Sequence[dict], data_prefix: str,
+                    vote_type: str = VotingType.Farthest,
+                    aug_cfg: Optional[AugConfig] = None, device="cpu"
+                    ) -> Dict[str, torch.Tensor]:
+    """Decode a whole record list onto ``device`` (the counterpart of JAX's
+    ``TrainLoop.build_device_dataset``, pvnet_tpu/train/loop.py:181-211):
+    image uint8 [N, h, w, 3], mask uint8 [N, h, w], hcoords float32
+    [N, k, 3] and ignore float32 [N], every frame of the first one's size
+    (raises otherwise). Frames are decoded LOAD_CHUNK at a time, so that
+    at most one chunk's coefficients are held at once (they take 2-4x the
+    pixels' bytes)."""
+    device = torch.device(device)
+    cfg = aug_cfg or AugConfig()
+    n = len(records)
+    if n == 0:
+        raise ValueError("no records")
+    paths = [os.path.join(data_prefix, r["rgb_pth"]) for r in records]
+    h, w = image_size(paths[0])
+    images = torch.empty((n, h, w, 3), dtype=torch.uint8, device=device)
+    masks = np.empty((n, h, w), np.uint8)
+
+    def mask_of(i):
+        m = record_mask(read_mask(os.path.join(
+            data_prefix, records[i]["dpt_pth"]), device), records[i])
+        if m.shape != (h, w):
+            raise ValueError(f"uniform image sizes needed; the mask of "
+                             f"record {i} is {m.shape}, frames {(h, w)}")
+        masks[i] = m
+
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        for i in range(0, n, LOAD_CHUNK):
+            sl = slice(i, min(n, i + LOAD_CHUNK))
+            try:
+                decode_rgb_into(paths[sl], images[sl])
+            except ValueError as e:
+                raise ValueError(f"uniform image sizes needed: {e}") from e
+            list(pool.map(mask_of, range(sl.start, sl.stop)))
+    hcoords = np.stack([VotingType.get_data_pts_2d(vote_type, r)
+                        for r in records]).astype(np.float32)
+    ignore = np.array([r["rnd_typ"] == "fuse" and cfg.ignore_fuse_ms_vertex
+                       for r in records], np.float32)
+    return {"image": images, "mask": torch.from_numpy(masks).to(device),
+            "hcoords": torch.from_numpy(hcoords).to(device),
+            "ignore": torch.from_numpy(ignore).to(device)}
+
+
+class Prefetcher:
+    """Threaded look-ahead over (dataset, batch sampler) producing collated
+    batches (JAX Prefetcher; the reference's 12 DataLoader workers)."""
+
+    def __init__(self, dataset: PoseDataset, batch_sampler,
+                 num_threads: int = 4, prefetch: int = 4):
+        self.dataset = dataset
+        self.batch_sampler = batch_sampler
+        self.num_threads = max(1, num_threads)
+        self.prefetch = prefetch
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def __iter__(self):
+        batch_queue: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        index_queue: "queue.Queue" = queue.Queue()
+        batches = list(self.batch_sampler)
+        for i, b in enumerate(batches):
+            index_queue.put((i, b))
+        results: Dict[int, dict] = {}
+        stop = threading.Event()
+
+        def put(item):
+            # a bounded put that gives up once the consumer has gone: a
+            # blocking put would pin a worker on a full queue forever when
+            # the caller stops iterating early
+            while not stop.is_set():
+                try:
+                    batch_queue.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    continue
+
+        def worker():
+            while not stop.is_set():
+                try:
+                    i, spec = index_queue.get_nowait()
+                except queue.Empty:
+                    return
+                try:
+                    put((i, collate([self.dataset[s] for s in spec])))
+                except BaseException as e:   # propagate, never deadlock
+                    put((i, e))
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(self.num_threads)]
+        for t in threads:
+            t.start()
+        try:
+            next_i = 0
+            received = 0
+            while received < len(batches):
+                i, batch = batch_queue.get()
+                if isinstance(batch, BaseException):
+                    raise RuntimeError(
+                        f"prefetch worker failed on batch {i}") from batch
+                received += 1
+                results[i] = batch
+                while next_i in results:
+                    yield results.pop(next_i)
+                    next_i += 1
+        finally:
+            # on exhaustion, an exception or the consumer's close: release
+            # the workers and their queued batches
+            stop.set()
+            while any(t.is_alive() for t in threads):
+                try:
+                    batch_queue.get_nowait()
+                except queue.Empty:
+                    time.sleep(0.01)
+            results.clear()
+
+
+def record_loader(records: Sequence[dict], data_prefix: str,
+                  vote_type: str, batch_size: int,
+                  aug_cfg: Optional[AugConfig] = None,
+                  use_intrinsic: bool = False, device="cpu",
+                  num_threads: int = 4) -> Prefetcher:
+    """The validation / test loader of a record list: raw samples in
+    order, ``batch_size`` a batch, the last one short (tools/train.py's
+    unshuffled PoseDataset + ImageSizeBatchSampler + Prefetcher)."""
+    ds = PoseDataset(records, data_prefix, vote_type, aug_cfg=aug_cfg,
+                     use_intrinsic=use_intrinsic, device=device)
+    sampler = ImageSizeBatchSampler(range(len(ds)), batch_size,
+                                    aug_cfg=aug_cfg, shuffle=False)
+    return Prefetcher(ds, sampler, num_threads=num_threads)
 
 
 class ImageSizeBatchSampler:

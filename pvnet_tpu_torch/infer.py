@@ -46,13 +46,17 @@ import torch
 from pvnet_tpu_torch import pipeline as pl_mod
 from pvnet_tpu_torch.config import (INTRINSIC_MATRICES, TrainConfig,
                                     model_kwargs)
+from pvnet_tpu_torch.data.image_io import decode_rgb_batch
 from pvnet_tpu_torch.models.pvnet import build_model
 from pvnet_tpu_torch.ops import quant_conv
 from pvnet_tpu_torch.utils.weights import load_weights
 
 
-def load_images(spec: str) -> Tuple[np.ndarray, List[str]]:
-    """uint8 [n, h, w, 3] images and a name for each."""
+def load_images(spec: str, device="cpu") -> Tuple[np.ndarray, List[str]]:
+    """uint8 [n, h, w, 3] images and a name for each: an .npz (its
+    ``images``), an .npy, or a glob of JPEG/PNG files of one size,
+    decoded by data/image_io (on a CUDA ``device`` through its C entropy
+    decoder and CUDA kernel)."""
     if spec.endswith(".npz"):
         with np.load(spec) as z:
             imgs = z["images"]
@@ -60,12 +64,10 @@ def load_images(spec: str) -> Tuple[np.ndarray, List[str]]:
     if spec.endswith(".npy"):
         imgs = np.load(spec)
         return imgs, [f"{spec}[{i}]" for i in range(len(imgs))]
-    from PIL import Image       # optional: only for globs of image files
     paths = sorted(globmod.glob(spec))
     if not paths:
         raise FileNotFoundError(f"no images match {spec}")
-    return (np.stack([np.array(Image.open(p).convert("RGB")) for p in paths]),
-            paths)
+    return decode_rgb_batch(paths, device).cpu().numpy(), paths
 
 
 def load_points_3d(spec: str, center_3d: Optional[str] = None
@@ -235,7 +237,7 @@ def main(argv=None) -> int:
         # full float32 convolutions and matmuls, as the JAX reference
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    imgs, names = load_images(args.images)
+    imgs, names = load_images(args.images, args.device)
     pts3d = load_points_3d(args.points_3d, args.center_3d)
     K = resolve_K(args.K)
     n, h, w = imgs.shape[:3]

@@ -54,6 +54,12 @@ _SIGNATURES = {
                                  _VP],
     "pvnet_shift_lanes": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "pvnet_shift_sublanes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "pvnet_jpeg_pixels": [_VP, _VP, _VP] + [_I] * 10 + [_VP],
+    # host code of jpeg_decode.cu (no stream)
+    "pvnet_jpeg_entropy_decode": [ctypes.c_char_p, ctypes.c_size_t, _VP, _I,
+                                  _VP],
+    "pvnet_png_unfilter": [ctypes.c_char_p, ctypes.c_size_t, _I, _I, _I,
+                           _VP],
 }
 
 _lib = None
@@ -145,15 +151,22 @@ def launch(name: str, device: torch.device, *args) -> None:
     check(err, name)
 
 
-def launch_counts() -> dict:
-    """{kernel: launches so far in this process} of the five kernels' CUDA
-    wrappers (each adds one where it launches its kernel): K1
-    ``stratified_select_cmajor``, K2 ``stratified_select``, K3
+def launch_counters() -> dict:
+    """{kernel: its CUDA wrapper} of the kernels whose wrappers count
+    their launches in ``.launches`` (each adds one where it launches its
+    kernel): K1 ``stratified_select_cmajor``, K2 ``stratified_select``, K3
     ``count_inliers`` and its bf16 mode ``count_inliers_bf16``, K4
-    ``shift_lanes``, K5 ``shift_sublanes``."""
+    ``shift_lanes``, K5 ``shift_sublanes``, and the JPEG decoder's pixel
+    stage ``jpeg_pixels``."""
+    from pvnet_tpu_torch.data import image_io
     from pvnet_tpu_torch.ops import row_shift, select_kernel, voting
     fns = (select_kernel.stratified_select_cmajor,
            select_kernel.stratified_select, voting.count_inliers,
            voting.count_inliers_bf16, row_shift.shift_lanes,
-           row_shift.shift_sublanes)
-    return {fn.__name__: fn.launches for fn in fns}
+           row_shift.shift_sublanes, image_io.jpeg_pixels)
+    return {fn.__name__: fn for fn in fns}
+
+
+def launch_counts() -> dict:
+    """{kernel: launches so far in this process} (:func:`launch_counters`)."""
+    return {name: fn.launches for name, fn in launch_counters().items()}

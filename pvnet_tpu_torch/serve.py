@@ -15,8 +15,10 @@ API:
                              "vn", "weights"}
   POST /pose             -> {"pose": [3,4], "keypoints": [vn,2]}
       body: a .npy array [h, w, 3] (uint8, or float32), or image file
-      bytes (PNG/JPEG), which are decoded only where PIL is installed: a
-      server without PIL answers 415 and names the missing decoder. Raw
+      bytes (PNG/JPEG), decoded by data/image_io (the port's own decoder,
+      on the artifact's device). A body of another size than the
+      artifact's is resized through PIL: a server without PIL answers 415
+      and names the missing library. Raw
       images are ImageNet-normalized here for a float32 artifact (pass
       "X-Normalized: 1" if the payload already is) and sent as uint8 to a
       packed-stem artifact, which normalizes on the device.
@@ -34,6 +36,7 @@ import time
 import numpy as np
 
 from pvnet_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+from pvnet_tpu_torch.data.image_io import decode_rgb_bytes
 
 
 class DecoderMissing(ValueError):
@@ -146,22 +149,18 @@ def _resize(arr: np.ndarray, h: int, w: int) -> np.ndarray:
 
 
 def decode_image(body: bytes, content_type: str, h: int, w: int,
-                 normalized: bool, raw_uint8: bool = False) -> np.ndarray:
+                 normalized: bool, raw_uint8: bool = False,
+                 device="cpu") -> np.ndarray:
     """Request body -> [h, w, 3] float32 ImageNet-normalized, or raw uint8
     for packed-stem artifacts (normalization runs on the device). A .npy
-    body needs nothing else; image files (and resizing) need PIL, and
-    raise :class:`DecoderMissing` without it."""
+    body is loaded, a JPEG or PNG body decoded by data/image_io on
+    ``device``; resizing needs PIL and raises :class:`DecoderMissing`
+    without it."""
     if content_type == "application/x-npy" or body[:6] == b"\x93NUMPY":
         arr = np.load(io.BytesIO(body), allow_pickle=False)
     else:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise DecoderMissing(
-                f"decoding a {content_type or 'non-.npy'} body needs the "
-                f"PIL image decoder, which is not installed; send a .npy "
-                f"array") from e
-        arr = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+        arr = decode_rgb_bytes(body, content_type or "body",
+                               device).cpu().numpy()
     if arr.ndim != 3 or arr.shape[-1] != 3:
         raise ValueError(f"expected an [h, w, 3] image, got {arr.shape}")
     if arr.shape[:2] != (h, w):
@@ -179,7 +178,8 @@ def decode_image(body: bytes, content_type: str, h: int, w: int,
     return (arr - IMAGENET_MEAN) / IMAGENET_STD
 
 
-def make_handler(batcher: PoseBatcher, manifest: dict):
+def make_handler(batcher: PoseBatcher, manifest: dict,
+                 decode_device="cpu"):
     from http.server import BaseHTTPRequestHandler
 
     class Handler(BaseHTTPRequestHandler):
@@ -211,7 +211,8 @@ def make_handler(batcher: PoseBatcher, manifest: dict):
                     self.rfile.read(n), self.headers.get("Content-Type", ""),
                     batcher.h, batcher.w,
                     self.headers.get("X-Normalized") == "1",
-                    raw_uint8=batcher.input_dtype == np.uint8)
+                    raw_uint8=batcher.input_dtype == np.uint8,
+                    device=decode_device)
             except DecoderMissing as e:
                 self._send(415, {"error": str(e)})
                 return
@@ -253,7 +254,8 @@ def serve(export_dir: str, host: str = "0.0.0.0", port: int = 8400,
         input_dtype=np.uint8 if m["input_dtype"] == "uint8" else np.float32)
     try:
         print(f"warmup call: {batcher.warmup():.1f} s", flush=True)
-        httpd = ThreadingHTTPServer((host, port), make_handler(batcher, m))
+        httpd = ThreadingHTTPServer((host, port),
+                                    make_handler(batcher, m, art.device))
         if started is not None:
             started.server, started.batcher = httpd, batcher
             started.set()

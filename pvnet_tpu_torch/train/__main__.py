@@ -1,10 +1,16 @@
 """Train or evaluate PVNet with the port (tools/train.py: its training
 branch with ``--device_data`` — the set held on the device, augmentation on
 the device, channel-major model input and head — and its ``--test_model``
-branch on the synthetic split).
+branch).
 
-  python -m pvnet_tpu_torch.train --synthetic --epochs 3 \\
+  python -m pvnet_tpu_torch.train --linemod_cls cat --data_dir data \\
       [--imagenet_pth resnet18-f37072fd.pth]
+
+  python -m pvnet_tpu_torch.train --linemod_cls cat --data_dir data \\
+      --test_model [--use_test_set] [--occluded] [--truncated] \\
+      [--use_uncertainty_pnp] [--tail_depth 3]
+
+  python -m pvnet_tpu_torch.train --synthetic --epochs 3
 
   python -m pvnet_tpu_torch.train --cfg_file configs/synthetic_train.json \\
       --data assets/duck_views_480x640.npz --buckets 480x640 \\
@@ -12,40 +18,54 @@ branch on the synthetic split).
 
   python -m pvnet_tpu_torch.train --test_model --synthetic \\
       --synthetic_images 2048 --synthetic_occluder_prob 0.5 \\
-      --synthetic_clutter 2 --init assets/duck_ckpt.msgpack \\
-      [--use_uncertainty_pnp] [--tail_depth 3]
+      --synthetic_clutter 2 --init assets/duck_ckpt.msgpack
 
 The network is the recipe's (``network``: resnet18_8s, resnet34_8s,
 resnet50_8s). ``--imagenet_pth`` starts its backbone from a torchvision
 ImageNet checkpoint, the heads from the seeded draw (the reference's
 standard init); ``--init`` starts every weight from a checkpoint.
 
-``--synthetic`` (without ``--test_model``) trains as tools/train.py
---synthetic does: the JAX package's synthetic split
-(data/synthetic.generate_synthetic_linemod, seed 0; only its train and val
-lists are rendered, and cached as an .npz under ``--data_dir``), training
-on the train list (the recipe's ``use_real_train``; the split has no
-render or fuse set) and validating on the val list on the JAX loop's
-schedule, with pose evaluation when the recipe's ``eval_epoch`` says so.
-The port trains on the raw renders; JAX trains on their JPEG round trip.
-The last line is a JSON object: the split's sizes, the generation seconds,
-every epoch's seconds, steps and losses, and the kernels' launches.
+``--linemod_cls CLS`` (without ``--synthetic``) trains on the LINEMOD tree
+under ``--data_dir`` (LINEMOD/, LINEMOD_ORIG/, OCCLUSION_LINEMOD/, the JAX
+package's data.linemod layout) as tools/train.py does: LineModImageDB's
+render set, its real train list (the recipe's ``use_real_train``) and its
+fuse set (``use_fuse``), validated on the val list (or the test list when
+there is none). The whole set is decoded onto the device (data/image_io,
+the port's own JPEG/PNG decoder) and augmented there: the counterpart of
+JAX's ``--device_aug --device_data``, the only training route of the port
+(JAX's host augmentation needs cv2).
+
+``--synthetic`` trains as tools/train.py --synthetic does: the JAX
+package's synthetic split (data/synthetic.generate_synthetic_linemod, seed
+0; only its train and val lists are rendered, and cached as an .npz under
+``--data_dir``), training on the train list and validating on the val list
+on the JAX loop's schedule. The port trains on the raw renders; JAX trains
+on their JPEG round trip.
 
 Otherwise ``--data`` is an .npz with the keys of tools/make_torch_fixture.py:
 images [n, h, w, 3] uint8, masks [n, h, w] uint8, poses [n, 3, 4],
 points_3d [k, 3] and K [3, 3]; the keypoint targets are the projections of
-points_3d. A set smaller than one batch is repeated to fill one.
-Checkpoints go to ``{model_dir}/{epoch}.pth``, which
-``python -m pvnet_tpu_torch.infer --checkpoint`` reads, and the scalar log
-to ``{model_dir}/log.jsonl``.
+points_3d.
 
-``--test_model --synthetic`` generates the test half of the JAX package's
-synthetic split (data/synthetic.generate_synthetic_linemod, seed 0) in the
-order tools/train.py evaluates it (test, then val), caches it as an .npz
-under ``--data_dir``, and evaluates the weights of ``--init`` (or the
-checkpoint ``--load_epoch`` of the model dir) in the recipe's dtype,
-printing the 2D-projection, ADD and 5cm5deg rates. The LINEMOD trees of
-``--normal``, ``--occluded`` and ``--truncated`` are not read yet.
+A training set smaller than one batch is repeated to fill one.
+Checkpoints go to ``{model_dir}/{epoch}.pth`` (default
+data/model/{cls}_{model_name}), which ``python -m pvnet_tpu_torch.infer
+--checkpoint`` reads, and the scalar log to ``{model_dir}/log.jsonl``. The
+last line of a training run is a JSON object: the set's sizes, the
+generation seconds, every epoch's seconds, steps and losses, and the
+kernels' launches.
+
+``--test_model`` evaluates the weights of ``--init`` (or the checkpoint
+``--load_epoch`` of the model dir) in the recipe's dtype, printing the
+2D-projection, ADD and 5cm5deg rates; RANSAC's draws come from
+``--vote_seed``. Without ``--synthetic`` it reads the LINEMOD tree under
+``--data_dir`` as tools/train.py does: the test and val lists of
+``--linemod_cls`` (with ``--normal``, the default), the Occlusion LINEMOD
+test list (``--occluded``, for its 8 classes) and the Truncation LINEMOD
+set with its per-image K (``--truncated``); its last line is a JSON object
+with each set's rates. ``--synthetic`` generates the test half of the
+synthetic split in the order tools/train.py evaluates it (test, then val)
+and caches it as an .npz under ``--data_dir``.
 """
 from __future__ import annotations
 
@@ -59,9 +79,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from pvnet_tpu_torch.config import TrainConfig
+from pvnet_tpu_torch.config import (OCC_LINEMOD_CLS_NAMES, PathConfig,
+                                    TrainConfig)
 from pvnet_tpu_torch.data.dataset import (eval_batches, keypoint_targets,
-                                          load_training_set)
+                                          load_training_set, record_loader)
+from pvnet_tpu_torch.data.linemod import (LineModImageDB,
+                                          OcclusionLineModImageDB,
+                                          TruncatedLineModImageDB)
 from pvnet_tpu_torch.data.synthetic import (evaluation_order,
                                             generate_synthetic_linemod,
                                             split_indices)
@@ -107,7 +131,14 @@ def parse_args(argv=None):
                         "per batch (empty = the reference's 8-px grid)")
     p.add_argument("--model_dir", default=None,
                    help="checkpoint dir (default data/model/"
-                        "duck_{model_name})")
+                        "{cls}_{model_name})")
+    p.add_argument("--linemod_cls", default=None,
+                   help="LINEMOD class: train (or with --test_model "
+                        "evaluate) on the LINEMOD tree under --data_dir; "
+                        "also names the model dir (default duck). The set "
+                        "is decoded onto the device and augmented there, "
+                        "as JAX's --device_aug --device_data: the port has "
+                        "no host augmentation (JAX's needs cv2)")
     p.add_argument("--init", default=None,
                    help="initial weights: a flax msgpack or a .pth")
     p.add_argument("--imagenet_pth", default=None,
@@ -116,7 +147,21 @@ def parse_args(argv=None):
                         "heads stay at their seeded draw")
     p.add_argument("--device", default="cuda")
     p.add_argument("--test_model", action="store_true",
-                   help="evaluate instead of training (needs --synthetic)")
+                   help="evaluate instead of training: the LINEMOD tree's "
+                        "sets, or the synthetic split with --synthetic")
+    p.add_argument("--use_test_set", action="store_true",
+                   help="name the LINEMOD rates test/ instead of val/")
+    p.add_argument("--normal", action="store_true", default=True,
+                   help="evaluate the LINEMOD test and val lists (default)")
+    p.add_argument("--no-normal", dest="normal", action="store_false")
+    p.add_argument("--occluded", action="store_true",
+                   help="also evaluate the Occlusion LINEMOD test list")
+    p.add_argument("--truncated", action="store_true",
+                   help="also evaluate the Truncation LINEMOD set")
+    p.add_argument("--vote_seed", type=int, default=0,
+                   help="seed of RANSAC's draws in the evaluation")
+    p.add_argument("--num_threads", type=int, default=4,
+                   help="loader threads of the evaluation")
     p.add_argument("--use_uncertainty_pnp", action="store_true")
     p.add_argument("--tail_depth", type=int, default=0, choices=(0, 1, 2, 3),
                    help="evaluation decoder tail: 0 plain; 1-3 packed "
@@ -135,7 +180,9 @@ def parse_args(argv=None):
     p.add_argument("--synthetic_clutter", type=int, default=0,
                    help="max clutter objects per image")
     p.add_argument("--data_dir", default=os.path.join(_REPO, "data"),
-                   help="where the generated split is cached")
+                   help="the LINEMOD root (LINEMOD/, LINEMOD_ORIG/, "
+                        "OCCLUSION_LINEMOD/); with --synthetic where the "
+                        "generated split is cached")
     return p.parse_args(argv)
 
 
@@ -191,19 +238,23 @@ def synthetic_train_val(args) -> Tuple[Dict[str, np.ndarray],
     return train, val, gen_s
 
 
+def _eval_state(args, loop: TrainLoop, model_dir: str):
+    """(state, epoch) to evaluate: --init's weights, or the checkpoint
+    --load_epoch of the model dir."""
+    state = loop.init_state(args.init)
+    if args.init:
+        return state, 0
+    state, epoch = load_net(state, model_dir, args.load_epoch)
+    if epoch == 0:
+        raise SystemExit(f"no checkpoint in {model_dir}; give --init")
+    return state, epoch
+
+
 def run_test_model(args, cfg: TrainConfig, model_dir: str, device) -> int:
     """tools/train.py --test_model on the synthetic split."""
-    if not args.synthetic:
-        raise SystemExit("--test_model needs --synthetic: reading LINEMOD "
-                         "trees from disk is not ported yet")
     split, gen_s = synthetic_test_split(args)
     loop = TrainLoop(cfg, model_dir, record_dir=model_dir, device=device)
-    state = loop.init_state(args.init)
-    epoch = 0
-    if not args.init:
-        state, epoch = load_net(state, model_dir, args.load_epoch)
-        if epoch == 0:
-            raise SystemExit(f"no checkpoint in {model_dir}; give --init")
+    state, epoch = _eval_state(args, loop, model_dir)
     n = len(split["images"])
     print(f"evaluating {args.init or model_dir} on {n} images at "
           f"{split['images'].shape[1]}x{split['images'].shape[2]}; "
@@ -214,7 +265,7 @@ def run_test_model(args, cfg: TrainConfig, model_dir: str, device) -> int:
     losses = loop.validate(
         state, eval_batches(split, cfg.test_batch_size), epoch,
         evaluate_pose=True, uncertainty=args.use_uncertainty_pnp,
-        tail_depth=args.tail_depth,
+        tail_depth=args.tail_depth, vote_seed=args.vote_seed,
         evaluator=Evaluator(loop.object_meta(split), device=device))
     eval_s = time.time() - t0
     loop.recorder.close()
@@ -228,6 +279,105 @@ def run_test_model(args, cfg: TrainConfig, model_dir: str, device) -> int:
     return 0
 
 
+def linemod_test_sets(args, cls_name: str, paths: PathConfig, device):
+    """tools/train.py --test_model's sets of the LINEMOD tree:
+    [(name, records, data prefix, per-image K)] for --normal (the test
+    list, then the val list), --occluded (Occlusion LINEMOD's test list,
+    for its classes) and --truncated."""
+    prefix = "test" if args.use_test_set else "val"
+    sets = []
+    if args.normal:
+        db = LineModImageDB(cls_name, has_render_set=False,
+                            has_fuse_set=False, paths=paths, device=device)
+        sets.append((prefix, db.test_real_set + db.val_real_set,
+                     paths.linemod_dir, False))
+    if args.occluded and cls_name in OCC_LINEMOD_CLS_NAMES:
+        odb = OcclusionLineModImageDB(cls_name, paths=paths)
+        sets.append((f"occ_{prefix}", odb.test_real_set,
+                     paths.occlusion_linemod_dir, False))
+    if args.truncated:
+        tdb = TruncatedLineModImageDB(cls_name, paths=paths)
+        sets.append(("trun_test", tdb.set, paths.linemod_dir, True))
+    return sets
+
+
+def run_test_linemod(args, cfg: TrainConfig, cls_name: str, model_dir: str,
+                     device) -> int:
+    """tools/train.py --test_model on the LINEMOD tree under --data_dir."""
+    paths = PathConfig(data_dir=args.data_dir)
+    loop = TrainLoop(cfg, model_dir, record_dir=model_dir, device=device)
+    state, epoch = _eval_state(args, loop, model_dir)
+    meta = loop.linemod_object_meta(cls_name, paths)
+    results = {}
+    for name, records, prefix, own_k in linemod_test_sets(args, cls_name,
+                                                          paths, device):
+        if not records:
+            print(f"{name}: no records under {prefix}", flush=True)
+            continue
+        print(f"testing {name}: {len(records)} images of {cls_name} from "
+              f"{prefix}; {'bf16' if cfg.bf16 else 'f32'}; tail_depth "
+              f"{args.tail_depth}; uncertainty {args.use_uncertainty_pnp}; "
+              f"vote seed {args.vote_seed}; device {device}", flush=True)
+        t0 = time.time()
+        loader = record_loader(records, prefix, cfg.vote_type,
+                               cfg.test_batch_size, cfg.aug_cfg,
+                               use_intrinsic=own_k, device=device,
+                               num_threads=args.num_threads)
+        losses = loop.validate(
+            state, loader, epoch, name, evaluate_pose=True,
+            uncertainty=args.use_uncertainty_pnp,
+            use_camera_intrinsic=own_k, tail_depth=args.tail_depth,
+            vote_seed=args.vote_seed,
+            evaluator=Evaluator(meta, device=device))
+        seconds = time.time() - t0
+        results[name] = {
+            "images": len(records),
+            "proj": losses[f"{name}/scalar/projection_error"],
+            "add": losses[f"{name}/scalar/add"],
+            "cm": losses[f"{name}/scalar/cm"], "evaluate_s": seconds,
+            "images_per_s": len(records) / seconds}
+    loop.recorder.close()
+    print(json.dumps({"class": cls_name, "sets": results,
+                      "dtype": "bf16" if cfg.bf16 else "f32",
+                      "uncertainty": args.use_uncertainty_pnp,
+                      "tail_depth": args.tail_depth,
+                      "vote_seed": args.vote_seed,
+                      "launches": launch_counts()}), flush=True)
+    return 0
+
+
+def linemod_train_val(cfg: TrainConfig, cls_name: str, paths: PathConfig,
+                      device):
+    """(train records, val records) of a class as tools/train.py builds
+    them: the render set, the real train list (use_real_train), the fuse
+    set (use_fuse); the val list, or the test list when there is none."""
+    db = LineModImageDB(cls_name, has_render_set=True,
+                        has_fuse_set=cfg.use_fuse, paths=paths,
+                        device=device)
+    train_db = list(db.render_set)
+    if cfg.use_real_train:
+        train_db += db.train_real_set
+    if cfg.use_fuse:
+        train_db += db.fuse_set
+    val_db = db.val_real_set if db.val_real_set else db.test_real_set
+    return train_db, val_db
+
+
+def array_set(args, cfg: TrainConfig):
+    """(images, masks, hcoords, val split or None, generation seconds) of
+    the array routes: the synthetic split's train and val lists, or the
+    --data .npz."""
+    if not args.synthetic:
+        return load_training_set(args.data) + (None, 0.0)
+    if not cfg.use_real_train:
+        raise SystemExit("no training records: the synthetic split has only "
+                         "its real train list (use_real_train)")
+    train, val, gen_s = synthetic_train_val(args)
+    hcoords = keypoint_targets(train["poses"], train["points_3d"],
+                               train["K"])
+    return train["images"], train["masks"], hcoords, val, gen_s
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = TrainConfig.from_json(args.cfg_file)
@@ -238,38 +388,51 @@ def main(argv=None) -> int:
         # full float32 convolutions and matmuls, as the JAX reference
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    name = f"duck_{cfg.model_name}"
+    cls_name = args.linemod_cls or "duck"
+    name = f"{cls_name}_{cfg.model_name}"
     model_dir = args.model_dir or os.path.join(_REPO, "data", "model", name)
     if args.test_model:
-        return run_test_model(args, cfg, model_dir, device)
-    gen_s, val = 0.0, None
-    if args.synthetic:
-        if not cfg.use_real_train:
-            raise SystemExit("no training records: the synthetic split has "
-                             "only its real train list (use_real_train)")
-        train, val, gen_s = synthetic_train_val(args)
-        images, masks = train["images"], train["masks"]
-        hcoords = keypoint_targets(train["poses"], train["points_3d"],
-                                   train["K"])
-    else:
-        images, masks, hcoords = load_training_set(args.data)
-    n_train = len(images)
-    if len(images) < cfg.train_batch_size:
-        # a set smaller than one batch (the 2-view fixture) is repeated to
-        # fill one, as chip_smoke.py's training phase does
-        tile = np.arange(cfg.train_batch_size) % len(images)
-        images, masks, hcoords = images[tile], masks[tile], hcoords[tile]
-    n_val = len(val["images"]) if val else 0
-    print(f"train set: {len(images)} images at {images.shape[1]}x"
-          f"{images.shape[2]}; batch {cfg.train_batch_size}; "
-          f"{'bf16' if cfg.bf16 else 'f32'}; device {device}", flush=True)
-    if val:
-        print(f"synthetic split: {n_train} train, {n_val} val images; "
-              f"{cfg.network}", flush=True)
+        if args.synthetic:
+            return run_test_model(args, cfg, model_dir, device)
+        return run_test_linemod(args, cfg, cls_name, model_dir, device)
     loop = TrainLoop(cfg, model_dir, record_dir=model_dir,
                      buckets=parse_buckets(args.buckets), device=device)
-    loop.fit(images, masks, hcoords, init=args.init,
-             imagenet_pth=args.imagenet_pth, max_steps=args.steps, val=val)
+    gen_s, n_val = 0.0, 0
+    if args.linemod_cls and not args.synthetic:
+        paths = PathConfig(data_dir=args.data_dir)
+        train_db, val_db = linemod_train_val(cfg, cls_name, paths, device)
+        if not train_db:
+            raise SystemExit(f"no training records of {cls_name} under "
+                             f"{paths.linemod_dir}")
+        n_train, n_val = len(train_db), len(val_db)
+        # a set smaller than one batch is repeated to fill one
+        train_db = [train_db[i % n_train]
+                    for i in range(max(n_train, cfg.train_batch_size))]
+        print(f"train set: {n_train} records of {cls_name} (render, real "
+              f"train, fuse), val: {n_val}; batch {cfg.train_batch_size}; "
+              f"{'bf16' if cfg.bf16 else 'f32'}; {cfg.network}; device "
+              f"{device}", flush=True)
+        loop.fit_records(train_db, val_db, paths.linemod_dir, cls_name,
+                         paths, init=args.init,
+                         imagenet_pth=args.imagenet_pth,
+                         max_steps=args.steps,
+                         num_threads=args.num_threads)
+    else:
+        images, masks, hcoords, val, gen_s = array_set(args, cfg)
+        n_train = len(images)
+        if n_train < cfg.train_batch_size:
+            tile = np.arange(cfg.train_batch_size) % n_train
+            images, masks, hcoords = images[tile], masks[tile], hcoords[tile]
+        n_val = len(val["images"]) if val else 0
+        print(f"train set: {len(images)} images at {images.shape[1]}x"
+              f"{images.shape[2]}; batch {cfg.train_batch_size}; "
+              f"{'bf16' if cfg.bf16 else 'f32'}; device {device}", flush=True)
+        if val:
+            print(f"synthetic split: {n_train} train, {n_val} val images; "
+                  f"{cfg.network}", flush=True)
+        loop.fit(images, masks, hcoords, init=args.init,
+                 imagenet_pth=args.imagenet_pth, max_steps=args.steps,
+                 val=val)
     print(f"checkpoints in {model_dir}", flush=True)
     print(json.dumps({"train_images": n_train, "val_images": n_val,
                       "generate_s": gen_s, "epochs": loop.epoch_log,

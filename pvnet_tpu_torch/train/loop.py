@@ -19,9 +19,13 @@ A run starts from the JAX loop's He fan-out draw, from an ImageNet
 backbone (``imagenet_pth``: the reference's standard init, the heads
 fresh) and/or from the weights of a checkpoint (``init``).
 
-Not ported yet: the host-augmentation and host-batch paths (``PoseDataset``,
-``Prefetcher``) and the intermediate-result dumps of
-``--save_inter_result``.
+The training set comes as arrays (:meth:`TrainLoop.fit`: ``--data``,
+``--synthetic``) or as LINEMOD records read from disk
+(:meth:`TrainLoop.fit_records`: ``train_db``, ``val_db``, ``data_prefix``,
+as the JAX loop's ``fit`` takes them), decoded onto the device by
+data/dataset.load_device_set. That is JAX's ``--device_aug --device_data``
+route, the only one the port has: JAX's host augmentation needs cv2. Not
+ported: the intermediate-result dumps of ``--save_inter_result``.
 """
 from __future__ import annotations
 
@@ -33,9 +37,12 @@ import torch
 
 from pvnet_tpu_torch import pipeline as pl_mod
 from pvnet_tpu_torch.config import (LINEMOD_K, SYMMETRIC_CLS_NAMES,
-                                    TrainConfig, VOTE_TYPE_TO_NUM,
-                                    model_kwargs)
-from pvnet_tpu_torch.data.dataset import ImageSizeBatchSampler, eval_batches
+                                    PathConfig, TrainConfig,
+                                    VOTE_TYPE_TO_NUM, model_kwargs)
+from pvnet_tpu_torch.data.dataset import (ImageSizeBatchSampler, VotingType,
+                                          eval_batches, load_device_set,
+                                          record_loader)
+from pvnet_tpu_torch.data.linemod import LineModModelDB
 from pvnet_tpu_torch.eval.evaluator import Evaluator, ObjectMeta
 from pvnet_tpu_torch.models.pvnet import build_model
 from pvnet_tpu_torch.models.resnet import init_weights
@@ -115,6 +122,15 @@ class TrainLoop:
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in arrays.items()}
 
+    def build_device_dataset_from_records(self, records, data_prefix: str
+                                          ) -> Dict[str, torch.Tensor]:
+        """Decode a record list onto the device (JAX
+        ``build_device_dataset``): frames, masks by the records' rules,
+        the vote type's keypoints, the fuse records' ignore flags; every
+        frame of one size."""
+        return load_device_set(records, data_prefix, self.cfg.vote_type,
+                               self.cfg.aug_cfg, self.device)
+
     # -- steps ------------------------------------------------------------
     def train_epoch_from_data(self, state, data, sampler, epoch: int,
                               max_steps: Optional[int] = None):
@@ -166,11 +182,12 @@ class TrainLoop:
 
     # -- validation -------------------------------------------------------
     def _images(self, batch) -> torch.Tensor:
-        """A loader batch's uint8 images, normalized, [b, h, w, 3] on the
-        loop's device."""
-        return pl_mod.normalize_images(
-            torch.from_numpy(np.ascontiguousarray(batch["image"]))
-            .to(self.device))
+        """A loader batch's uint8 images (an array, or a tensor from a
+        record loader), normalized, [b, h, w, 3] on the loop's device."""
+        image = batch["image"]
+        if not torch.is_tensor(image):
+            image = torch.from_numpy(np.ascontiguousarray(image))
+        return pl_mod.normalize_images(image.to(self.device))
 
     def calibrate_quant(self, state, loader: Iterable[Dict[str, np.ndarray]],
                         num_batches: int = 2) -> Dict[str, torch.Tensor]:
@@ -233,22 +250,23 @@ class TrainLoop:
                  tail_depth: int = 0, tail_quant: bool = False,
                  vote_impl: Optional[str] = None,
                  draws: Optional[Callable[..., Dict[str, torch.Tensor]]]
-                 = None) -> Dict[str, float]:
+                 = None, vote_seed: int = 0) -> Dict[str, float]:
         """(ref val() :177-253) The loss meters of every batch (trainer's
         eval_step) and, with evaluate_pose, the poses of every image
         through the evaluator; returns the averaged scalars, the three
         rates among them.
 
-        ``loader`` yields batches of data.dataset.eval_batches. Poses use
-        LINEMOD_K for every image unless use_camera_intrinsic (then the
-        batch's own K). The draws come from a generator seeded 0 on the
+        ``loader`` yields batches of data.dataset.eval_batches or of a
+        record loader (data.dataset.record_loader). Poses use LINEMOD_K
+        for every image unless use_camera_intrinsic (then the batch's own
+        K). The draws come from a generator seeded ``vote_seed`` on the
         loop's device, or from ``draws(bidx, b, h, w)`` where given (a
         dict of tensors for :meth:`eval_pipeline`'s fwd). The loss meters'
         forward takes per-image int8 scales, as the JAX loop's applies
         without the calibrated collection; the poses use the calibrated
         ones."""
         meters = {k: AverageMeter() for k in _METRICS}
-        gen = torch.Generator(self.device).manual_seed(0)
+        gen = torch.Generator(self.device).manual_seed(vote_seed)
         begin = time.time()
         for bidx, batch in enumerate(loader):
             image = self._images(batch)
@@ -300,6 +318,19 @@ class TrainLoop:
             diameter=float(split["diameter"]),
             symmetric=cls_name in SYMMETRIC_CLS_NAMES, name=cls_name)
 
+    def linemod_object_meta(self, cls_name: str,
+                            paths: PathConfig) -> ObjectMeta:
+        """The evaluator's metadata of a LINEMOD class (JAX
+        ``TrainLoop.object_meta``): the vote type's 3D keypoints, the mesh,
+        the diameter; ADD-S for the symmetric classes."""
+        modeldb = LineModModelDB(paths)
+        return ObjectMeta(
+            points_3d=VotingType.get_pts_3d(
+                self.cfg.vote_type, cls_name, modeldb).astype(np.float32),
+            model_pts=modeldb.get_ply_model(cls_name).astype(np.float32),
+            diameter=modeldb.get_diameter(cls_name),
+            symmetric=cls_name in SYMMETRIC_CLS_NAMES, name=cls_name)
+
     # -- orchestration ----------------------------------------------------
     def fit(self, images: np.ndarray, masks: np.ndarray, hcoords: np.ndarray,
             init: Optional[str] = None, imagenet_pth: Optional[str] = None,
@@ -317,14 +348,56 @@ class TrainLoop:
         when cfg.eval_epoch, the loss meters alone every ``val_inter``
         epochs and after the last epoch."""
         state = self.init_state(init, imagenet_pth)
-        state, begin_epoch = self.resume(state)
         data = self.build_device_dataset(images, masks, hcoords)
+
+        def validate(state, epoch, do_eval):
+            self.validate(state, eval_batches(val, self.cfg.test_batch_size),
+                          epoch, evaluate_pose=do_eval,
+                          evaluator=(Evaluator(self.object_meta(val),
+                                               device=self.device)
+                                     if do_eval else None))
+        return self._fit(state, data, epochs, max_steps,
+                         validate if val is not None else None)
+
+    def fit_records(self, train_db, val_db, data_prefix: str, cls_name: str,
+                    paths: PathConfig, init: Optional[str] = None,
+                    imagenet_pth: Optional[str] = None,
+                    epochs: Optional[int] = None,
+                    max_steps: Optional[int] = None,
+                    num_threads: int = 4) -> trainer_mod.TrainState:
+        """:meth:`fit` from LINEMOD records (JAX ``TrainLoop.fit``,
+        pvnet_tpu/train/loop.py:510): ``train_db`` decoded onto the device
+        from ``data_prefix``, ``val_db`` read batch by batch for the
+        validation pass, the evaluator's metadata from the class's models
+        under ``paths``."""
+        state = self.init_state(init, imagenet_pth)
+        data = self.build_device_dataset_from_records(train_db, data_prefix)
+
+        def validate(state, epoch, do_eval):
+            loader = record_loader(val_db, data_prefix, self.cfg.vote_type,
+                                   self.cfg.test_batch_size,
+                                   self.cfg.aug_cfg, device=self.device,
+                                   num_threads=num_threads)
+            self.validate(state, loader, epoch, evaluate_pose=do_eval,
+                          evaluator=(Evaluator(
+                              self.linemod_object_meta(cls_name, paths),
+                              device=self.device) if do_eval else None))
+        return self._fit(state, data, epochs, max_steps,
+                         validate if val_db else None)
+
+    def _fit(self, state, data, epochs, max_steps, validate
+             ) -> trainer_mod.TrainState:
+        """The epochs of :meth:`fit` and :meth:`fit_records` on a device
+        set; ``validate(state, epoch, evaluate_pose)`` runs the validation
+        pass where given."""
+        state, begin_epoch = self.resume(state)
+        n = len(data["image"])
         sampler = ImageSizeBatchSampler(
-            range(len(images)), self.cfg.train_batch_size, drop_last=True,
+            range(n), self.cfg.train_batch_size, drop_last=True,
             aug_cfg=self.cfg.aug_cfg, buckets=self.buckets,
             seed=self.cfg.seed)
         if len(sampler) == 0:
-            raise ValueError(f"{len(images)} images make no batch of "
+            raise ValueError(f"{n} images make no batch of "
                              f"{self.cfg.train_batch_size}")
         end_epoch = epochs if epochs is not None else self.cfg.epoch_num
         left = max_steps
@@ -338,19 +411,13 @@ class TrainLoop:
             do_eval = (self.cfg.eval_epoch
                        and epoch % self.cfg.eval_inter == 0
                        and epoch >= self.cfg.eval_epoch_begin)
-            if val is not None and (do_eval
-                                    or epoch % self.cfg.val_inter == 0
-                                    or epoch == end_epoch - 1):
-                self.validate(
-                    state, eval_batches(val, self.cfg.test_batch_size),
-                    epoch, evaluate_pose=do_eval,
-                    evaluator=(Evaluator(self.object_meta(val),
-                                         device=self.device)
-                               if do_eval else None))
+            if validate is not None and (do_eval
+                                         or epoch % self.cfg.val_inter == 0
+                                         or epoch == end_epoch - 1):
+                validate(state, epoch, do_eval)
             if left is not None:
                 left -= steps
                 if left <= 0:
                     break
         self.recorder.close()
         return state
-

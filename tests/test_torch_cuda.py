@@ -8,6 +8,8 @@ imports JAX, so run this file there without the conftest:
 
   python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1124,3 +1126,109 @@ def test_resnet50_train_step_on_cuda_equals_cpu(cuda):
     l32g, g32g = step(cuda, torch.float32)
     assert abs(l32g - l32c) <= 1e-3 * abs(l32c)
     assert dist(g32g, g64c) <= 4 * dist(g32c, g64c)
+
+
+# -- the JPEG decoder's pixel kernel (csrc/jpeg_decode.cu) --------------------
+
+_JPEG_GEOMETRIES = [(37, 53, (1, 1, 1), (1, 1, 1)),
+                    (37, 53, (2, 1, 1), (1, 1, 1)),
+                    (37, 53, (2, 1, 1), (2, 1, 1)),
+                    (17, 3, (2, 1, 1), (2, 1, 1)),
+                    (9, 2, (2, 1, 1), (1, 1, 1)),
+                    (1, 1, (2, 1, 1), (2, 1, 1)),
+                    (61, 83, (1,), (1,)),
+                    (40, 72, (2, 2, 2), (1, 1, 1)),
+                    (65, 130, (2, 1, 1), (2, 1, 1)),
+                    (480, 640, (2, 1, 1), (2, 1, 1))]
+_MINI = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "linemod_mini")
+
+
+def _coefficients(geo, b, extreme, seed):
+    g = torch.Generator().manual_seed(seed)
+    n = geo.total_blocks()
+    if extreme:
+        coef = torch.randint(-32768, 32768, (b, n, 64), generator=g)
+        qt = torch.randint(1, 65536, (b, geo.nc, 64), generator=g)
+    else:
+        coef = (torch.randn(b, n, 64, generator=g)
+                * torch.linspace(300, 5, 64)).round()
+        coef[..., 0] = torch.randint(-1024, 1024, (b, n), generator=g)
+        qt = torch.randint(1, 100, (b, geo.nc, 64), generator=g)
+    return coef.to(torch.int16), qt.to(torch.int32)
+
+
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("h,w,hs,vs", _JPEG_GEOMETRIES)
+def test_jpeg_pixels_matches_plain(cuda, h, w, hs, vs, extreme):
+    """Every sampling the kernel takes, tiles cut by the image's edge,
+    planes 1 and 2 samples wide (libjpeg's box upsampling), b=3; with
+    extreme coefficients and 16-bit tables the dequantizing wrap and
+    both saturations. Exact."""
+    from pvnet_tpu_torch.data import image_io as IO
+    geo = IO.JpegGeometry(h, w, hs, vs)
+    coef, qt = _coefficients(geo, 3, extreme, h * w)
+    want = IO.jpeg_pixels_plain(coef, qt, geo)
+    before = IO.jpeg_pixels.launches
+    got = IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo)
+    torch.cuda.synchronize()
+    assert IO.jpeg_pixels.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    out = torch.full((3, h, w, 3), 7, dtype=torch.uint8, device=cuda)
+    IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo, out=out)
+    assert torch.equal(out.cpu(), want)
+
+
+def test_jpeg_pixels_refuses(cuda):
+    from pvnet_tpu_torch.data import image_io as IO
+    geo = IO.JpegGeometry(32, 32, (2, 2, 2), (2, 2, 2))   # 192 tile blocks
+    coef, qt = _coefficients(geo, 1, False, 0)
+    with pytest.raises(IO.ImageDecodeError, match="192 blocks"):
+        IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo)
+    geo = IO.JpegGeometry(16, 16, (1, 1, 1), (1, 1, 1))
+    coef, qt = _coefficients(geo, 1, False, 0)
+    with pytest.raises(TypeError):
+        IO.jpeg_pixels(coef.int().to(cuda), qt.to(cuda), geo)
+    with pytest.raises(ValueError, match="out must be"):
+        IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo,
+                       out=torch.empty((1, 16, 16, 3), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(os.path.join(_MINI,
+                                                                "cases"))))
+def test_jpeg_cases_decode_as_the_plain_decoder(cuda, name):
+    """assets/linemod_mini/cases (4:4:4, 4:2:2, 4:2:0 at odd sizes, gray,
+    restart markers, files cut mid-scan): the C entropy decoder gives the
+    plain Python one's coefficients and tables, and the card's decode the
+    CPU's pixels."""
+    from pvnet_tpu_torch.data import image_io as IO
+    path = os.path.join(_MINI, "cases", name)
+    data = open(path, "rb").read()
+    a = IO.jpeg_coefficients_plain(data, path)
+    b = IO.jpeg_coefficients_native(data, path)
+    assert a.geometry == b.geometry
+    np.testing.assert_array_equal(a.coef, b.coef)
+    np.testing.assert_array_equal(a.qt, b.qt)
+    assert torch.equal(IO.read_rgb(path, cuda).cpu(), IO.read_rgb(path))
+
+
+def test_png_unfilter_matches_plain(cuda):
+    """The C unfilter against the plain one on rows filtered with every
+    filter type (tests/_png_rows.py) and on the tree's masks and
+    Occlusion frames (PIL picks a filter per row)."""
+    from _png_rows import filtered_stream
+    from pvnet_tpu_torch.data import image_io as IO
+    for bpp in (1, 3, 4):
+        rows = np.random.RandomState(bpp).randint(
+            0, 256, (10, 6 * bpp + 1), np.int64).astype(np.uint8)
+        raw = filtered_stream(rows, bpp)
+        np.testing.assert_array_equal(
+            IO.png_unfilter_native(raw, 10, rows.shape[1], bpp), rows)
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(_MINI) for f in fs
+             if f.endswith(".png")]
+    assert len(paths) >= 30
+    for p in paths:
+        data = open(p, "rb").read()
+        np.testing.assert_array_equal(
+            IO.decode_png(data, p, native=True).samples,
+            IO.decode_png(data, p, native=False).samples, err_msg=p)

@@ -82,6 +82,34 @@ def test_cli_with_blender_K_and_center_3d(tmp_path):
         assert a["kps"] == c["kps"] and a["pose"] != c["pose"]
 
 
+def test_cli_reads_jpeg_files(tmp_path):
+    """--images as a glob of JPEG files decodes them with data/image_io
+    (no PIL): the same pixels as the JAX package's reader (cv2) and the
+    same poses as those pixels given as an .npy."""
+    from PIL import Image
+    from pvnet_tpu.data.linemod import read_rgb_np
+    with np.load(FIXTURE) as z:
+        crops = z["images"][:, 200:264, 280:376]
+    for i, crop in enumerate(crops):
+        Image.fromarray(crop).save(tmp_path / f"view{i}.jpg")
+    imgs, names = infer.load_images(str(tmp_path / "view*.jpg"))
+    assert names == [str(tmp_path / f"view{i}.jpg") for i in range(2)]
+    want = np.stack([read_rgb_np(n) for n in names])
+    np.testing.assert_array_equal(imgs, want)
+    np.save(tmp_path / "decoded.npy", want)
+
+    def run(images, out):
+        assert infer.main(["--checkpoint", CKPT, "--images", images,
+                           "--points_3d", FIXTURE, "--device", "cpu",
+                           "--batch", "2", "--output",
+                           str(tmp_path / out)]) == 0
+        return [json.loads(line)
+                for line in (tmp_path / out).read_text().splitlines()]
+    a = run(str(tmp_path / "view*.jpg"), "jpeg.jsonl")
+    b = run(str(tmp_path / "decoded.npy"), "npy.jsonl")
+    assert [r["pose"] for r in a] == [r["pose"] for r in b]
+
+
 @pytest.mark.parametrize("argv,recipe,want", [
     # without --quant the recipe's options, and tools/infer.py passes its
     # quant_mode only with stages

@@ -411,7 +411,8 @@ def test_fixture_regenerates_from_seed():
     assert (stored["masks"].reshape(2, -1).sum(1) > 1000).all()
 
 
-_BLOCKED = ("jax", "flax", "msgpack", "PIL", "pvnet_tpu")
+_BLOCKED = ("jax", "flax", "msgpack", "PIL", "cv2", "pvnet_tpu")
+MINI_DUCK = os.path.join(REPO, "assets", "linemod_mini", "LINEMOD", "duck")
 
 
 def _run_blocked(code, cwd):
@@ -448,6 +449,14 @@ def test_port_imports_and_infers_without_jax(tmp_path):
         "import pvnet_tpu_torch.ops.voting, pvnet_tpu_torch.ops.pnp\n"
         "import pvnet_tpu_torch.pipeline, pvnet_tpu_torch.infer\n"
         "import pvnet_tpu_torch.eval, pvnet_tpu_torch.data.synthetic\n"
+        # the LINEMOD read path: the decoder, the databases, the loaders
+        "import pvnet_tpu_torch.data.linemod, pvnet_tpu_torch.data.dataset\n"
+        "import pvnet_tpu_torch.train.__main__\n"
+        "from pvnet_tpu_torch.data.image_io import read_mask, read_rgb\n"
+        f"mini = {MINI_DUCK!r}\n"
+        "assert read_rgb(mini + '/JPEGImages/000000.jpg').shape == "
+        "(480, 640, 3)\n"
+        "assert read_mask(mini + '/mask/0000.png').shape == (480, 640)\n"
         f"argv = {argv}{str(out3)!r}, '--tail_depth', '3',"
         " '--uncertainty']\n"
         "assert pvnet_tpu_torch.infer.main(argv[1:]) == 0\n"

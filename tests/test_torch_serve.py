@@ -1,8 +1,8 @@
 """The serving daemon of the port (pvnet_tpu_torch/serve.py), mirroring
 tests/test_serve.py: micro-batched HTTP inference over an exported artifact
 (random init, plain path, batch 4 at 64x64 on the CPU); concurrent
-requests share one device call; .npy bodies always decode, image files
-only where PIL imports."""
+requests share one device call; .npy bodies load and JPEG / PNG bodies
+decode through data/image_io without PIL; only resizing needs PIL."""
 import io
 import json
 import socket
@@ -133,15 +133,50 @@ def test_bad_payload_is_4xx(server, body, ctype):
     assert 400 <= ei.value.code < 500
 
 
+def _jpeg(h, w, seed):
+    from PIL import Image
+    arr = np.random.RandomState(seed).randint(0, 255, (h, w, 3), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
 def test_image_body_without_pil_names_the_decoder(server, monkeypatch):
+    """Without PIL a JPEG body of the artifact's size decodes (data/
+    image_io) and is posed; one of another size needs PIL's resize, and
+    the server answers 415 naming it."""
     url, _ = server
+    same, other = _jpeg(64, 64, 4), _jpeg(48, 40, 5)
     monkeypatch.setitem(sys.modules, "PIL", None)
+    out = _post(url, same, {"Content-Type": "image/jpeg"})
+    assert np.isfinite(np.asarray(out["pose"])).all()
     with pytest.raises(urllib.error.HTTPError) as ei:
-        _post(url, b"\x89PNG\r\n\x1a\n", {"Content-Type": "image/png"})
+        _post(url, other, {"Content-Type": "image/jpeg"})
     assert ei.value.code == 415
     assert "PIL" in json.loads(ei.value.read())["error"]
     with pytest.raises(TS.DecoderMissing, match="PIL"):
-        TS.decode_image(b"\xff\xd8\xff", "image/jpeg", 64, 64, False)
+        TS.decode_image(other, "image/jpeg", 64, 64, False)
+
+
+def test_decode_jpeg_and_png_bodies():
+    """JPEG and PNG bodies decode to the pixels PIL gives (the JAX
+    package's readers agree with it on these), raw and normalized."""
+    from PIL import Image
+    body = _jpeg(64, 64, 6)
+    want = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    raw = TS.decode_image(body, "image/jpeg", 64, 64, normalized=False,
+                          raw_uint8=True)
+    assert raw.dtype == np.uint8
+    np.testing.assert_array_equal(raw, want)
+    norm = TS.decode_image(body, "image/jpeg", 64, 64, normalized=False)
+    np.testing.assert_allclose(
+        norm, (want / 255.0 - TS.IMAGENET_MEAN) / TS.IMAGENET_STD,
+        rtol=1e-6, atol=1e-6)
+    buf = io.BytesIO()
+    Image.fromarray(want).save(buf, format="PNG")
+    np.testing.assert_array_equal(
+        TS.decode_image(buf.getvalue(), "image/png", 64, 64, False,
+                        raw_uint8=True), want)
 
 
 def test_decode_raw_uint8():
