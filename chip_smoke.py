@@ -175,7 +175,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
     fields (integers and inlier masks equal; keypoints and poses where
     well conditioned). (l2) ``python -m pvnet_tpu_torch.train --synthetic``
     in a process of its own: configs/synthetic_train.json with pose
-    evaluation from epoch 0, 480x640, a 64-image split (32 train, 6 val
+    evaluation from epoch 0, 480x640, a 64-image split written as the JAX
+    generator's LINEMOD tree and read back from its JPEGs (32 train, 6 val
     images), the backbone from a synthesized resnet18 checkpoint, 10
     epochs of 2 bf16 steps; its last line's launches (K4 twice a step, K1
     and K3 in the two pose evaluations) added in, finite losses; prints
@@ -205,11 +206,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
     1 and 2: each set's three-seed mean of each rate within the JAX
     reference's range over its seeds widened by two images (the
     manifest), K1, K3 and one decode launch per JPEG;
+(n) dataset preparation, on another copy of assets/linemod_mini, against
+    assets/prepare_manifest.json (the sha256 of JAX's and PIL's outputs:
+    JPEG and text bytes, PNG pixels, pickled arrays; written by
+    tools/make_torch_prepare_fixture.py on the CPU): (n1) the C JPEG
+    encoder (csrc/jpeg_encode.cu, host code) equal to its plain numpy
+    version and to PIL's bytes on the 24 duck frames as decoded on the
+    card and at 1x1, 17x3 and 37x53, its ms a frame on one host thread
+    and frames/s on 8; (n2) ``python -m pvnet_tpu_torch.prepare --type
+    truncated`` on the first 13 frames (frame 13 shows no duck), every
+    crop, mask and info pickle equal to JAX's; (n3) ``--type render
+    --linemod_cls duck --num 4`` equal to JAX's (16-bit depth PNGs), then
+    ``python -m pvnet_tpu_torch.train --linemod_cls duck --steps 2`` (bf16,
+    b=16) with those 4 render records in the train list: finite losses,
+    K4 twice a step, the decode kernel launched; (n4) the seven other
+    Occlusion LINEMOD classes made as moved copies of the duck, ``--type
+    gen_mask`` (16 masks) and ``--type fps --linemod_cls duck`` equal to
+    JAX's; (n5) data/synthetic.write_synthetic_linemod of 16 images with
+    README's occluders (0.5, clutter 2) equal to JAX's tree, then ``train
+    --test_model --synthetic`` on it (the tree found, not rewritten): its
+    8 JPEG test frames decoded on the card, K1 and K3 launched, one decode
+    launch a frame. Prints the encoder's ms a frame, the render and
+    truncation seconds and (n3)'s step ms beside the card's name and
+    power limit;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
     bf16 mode with their cold times and (c)'s times at the variants'
     shapes; launches summed over the phases that drive their paths, (j)'s
     programs and server, (k), (l) and (m) included; the JPEG decoder's
-    pixel kernel from (m)), then, as the last line,
+    pixel kernel from (m); (n)'s launches added to each), then, as the
+    last line,
     {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -3525,6 +3550,341 @@ def run_linemod(dev, kernels):
     torch.cuda.empty_cache()
 
 
+# --- phase (n): dataset preparation ------------------------------------------
+
+N_RENDER = 4              # (n3): views of --type render
+N_STEPS = 2               # (n3): bf16 training steps with the render set
+N_SYNTH = 16              # (n5): images of the synthetic tree
+N_SYNTH_OCC = (0.5, 2)    # (n5): README's occluder probability and clutter
+N_ENCODE_EDGES = ((1, 1), (17, 3), (37, 53))      # (n1): edge geometries
+N_ENCODE_SEED = 13
+PREPARE_MANIFEST = os.path.join(REPO, "assets", "prepare_manifest.json")
+# (n4): the seven other Occlusion LINEMOD classes are copies of the duck,
+# each moved by its own offset (metres) in the camera frame
+OCC_OFFSETS = {"ape": (-0.06, -0.04, 0.00), "can": (0.06, -0.04, 0.02),
+               "cat": (-0.06, 0.04, 0.04), "driller": (0.06, 0.04, -0.02),
+               "eggbox": (0.00, -0.05, 0.03), "glue": (0.03, 0.00, -0.03),
+               "holepuncher": (-0.03, 0.02, 0.01)}
+OCC_NUMBERS = {"ape": "001", "can": "004", "cat": "005", "driller": "006",
+               "duck": "007", "eggbox": "008", "glue": "009",
+               "holepuncher": "010"}
+
+
+# (n2): the frames truncated (frame 13 of the 24 shows no duck, where
+# crop_instance fails in JAX's generator and the port's alike)
+N_TRUNC_FRAMES = 13
+
+
+def truncation_tree(src, dst):
+    """A LINEMOD tree under ``dst`` with the duck's mesh, LINEMOD_ORIG
+    files and first N_TRUNC_FRAMES frames and masks of the tree ``src``:
+    what (n2) truncates."""
+    import shutil
+    cls_dir = os.path.join(dst, "LINEMOD", "duck")
+    for sub in ("JPEGImages", "mask"):
+        os.makedirs(os.path.join(cls_dir, sub))
+    shutil.copy(os.path.join(src, "LINEMOD", "duck", "duck.ply"), cls_dir)
+    shutil.copytree(os.path.join(src, "LINEMOD_ORIG"),
+                    os.path.join(dst, "LINEMOD_ORIG"))
+    for k in range(N_TRUNC_FRAMES):
+        for sub, name in (("JPEGImages", f"{k:06}.jpg"),
+                          ("mask", f"{k:04}.png")):
+            shutil.copy(os.path.join(src, "LINEMOD", "duck", sub, name),
+                        os.path.join(cls_dir, sub))
+
+
+def occlusion_scene(root):
+    """Make the Occlusion LINEMOD tree under ``root`` (which has the duck's)
+    hold all eight classes, as ``--type gen_mask`` needs: each other class
+    gets the duck's mesh, xyz model and pose files, its centre moved by
+    OCC_OFFSETS, so that the eight objects occlude each other."""
+    import shutil
+    occ = os.path.join(root, "OCCLUSION_LINEMOD")
+    duck_poses = os.path.join(occ, "poses", "Duck")
+    for cls, off in OCC_OFFSETS.items():
+        d = os.path.join(root, "LINEMOD", cls)
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(root, "LINEMOD", "duck", "duck.ply"),
+                    os.path.join(d, f"{cls}.ply"))
+        d = os.path.join(occ, "models", cls.title())
+        os.makedirs(d, exist_ok=True)
+        shutil.copy(os.path.join(occ, "models", "Duck", "007.xyz"),
+                    os.path.join(d, f"{OCC_NUMBERS[cls]}.xyz"))
+        d = os.path.join(occ, "poses", cls.title())
+        os.makedirs(d, exist_ok=True)
+        for name in sorted(os.listdir(duck_poses)):
+            with open(os.path.join(duck_poses, name)) as f:
+                lines = f.read().split("\n")
+            row = lines.index("center:") + 1
+            t = [float(v) + o for v, o in zip(lines[row].split(), off)]
+            lines[row] = " ".join(f"{v:.9f}" for v in t)
+            with open(os.path.join(d, name), "w") as f:
+                f.write("\n".join(lines))
+
+
+def file_digest(path, read_mask=None):
+    """The sha256 that assets/prepare_manifest.json holds for a file of
+    phase (n): of a PNG its decoded pixels (int32, what
+    np.asarray(Image.open(p), np.int32) gives; ``read_mask`` decodes), of
+    a pickle its arrays (dtype, shape and bytes of each, a list in its
+    order, a dict by sorted key), of any other file its bytes."""
+    import hashlib
+    import pickle
+    import numpy as np
+    h = hashlib.sha256()
+    if path.endswith(".png"):
+        a = np.ascontiguousarray(read_mask(path), np.int32)
+        h.update(str(a.shape).encode() + a.tobytes())
+    elif path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            obj = pickle.load(f)
+        items = obj if isinstance(obj, list) else [obj[k]
+                                                    for k in sorted(obj)]
+        for a in items:
+            a = np.ascontiguousarray(a)
+            h.update(str(a.dtype).encode() + str(a.shape).encode()
+                     + a.tobytes())
+    else:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def tree_digests(root, sub, read_mask):
+    """{path relative to root: file_digest} of every file under root/sub
+    (posedb/ caches excepted)."""
+    out = {}
+    for d, _, files in os.walk(os.path.join(root, sub)):
+        for f in files:
+            p = os.path.join(d, f)
+            rel = os.path.relpath(p, root)
+            if "posedb" not in rel.split(os.sep):
+                out[rel] = file_digest(p, read_mask)
+    return dict(sorted(out.items()))
+
+
+def encode_edge_images():
+    """(n1)'s edge images: {'HxW': uint8 [h, w, 3] noise} from one seed."""
+    import numpy as np
+    rng = np.random.RandomState(N_ENCODE_SEED)
+    return {f"{h}x{w}": rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            for h, w in N_ENCODE_EDGES}
+
+
+def check_encoder(dev, root, manifest):
+    """(n1): the C encoder against its plain version, byte for byte, and
+    both against PIL's bytes (the manifest's sha256), on the 24 duck
+    frames as decoded on the card and on the edge images; host ms a frame
+    on one thread and frames/s on M_POOL threads. Returns the C encoder's
+    ms a frame."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    from pvnet_tpu_torch.data import image_io as IO
+    want = manifest["encode"]
+    frames = {f: IO.read_rgb(os.path.join(root, "LINEMOD", "duck",
+                                          "JPEGImages", f), dev).cpu().numpy()
+              for f in sorted(want["frames"])}
+    cases = [(f, a, want["frames"][f]) for f, a in frames.items()]
+    cases += [(k, a, want["edges"][k])
+              for k, a in encode_edge_images().items()]
+    t_plain = 0.0
+    for name, a, sha in cases:
+        got = IO.encode_jpeg(a, dev)
+        t0 = time.perf_counter()
+        plain = IO.jpeg_encode_plain(a)
+        t_plain += time.perf_counter() - t0
+        assert got == plain, f"(n1) {name}: C encoder != plain encoder"
+        assert hashlib.sha256(got).hexdigest() == sha, \
+            f"(n1) {name}: the encoder's bytes differ from PIL's"
+    imgs = list(frames.values())
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for a in imgs:
+            IO.jpeg_encode_native(a)
+    ms = (time.perf_counter() - t0) / (reps * len(imgs)) * 1e3
+    with ThreadPoolExecutor(M_POOL) as pool:
+        list(pool.map(IO.jpeg_encode_native, imgs))
+        t0 = time.perf_counter()
+        list(pool.map(IO.jpeg_encode_native, imgs * 4 * reps))
+        fps = 4 * reps * len(imgs) / (time.perf_counter() - t0)
+    h, w = imgs[0].shape[:2]
+    print(f"(n1) C JPEG encoder == plain encoder == PIL's bytes (sha256) on "
+          f"the {len(imgs)} duck frames decoded on the card and at "
+          f"{', '.join(want['edges'])}; C {ms:.3f} ms per {h}x{w} frame on "
+          f"one host thread, {fps:.1f} frames/s on {M_POOL} threads; plain "
+          f"{t_plain / len(cases) * 1e3:.1f} ms a case; {SMI}", flush=True)
+    return ms
+
+
+def check_digests(got, want, what):
+    assert sorted(got) == sorted(want), \
+        f"{what}: other files {sorted(set(got) ^ set(want))[:6]}"
+    bad = [k for k in want if got[k] != want[k]]
+    assert not bad, f"{what}: {len(bad)} files differ from JAX's, e.g. " \
+        f"{bad[:4]}"
+
+
+def run_prepare_cli(argv):
+    """python -m pvnet_tpu_torch.prepare ``argv`` in this process; returns
+    the seconds it took."""
+    import contextlib
+    import io
+    from pvnet_tpu_torch import prepare
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = prepare.main(argv)
+    assert rc == 0, f"prepare {argv} exited {rc}"
+    return time.time() - t0
+
+
+def generated_frame_ms(dev, occ, clutter, frames=4):
+    """(render ms, encode ms) of one generated frame of the synthetic tree
+    on one host thread: the z-buffer render of the duck with its
+    distractors, and its JPEG encoding on ``dev``; means over ``frames``."""
+    import numpy as np
+    from pvnet_tpu_torch.config import LINEMOD_K
+    from pvnet_tpu_torch.data import image_io as IO
+    from pvnet_tpu_torch.data import synthetic as S
+    rng = np.random.RandomState(1)
+    dmeshes = [S.make_distractor_mesh(rng) for _ in range(8)]
+    mesh = S.make_duck_mesh()
+    render = encode = 0.0
+    for _ in range(frames):
+        pose = S.sample_object_pose(rng)
+        distractors = S.sample_distractors(pose, rng, dmeshes, occ, clutter)
+        t0 = time.perf_counter()
+        rgb, _ = S.render_synthetic_view(mesh, pose, LINEMOD_K, H, W, rng,
+                                         distractors)
+        t1 = time.perf_counter()
+        IO.encode_jpeg(rgb, dev)
+        render += t1 - t0
+        encode += time.perf_counter() - t1
+    return render / frames * 1e3, encode / frames * 1e3
+
+
+def run_preparation(dev, kernels):
+    """Phase (n): dataset preparation on a copy of assets/linemod_mini (see
+    the module docstring)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.data import image_io as IO
+    from pvnet_tpu_torch.data.synthetic import write_synthetic_linemod
+    with open(PREPARE_MANIFEST) as f:
+        manifest = json.load(f)
+
+    def read_mask(p):
+        return IO.read_mask(p, dev)
+
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        root = os.path.join(tmp, "data")
+        shutil.copytree(LINEMOD_MINI, root)
+        enc_ms = check_encoder(dev, root, manifest)
+        # (n2)
+        trunc = os.path.join(tmp, "trunc")
+        truncation_tree(root, trunc)
+        trunc_s = run_prepare_cli(["--type", "truncated", "--data_dir", trunc,
+                                   "--device", str(dev)])
+        check_digests(tree_digests(trunc, "LINEMOD/truncated", read_mask),
+                      manifest["truncated"], "(n2) --type truncated")
+        print(f"(n2) python -m pvnet_tpu_torch.prepare --type truncated: "
+              f"{N_TRUNC_FRAMES} frames cropped in {trunc_s:.2f} s; "
+              f"{len(manifest['truncated'])} files equal JAX's (JPEG bytes, "
+              f"PNG pixels, pickled pose and K)", flush=True)
+        # (n3)
+        render_s = run_prepare_cli(["--type", "render", "--linemod_cls",
+                                    "duck", "--num", str(N_RENDER),
+                                    "--data_dir", root, "--device", str(dev)])
+        check_digests(tree_digests(root, "LINEMOD/renders", read_mask),
+                      manifest["render"], "(n3) --type render")
+        reset_all_counters()
+        summary, wall, _ = run_cli([
+            "--linemod_cls", "duck", "--data_dir", root, "--init", CKPT,
+            "--steps", str(N_STEPS), "--buckets", f"{H}x{W}", "--model_dir",
+            os.path.join(tmp, "model"), "--device", str(dev)])
+        counts = read_all_counters()
+        losses = [x for e in summary["epochs"] for x in e["losses"]]
+        steps = sum(e["steps"] for e in summary["epochs"])
+        with open(os.path.join(root, "LINEMOD", "duck", "train.txt")) as f:
+            n_real = sum(1 for line in f if line.strip())
+        assert summary["train_images"] == N_RENDER + n_real, summary
+        assert steps == N_STEPS and len(losses) == steps, summary["epochs"]
+        assert all(np.isfinite(losses)), losses
+        assert counts["shift_lanes"] == 2 * steps, counts
+        assert counts["jpeg_pixels"] >= 1, counts
+        add_launches(kernels, counts)
+        step_ms = [e["seconds"] / e["steps"] * 1e3 for e in summary["epochs"]]
+        print(f"(n3) --type render --num {N_RENDER}: rendered in "
+              f"{render_s:.2f} s, {len(manifest['render'])} files equal "
+              f"JAX's (16-bit depth PNGs by their pixels); --linemod_cls duck "
+              f"with the render set: {summary['train_images']} train records "
+              f"({N_RENDER} render + {n_real} real), {steps} bf16 steps at "
+              f"{H}x{W}, loss {losses[0]:.5f} -> {losses[-1]:.5f}, epoch ms "
+              f"a step {[round(v, 1) for v in step_ms]} (the first with "
+              f"cuDNN's tuning); launches {counts}; {wall:.1f} s; {SMI}",
+              flush=True)
+        # (n4)
+        occlusion_scene(root)
+        mask_s = run_prepare_cli(["--type", "gen_mask", "--data_dir", root,
+                                  "--device", str(dev)])
+        check_digests(tree_digests(root, "OCCLUSION_LINEMOD/masks_gen",
+                                   read_mask),
+                      manifest["gen_mask"], "(n4) --type gen_mask")
+        fps_s = run_prepare_cli(["--type", "fps", "--linemod_cls", "duck",
+                                 "--data_dir", root, "--device", str(dev)])
+        check_digests({k: file_digest(os.path.join(root, k))
+                       for k in manifest["fps"]}, manifest["fps"],
+                      "(n4) --type fps")
+        print(f"(n4) --type gen_mask: {len(manifest['gen_mask'])} masks of "
+              f"8 classes equal JAX's in {mask_s:.2f} s; --type fps: "
+              f"farthest.txt equal in {fps_s:.2f} s", flush=True)
+        # (n5)
+        occ, clutter = N_SYNTH_OCC
+        synth_dir = os.path.join(tmp, "synth")
+        synth = os.path.join(synth_dir, "synthetic_occ")
+        t0 = time.time()
+        write_synthetic_linemod(synth, "duck", num_images=N_SYNTH,
+                                occluder_prob=occ, max_clutter=clutter,
+                                device=dev,
+                                workers=len(os.sched_getaffinity(0)))
+        synth_s = time.time() - t0
+        check_digests(tree_digests(synth, "", read_mask),
+                      manifest["synthetic"], "(n5) write_synthetic_linemod")
+        render_ms, encode_ms = generated_frame_ms(dev, occ, clutter)
+        reset_all_counters()
+        out, wall, _ = run_cli([
+            "--test_model", "--synthetic", "--synthetic_images",
+            str(N_SYNTH), "--synthetic_occluder_prob", str(occ),
+            "--synthetic_clutter", str(clutter), "--init", CKPT,
+            "--data_dir", synth_dir, "--model_dir",
+            os.path.join(tmp, "model_test"), "--device", str(dev)])
+        counts = read_all_counters()
+        rates = out["sets"]["val"]
+        n_test = N_SYNTH - max(1, int(N_SYNTH * 0.5))
+        assert out["generate_s"] == 0.0, out      # the tree was there
+        assert rates["images"] == n_test, rates
+        assert counts["stratified_select_cmajor"] >= 1, counts
+        assert counts["count_inliers"] >= 1, counts
+        assert counts["jpeg_pixels"] == n_test, counts
+        add_launches(kernels, counts)
+        print(f"(n5) write_synthetic_linemod({N_SYNTH} images, occluder_prob "
+              f"{occ}, clutter {clutter}): {len(manifest['synthetic'])} files "
+              f"equal JAX's tree, written in {synth_s:.2f} s; one generated "
+              f"{H}x{W} frame on one host thread: render {render_ms:.1f} ms, "
+              f"JPEG encoding {encode_ms:.2f} ms ("
+              f"{100 * encode_ms / (render_ms + encode_ms):.1f} %); --synthetic "
+              f"--test_model on its {n_test} JPEG test frames: proj "
+              f"{rates['proj']:.4f} add {rates['add']:.4f} cm "
+              f"{rates['cm']:.4f}; launches {counts}; {wall:.1f} s",
+              flush=True)
+        print(f"(n) encoder {enc_ms:.3f} ms a frame; render {render_s:.2f} s "
+              f"for {N_RENDER} views; truncation {trunc_s:.2f} s for "
+              f"{N_TRUNC_FRAMES} frames; {SMI}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3577,6 +3937,7 @@ def main() -> int:
     phase("(l) model family, training, study", run_family, dev, fixture,
           kernels)
     phase("(m) LINEMOD from disk", run_linemod, dev, kernels)
+    phase("(n) dataset preparation", run_preparation, dev, kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -22,12 +22,16 @@ Subpackages
 - ``pvnet_tpu_torch.ops``    : geometry, voting, PnP, the packed tail, row
   shifts, the kernel wrappers, and (numpy) FPS and the mesh rasterizer.
 - ``pvnet_tpu_torch.data``   : device augmentation, vertex targets, the
-  batch sampler, PLY meshes and the synthetic split generator.
+  batch sampler, PLY meshes, the synthetic split generator and tree
+  writer, JPEG/PNG decoding and writing, the LINEMOD databases and the
+  render-set and truncated-set generators.
 - ``pvnet_tpu_torch.eval``   : pose metrics and the accumulating
   evaluator.
 - ``pvnet_tpu_torch.train``  : losses, the train step, checkpoints, the
   recorder, the loop and its validation pass; ``python -m
-  pvnet_tpu_torch.train`` trains, and evaluates with ``--test_model``.
+  pvnet_tpu_torch.train`` trains, and evaluates with ``--test_model``;
+  ``python -m pvnet_tpu_torch.prepare`` prepares datasets
+  (tools/prepare.py).
 - ``pvnet_tpu_torch.utils``  : the flax-msgpack checkpoint reader and the
   weight mapping both ways.
 - ``pvnet_tpu_torch.csrc``   : the CUDA C++ kernel sources.

@@ -1,5 +1,6 @@
-"""JPEG and PNG decoding without PIL or cv2: the port's counterparts of
-pvnet_tpu/data/linemod.py's ``read_rgb_np`` (:43) and ``read_mask_np`` (:56).
+"""JPEG and PNG decoding and writing without PIL or cv2: the port's
+counterparts of pvnet_tpu/data/linemod.py's ``read_rgb_np`` (:43) and
+``read_mask_np`` (:56), and of the PIL saves of its data generators.
 
 The JAX package reads frames with ``cv2.imread`` (libjpeg-turbo, libpng)
 and masks with PIL. The GPU host has neither, so the port decodes itself,
@@ -43,15 +44,32 @@ device the C and CUDA code always run, and a failed build or launch
 raises; nothing falls back to PIL or cv2.
 
 PNG: ``zlib`` inflates, the unfilter undoes filter types 0-4, for bit
-depths 1, 2, 4 and 8 and colour types 0, 2, 3, 4 and 6 (not interlaced).
-:func:`read_rgb` returns what ``cv2.imread(p, IMREAD_COLOR)`` gives in RGB
-order (palette expanded, alpha dropped, gray repeated to three channels,
-gray below 8 bits scaled to 0-255); :func:`read_mask` what
+depths 1, 2, 4 and 8 and colour types 0, 2, 3, 4 and 6, and gray (colour
+type 0) at bit depth 16, big-endian, as the JAX package's renderer writes
+its depth maps (not interlaced). :func:`read_rgb` returns what
+``cv2.imread(p, IMREAD_COLOR)`` gives in RGB order (palette expanded,
+alpha dropped, gray repeated to three channels, gray below 8 bits scaled
+to 0-255, 16-bit gray shifted down by 8 bits); :func:`read_mask` what
 ``np.asarray(Image.open(p), np.int32)`` gives (palette indices, 0/1 for a
-1-bit image, the channels of a colour image).
+1-bit image, the 16-bit values of a 16-bit image, the channels of a
+colour image).
+
+Writing, for dataset preparation (the JAX package writes with PIL):
+:func:`encode_jpeg` / :func:`write_jpeg` give, byte for byte, the file
+``PIL.Image.fromarray(a).save(p)`` writes for a ``.jpg`` (libjpeg-turbo at
+its defaults: JFIF header, quality 75 on the standard tables, 4:2:0 for
+RGB with libjpeg's h2v2 downsampling, the islow forward DCT, quantization
+by reciprocal, the standard Huffman tables). The plain version is numpy
+(:func:`jpeg_encode_plain`); the C version is host code in
+csrc/jpeg_encode.cu (:func:`jpeg_encode_native`), chosen as the decoder's
+are: on a CUDA device the C code runs or the call raises, on the CPU the
+plain version. :func:`encode_png` / :func:`write_png` write 8-bit gray,
+8-bit RGB and 16-bit gray PNGs with stdlib ``zlib``, which PIL decodes to
+the pixels given (the bytes differ from PIL's own files).
 """
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -707,9 +725,10 @@ _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 @dataclass
 class PngImage:
-    """Unfiltered samples of a PNG: ``samples`` uint8 [h, w, channels]
+    """Unfiltered samples of a PNG: ``samples`` [h, w, channels], uint8
     (palette indices for colour type 3, values as stored for bit depths
-    below 8), with the header fields and the palette [n, 3]."""
+    below 8) or uint16 at bit depth 16, with the header fields and the
+    palette [n, 3]."""
     samples: np.ndarray
     color_type: int
     bit_depth: int
@@ -739,8 +758,9 @@ def _png_chunks(data: bytes, name: str):
     w, h, depth, ctype, _, _, interlace = ihdr
     if interlace:
         raise ImageDecodeError(f"{name}: interlaced PNG is not supported")
-    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8) or (
-            ctype in (2, 4, 6) and depth != 8):
+    if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16) or (
+            ctype in (2, 4, 6) and depth != 8) or (
+            depth == 16 and ctype != 0):
         raise ImageDecodeError(f"{name}: PNG colour type {ctype} at bit "
                                f"depth {depth} is not supported")
     if ctype == 3 and plte is None:
@@ -821,7 +841,10 @@ def decode_png(data: bytes, name: str = "<bytes>",
         raise ImageDecodeError(f"{name}: PNG data does not inflate: {e}")
     unfilter = png_unfilter_native if native else png_unfilter_plain
     rows = unfilter(raw, h, row_bytes, bpp)
-    if depth < 8:
+    if depth == 16:                       # big-endian 2-byte samples
+        rows = rows.reshape(h, w * ch, 2).astype(np.uint16)
+        rows = (rows[..., 0] << 8) | rows[..., 1]
+    elif depth < 8:
         bits = np.unpackbits(rows, axis=1)[:, :w * depth]
         weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
         rows = (bits.reshape(h, w, depth) * weights).sum(-1).astype(
@@ -839,7 +862,9 @@ def png_to_rgb(img: PngImage) -> np.ndarray:
         return pal[s[..., 0]]
     if img.color_type in (0, 4):
         g = s[..., 0]
-        if img.bit_depth < 8:
+        if img.bit_depth == 16:
+            g = (g >> 8).astype(np.uint8)
+        elif img.bit_depth < 8:
             g = (g * (255 // ((1 << img.bit_depth) - 1))).astype(np.uint8)
         return np.repeat(g[..., None], 3, -1)
     return np.ascontiguousarray(s[..., :3])
@@ -848,7 +873,8 @@ def png_to_rgb(img: PngImage) -> np.ndarray:
 def png_to_mask(img: PngImage) -> np.ndarray:
     """``np.asarray(Image.open(p), np.int32)`` of a decoded PNG: palette
     indices, 0/1 for 1-bit gray, gray below 8 bits scaled as PIL's
-    unpackers scale it, the channels of a colour image."""
+    unpackers scale it, 16-bit gray as stored, the channels of a colour
+    image."""
     s = img.samples.astype(np.int32)
     if img.color_type == 0 and img.bit_depth == 1:
         return s[..., 0]
@@ -984,3 +1010,349 @@ def decode_rgb_batch(paths: Sequence[str], device="cpu") -> torch.Tensor:
                       device=device)
     decode_rgb_into(paths, out)
     return out
+
+
+# -- writing: JPEG as PIL writes it, PNG through zlib ------------------------
+
+# libjpeg's standard quantization tables (jcparam.c, natural order), scaled
+# to quality 75 (jpeg_set_quality: scale factor 50, clamped to 1..255)
+_STD_QUANT = (np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.int64), np.array([
+        17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+        24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+        + [99] * 32, np.int64))
+QUALITY_75_TABLES = tuple(np.clip((t * 50 + 50) // 100, 1, 255)
+                          for t in _STD_QUANT)
+
+# the standard Huffman tables (jstdhuff.c): code counts by length, symbols
+_DC_BITS = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+            (0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0))
+_DC_VALS = bytes(range(12))
+_AC_BITS = ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D),
+            (0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77))
+_AC_VALS = (bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
+    "4a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
+    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
+    "f9fa"), bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa"))
+_ZIGZAG = NATURAL_ORDER[:64]
+
+# jccolor.c rgb_ycc_start's weights; Cb and Cr round with ONE_HALF - 1
+_RGB_Y = (_fix(0.29900), _fix(0.58700), _fix(0.11400))
+_RGB_CB = (-_fix(0.16874), -_fix(0.33126), _fix(0.50000))
+_RGB_CR = (_fix(0.50000), -_fix(0.41869), -_fix(0.08131))
+_CBCR_ROUND = (128 << SCALEBITS) + ONE_HALF - 1
+
+
+def _reciprocal(divisor: int) -> Tuple[int, int, int]:
+    """jcdctmgr.c compute_reciprocal for a 16-bit DCTELEM: (recip, corr,
+    shift) with round(x / divisor) = ((x + corr) * recip) >> shift for
+    x >= 0."""
+    b = divisor.bit_length() - 1
+    r = 16 + b
+    fq, fr = divmod(1 << r, divisor)
+    c = divisor // 2
+    if fr == 0:
+        fq, r = fq >> 1, r - 1
+    elif fr <= divisor // 2:
+        c += 1
+    else:
+        fq += 1
+    return fq, c, r
+
+
+def _descale(x, n: int):
+    return (x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d, first: bool):
+    """One 8-point pass of jfdctint.c jpeg_fdct_islow over the int64
+    arrays d[0..7] (rows: outputs scaled up by 2**PASS1_BITS; columns:
+    that scaling removed)."""
+    t0, t7 = d[0] + d[7], d[0] - d[7]
+    t1, t6 = d[1] + d[6], d[1] - d[6]
+    t2, t5 = d[2] + d[5], d[2] - d[5]
+    t3, t4 = d[3] + d[4], d[3] - d[4]
+    t10, t13 = t0 + t3, t0 - t3
+    t11, t12 = t1 + t2, t1 - t2
+    out = [None] * 8
+    if first:
+        out[0], out[4] = (t10 + t11) << PASS1_BITS, (t10 - t11) << PASS1_BITS
+        n = CONST_BITS - PASS1_BITS
+    else:
+        out[0] = _descale(t10 + t11, PASS1_BITS)
+        out[4] = _descale(t10 - t11, PASS1_BITS)
+        n = CONST_BITS + PASS1_BITS
+    z1 = (t12 + t13) * FIX_0_541196100
+    out[2] = _descale(z1 + t13 * FIX_0_765366865, n)
+    out[6] = _descale(z1 - t12 * FIX_1_847759065, n)
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * FIX_1_175875602
+    z1 = z1 * -FIX_0_899976223
+    z2 = z2 * -FIX_2_562915447
+    z3 = z3 * -FIX_1_961570560 + z5
+    z4 = z4 * -FIX_0_390180644 + z5
+    out[7] = _descale(t4 * FIX_0_298631336 + z1 + z3, n)
+    out[5] = _descale(t5 * FIX_2_053119869 + z2 + z4, n)
+    out[3] = _descale(t6 * FIX_3_072711026 + z2 + z3, n)
+    out[1] = _descale(t7 * FIX_1_501321110 + z1 + z4, n)
+    return out
+
+
+def _fdct_quantize(plane: np.ndarray, table: np.ndarray) -> np.ndarray:
+    """Level shift, jpeg_fdct_islow and quantization of every 8x8 block of
+    a plane (int64 [8 * rows, 8 * cols]) -> [rows, cols, 64] in natural
+    order."""
+    h, w = plane.shape
+    blk = (plane - 128).reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+    rows = np.stack(_fdct_1d([blk[..., c] for c in range(8)], True), -1)
+    coef = np.stack(_fdct_1d([rows[..., r, :] for r in range(8)], False),
+                    -2).reshape(h // 8, w // 8, 64)
+    recip, corr, shift = (np.array(v, np.int64) for v in zip(
+        *[_reciprocal(int(q) * 8) for q in table]))
+    q = ((np.abs(coef) + corr) * recip) >> shift
+    return np.where(coef < 0, -q, q)
+
+
+def _pad_edges(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    return np.pad(a, ((0, h - a.shape[0]), (0, w - a.shape[1])), mode="edge")
+
+
+def _huff_codes(bits, vals) -> Tuple[np.ndarray, np.ndarray]:
+    """(code, size) [256] of a canonical Huffman table by symbol."""
+    code = np.zeros(256, np.int64)
+    size = np.zeros(256, np.int64)
+    c = k = 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code[vals[k]], size[vals[k]] = c, length
+            c, k = c + 1, k + 1
+        c <<= 1
+    return code, size
+
+
+def _magnitude_bits(v: np.ndarray) -> np.ndarray:
+    """Bits of |v| (JPEG's magnitude category)."""
+    a = np.abs(v)
+    n = np.zeros(a.shape, np.int64)
+    while a.any():
+        n += a > 0
+        a = a >> 1
+    return n
+
+
+def _entropy_code(zz: np.ndarray, dcdiff: np.ndarray,
+                  tab: np.ndarray) -> bytes:
+    """jchuff.c encode_one_block over blocks in scan order (zigzag
+    coefficients int64 [N, 64], DC differences [N], Huffman table 0/1 of
+    each block) with the standard tables, vectorized: every code and its
+    extra bits become (value, length) items ordered by (block, position),
+    then one bit stream, the last byte padded with 1 bits and every 0xFF
+    followed by a stuffed 0x00."""
+    dc = [_huff_codes(_DC_BITS[t], _DC_VALS) for t in (0, 1)]
+    ac = [_huff_codes(_AC_BITS[t], _AC_VALS[t]) for t in (0, 1)]
+    dc_code, dc_size = (np.stack([dc[0][i], dc[1][i]]) for i in (0, 1))
+    ac_code, ac_size = (np.stack([ac[0][i], ac[1][i]]) for i in (0, 1))
+    n = zz.shape[0]
+    blocks = np.arange(n)
+    stride = 65 * 8               # a block's keys: 8 slots per position
+    keys, vals, lens = [], [], []
+
+    def emit(key, val, length):
+        keys.append(key)
+        vals.append(val)
+        lens.append(length)
+
+    nb = _magnitude_bits(dcdiff)
+    emit(blocks * stride, dc_code[tab, nb], dc_size[tab, nb])
+    emit(blocks * stride + 1,
+         np.where(dcdiff < 0, dcdiff - 1, dcdiff) & ((1 << nb) - 1), nb)
+    bi, ki = np.nonzero(zz[:, 1:])
+    k = ki + 1
+    first = np.ones(len(bi), bool)
+    first[1:] = bi[1:] != bi[:-1]
+    run = k - np.where(first, 0, np.concatenate([[0], k[:-1]])) - 1
+    v = zz[bi, k]
+    nb = _magnitude_bits(v)
+    t = tab[bi]
+    for j in range(3):            # ZRL codes: 16 zeros each
+        m = (run >> 4) > j
+        emit(bi[m] * stride + k[m] * 8 + j, ac_code[t[m], 0xF0],
+             ac_size[t[m], 0xF0])
+    sym = ((run & 15) << 4) | nb
+    emit(bi * stride + k * 8 + 4, ac_code[t, sym], ac_size[t, sym])
+    emit(bi * stride + k * 8 + 5, np.where(v < 0, v - 1, v) & ((1 << nb) - 1),
+         nb)
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, bi, k)
+    m = last < 63                 # EOB after the last nonzero coefficient
+    emit(blocks[m] * stride + 64 * 8, ac_code[tab[m], 0], ac_size[tab[m], 0])
+    order = np.argsort(np.concatenate(keys))
+    vals = np.concatenate(vals)[order]
+    lens = np.concatenate(lens)[order]
+    total = int(lens.sum())
+    item = np.repeat(np.arange(len(lens)), lens)
+    bit = np.arange(total) - (np.cumsum(lens) - lens)[item]
+    stream = (vals[item] >> (lens[item] - 1 - bit)) & 1
+    stream = np.concatenate([stream, np.ones(-total % 8, np.int64)])
+    by = np.packbits(stream.astype(np.uint8))
+    ff = by == 0xFF
+    out = np.repeat(by, 1 + ff)
+    out[(np.cumsum(1 + ff) - 1)[ff]] = 0
+    return out.tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def _jpeg_headers(h: int, w: int) -> bytes:
+    """SOI through SOS as libjpeg writes them for PIL's defaults (YCbCr,
+    4:2:0: luma 2x2 on table 0, chroma 1x1 on table 1)."""
+    out = b"\xff\xd8" + _segment(
+        0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for t in (0, 1):
+        out += _segment(0xDB, bytes([t]) + bytes(
+            QUALITY_75_TABLES[t][_ZIGZAG].astype(np.uint8)))
+    out += _segment(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+                    + b"\x01\x22\x00\x02\x11\x01\x03\x11\x01")
+    for t in (0, 1):
+        out += _segment(0xC4, bytes([t] + list(_DC_BITS[t])) + _DC_VALS)
+        out += _segment(0xC4, bytes([0x10 | t] + list(_AC_BITS[t]))
+                        + _AC_VALS[t])
+    return out + _segment(0xDA, b"\x03\x01\x00\x02\x11\x03\x11"
+                          b"\x00\x3f\x00")
+
+
+def _check_encode(pixels: np.ndarray) -> np.ndarray:
+    a = np.asarray(pixels)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"JPEG encoding takes RGB uint8 [h, w, 3]; got "
+                         f"{a.dtype} {a.shape}")
+    if not (1 <= a.shape[0] <= 65535 and 1 <= a.shape[1] <= 65535):
+        raise ValueError(f"JPEG image size {a.shape[:2]} out of range")
+    return np.ascontiguousarray(a)
+
+
+def jpeg_encode_plain(pixels: np.ndarray) -> bytes:
+    """Plain (numpy) JPEG encoder: the file PIL writes for ``pixels``
+    RGB uint8 [h, w, 3] at its defaults."""
+    a = _check_encode(pixels).astype(np.int64)
+    H, W = a.shape[:2]
+    r, g, b = a[..., 0], a[..., 1], a[..., 2]
+    y = (_RGB_Y[0] * r + _RGB_Y[1] * g + _RGB_Y[2] * b + ONE_HALF) >> 16
+    mx, my = -(-W // 16), -(-H // 16)
+    lwb, lhb = -(-W // 8), -(-H // 8)
+    yq = _fdct_quantize(_pad_edges(y, 16 * my, 16 * mx), QUALITY_75_TABLES[0])
+    # jccoefct.c's dummy blocks past the luma plane: zero, with the DC of
+    # the block to the left (right edge) or of the MCU's upper-right block
+    # (bottom row)
+    if lwb % 2:
+        yq[:, lwb] = 0
+        yq[:, lwb, 0] = yq[:, lwb - 1, 0]
+    if lhb % 2:
+        yq[lhb] = 0
+        yq[lhb, 0::2, 0] = yq[lhb, 1::2, 0] = yq[lhb - 1, 1::2, 0]
+    chroma = []
+    for wts in (_RGB_CB, _RGB_CR):
+        c = (wts[0] * r + wts[1] * g + wts[2] * b + _CBCR_ROUND) >> 16
+        # h2v2_downsample of the image padded to even rows and 16 * mx
+        # columns; the prep controller then replicates the last row
+        c = _pad_edges(c, 2 * -(-H // 2), 16 * mx)
+        s = c[0::2, 0::2] + c[0::2, 1::2] + c[1::2, 0::2] + c[1::2, 1::2]
+        s = (s + np.tile([1, 2], 4 * mx)) >> 2
+        chroma.append(_fdct_quantize(_pad_edges(s, 8 * my, 8 * mx),
+                                     QUALITY_75_TABLES[1]))
+    yq = yq.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
+        my, mx, 4, 64)
+    mcus = np.concatenate([yq, chroma[0][:, :, None], chroma[1][:, :, None]],
+                          2).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    dc = mcus[:, 0]
+    dcdiff = np.empty_like(dc)
+    for ci in range(3):
+        d = dc[comp == ci]
+        dcdiff[comp == ci] = d - np.concatenate([[0], d[:-1]])
+    return (_jpeg_headers(H, W) + _entropy_code(
+        mcus[:, _ZIGZAG], dcdiff, (comp > 0).astype(np.int64)) + b"\xff\xd9")
+
+
+def jpeg_encode_native(pixels: np.ndarray) -> bytes:
+    """The C encoder of csrc/jpeg_encode.cu (host code, ctypes; the GIL is
+    released while it runs): the same bytes as :func:`jpeg_encode_plain`."""
+    a = _check_encode(pixels)
+    h, w = a.shape[:2]
+    # a block codes in at most ~210 bytes, twice that with stuffing
+    cap = 6 * 420 * -(-h // 16) * -(-w // 16) + 2048
+    out = np.empty(cap, np.uint8)
+    n = ctypes.c_long(0)
+    err = kernel_lib.library().pvnet_jpeg_encode(
+        a.ctypes.data, h, w, out.ctypes.data, cap, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"pvnet_jpeg_encode failed ({err}) on {a.shape}")
+    return out[:n.value].tobytes()
+
+
+def encode_jpeg(pixels: np.ndarray, device="cpu") -> bytes:
+    """The JPEG file PIL writes for ``pixels`` (RGB uint8 [h, w, 3]): with
+    a CUDA ``device`` through the C encoder (which must build), on the CPU
+    through the plain one."""
+    if _native(device):
+        return jpeg_encode_native(pixels)
+    return jpeg_encode_plain(pixels)
+
+
+def write_jpeg(path: str, pixels: np.ndarray, device="cpu") -> None:
+    """Write :func:`encode_jpeg`'s file to ``path``."""
+    data = encode_jpeg(pixels, device)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(pixels: np.ndarray) -> bytes:
+    """A PNG of ``pixels``: uint8 [h, w] (8-bit gray), uint8 [h, w, 3]
+    (RGB) or uint16 [h, w] (16-bit gray, stored big-endian), every row
+    with filter type 0, deflated by zlib."""
+    a = np.asarray(pixels)
+    if a.dtype == np.uint8 and a.ndim == 2:
+        depth, ctype = 8, 0
+    elif a.dtype == np.uint8 and a.ndim == 3 and a.shape[2] == 3:
+        depth, ctype = 8, 2
+    elif a.dtype == np.uint16 and a.ndim == 2:
+        depth, ctype = 16, 0
+    else:
+        raise ValueError(f"PNG writing takes uint8 [h, w], uint8 [h, w, 3] "
+                         f"or uint16 [h, w]; got {a.dtype} {a.shape}")
+    h, w = a.shape[:2]
+    rows = np.ascontiguousarray(a.astype(">u2") if depth == 16 else a)
+    rows = rows.view(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1)
+    return (_PNG_SIG
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                              0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """Write :func:`encode_png`'s file to ``path``."""
+    data = encode_png(pixels)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -4,16 +4,18 @@ lib/utils/data_utils.py).
 Mesh/metadata cache (:class:`LineModModelDB`, ref :37-160), per-image record
 builders for the real / render / fuse sets with pickle caching in
 ``posedb/`` (:class:`LineModImageDB`, ref :162-518), Occlusion LINEMOD
-(ref :539-638) and Truncation LINEMOD (ref :640-682) databases.
+(ref :539-638) and Truncation LINEMOD (ref :640-682) databases, plus the
+truncated-set generator (:func:`make_truncated_linemod_dataset`, ref
+:396-518).
 
 The record schema is the JAX package's (and the reference's), so the
 ``posedb/*.pkl`` caches of either package load in the other:
     {rgb_pth, dpt_pth, RT, cls_typ, rnd_typ, corners, farthest{,4,12,16,20},
      center, small_bbox, van_pts[, K]}
 
-The fuse set's masks are decoded by data/image_io (no PIL). Not ported:
-the truncated-set generator (``crop_instance``,
-``make_truncated_linemod_dataset``).
+Images and masks are decoded and written by data/image_io (no PIL or
+cv2); the generator's files equal the JAX package's (JPEG bytes, PNG
+pixels, the pickled pose and K).
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import numpy as np
 
 from pvnet_tpu_torch.config import (BLENDER_K, LINEMOD_CLS_NAMES, LINEMOD_K,
                                     PathConfig)
-from pvnet_tpu_torch.data.image_io import read_mask
+from pvnet_tpu_torch.data.image_io import (read_mask, read_rgb, write_jpeg,
+                                           write_png)
 from pvnet_tpu_torch.data.ply import load_ply
 from pvnet_tpu_torch.data.pose_transforms import (PoseTransformer,
                                                   project_h_np, project_np,
@@ -460,3 +463,113 @@ class TruncatedLineModImageDB:
             database.append(data)
         save_pickle(database, pkl_file)
         return database
+
+
+def crop_instance(rgb: np.ndarray, msk: np.ndarray, size: int = 256,
+                  rng: Optional[np.random.RandomState] = None):
+    """Random instance-truncating crop (ref data_utils.py:396-473), drawing
+    from ``rng`` in the JAX function's order. Returns (rgb, mask, hbeg,
+    wbeg) where (hbeg, wbeg) shift the principal point."""
+    rng = rng or np.random
+    h, w, _ = rgb.shape
+    hs, ws = np.nonzero(msk)
+    hmin, hmax = np.min(hs), np.max(hs)
+    wmin, wmax = np.min(ws), np.max(ws)
+    hlen, wlen = hmax - hmin, wmax - wmin
+
+    def rand_span(lo, hi):
+        lo, hi = int(lo), int(hi)
+        if hi <= lo:
+            return lo
+        return rng.randint(lo, hi)
+
+    def split(pt):
+        return (pt - size, pt) if rng.rand() < 0.5 else (pt, pt + size)
+
+    t = rng.rand()
+    if t <= 0.4:
+        x_pt = int(wlen * rng.uniform(0.4, 0.6)) + wmin
+        wbeg, wend = split(x_pt)
+        hbeg = rand_span(hmax - size, hmin if hlen < size else hmin + size)
+        hend = hbeg + size
+    elif t <= 0.8:
+        y_pt = int(hlen * rng.uniform(0.4, 0.6)) + hmin
+        hbeg, hend = split(y_pt)
+        wbeg = rand_span(wmax - size, wmin if wlen < size else wmin + size)
+        wend = wbeg + size
+    else:
+        y_pt = int(hlen * rng.uniform(0.4, 0.6)) + hmin
+        hbeg, hend = split(y_pt)
+        x_pt = int(wlen * rng.uniform(0.4, 0.6)) + wmin
+        wbeg, wend = split(x_pt)
+
+    hpad_bfr, hpad_aft = max(0, -hbeg), max(0, hend - h)
+    wpad_bfr, wpad_aft = max(0, -wbeg), max(0, wend - w)
+    hb, he = max(hbeg, 0), min(hend, h)
+    wb, we = max(wbeg, 0), min(wend, w)
+    rgb_new = np.pad(rgb[hb:he, wb:we],
+                     ((hpad_bfr, hpad_aft), (wpad_bfr, wpad_aft), (0, 0)),
+                     mode="constant")
+    msk_new = np.pad(msk[hb:he, wb:we],
+                     ((hpad_bfr, hpad_aft), (wpad_bfr, wpad_aft)),
+                     mode="constant")
+    return rgb_new, msk_new, -hb + hpad_bfr, -wb + wpad_bfr
+
+
+def make_truncated_linemod_dataset(cls_names=None,
+                                   paths: Optional[PathConfig] = None,
+                                   size: int = 256,
+                                   min_remaining: float = 0.2,
+                                   seed: int = 0, device="cpu") -> None:
+    """Offline generator of the truncation benchmark (ref
+    data_utils.py:475-518): for every frame of a class, random crops until
+    one keeps >= ``min_remaining`` of the instance (or 51 tries), written
+    to LINEMOD/truncated/{cls}/ as {k:06}_rgb.jpg, {k:04}_msk.png and
+    {k:06}_info.pkl ([pose, K] with the principal point shifted). One
+    ``RandomState(seed)`` over all classes, as the JAX function. Frames
+    are decoded and JPEGs encoded on ``device`` (data/image_io)."""
+    paths = paths or PathConfig()
+    cls_names = cls_names or LINEMOD_CLS_NAMES
+    rng = np.random.RandomState(seed)
+    for cls_name in cls_names:
+        linemod_dir = paths.linemod_dir
+        rgb_dir = f"{cls_name}/JPEGImages"
+        rt_dir = os.path.join(paths.linemod_orig_dir, cls_name, "data")
+        out_dir = os.path.join(linemod_dir, "truncated", cls_name)
+        os.makedirs(out_dir, exist_ok=True)
+        rgb_root = os.path.join(linemod_dir, rgb_dir)
+        if not os.path.exists(rgb_root):
+            continue
+        transformer = PoseTransformer(cls_name, linemod_dir,
+                                      paths.linemod_orig_dir,
+                                      paths.occlusion_linemod_dir)
+        img_num = len(os.listdir(rgb_root))
+        for k in range(img_num):
+            rgb = read_rgb(os.path.join(linemod_dir, rgb_dir, f"{k:06}.jpg"),
+                           device).cpu().numpy()
+            msk = read_mask(os.path.join(linemod_dir, cls_name, "mask",
+                                         f"{k:04}.png"), device)
+            if msk.ndim == 3:
+                msk = (np.sum(msk, 2) > 0).astype(np.uint8)
+            before = np.sum(msk)
+            count = 0
+            while True:
+                rgb_new, msk_new, hbeg, wbeg = crop_instance(
+                    rgb, msk, size, rng)
+                count += 1
+                if np.sum(msk_new) / max(before, 1) >= min_remaining \
+                        or count > 50:
+                    rgb, msk = rgb_new, msk_new
+                    break
+            write_jpeg(os.path.join(out_dir, f"{k:06}_rgb.jpg"), rgb, device)
+            write_png(os.path.join(out_dir, f"{k:04}_msk.png"),
+                      (msk * 255).astype(np.uint8))
+            pose = read_pose(os.path.join(rt_dir, f"rot{k}.rot"),
+                             os.path.join(rt_dir, f"tra{k}.tra"))
+            pose = transformer.orig_pose_to_blender_pose(pose).astype(
+                np.float32)
+            K = LINEMOD_K.copy()
+            K[0, 2] += wbeg
+            K[1, 2] += hbeg
+            save_pickle([pose, K],
+                        os.path.join(out_dir, f"{k:06}_info.pkl"))

@@ -9,20 +9,24 @@ port draws the same random numbers in the same order from the same
 ``np.random.RandomState`` and renders with the same numpy code, but keeps
 the result in memory: :func:`generate_synthetic_linemod` returns the
 arrays (raw, never JPEG-encoded), the ground-truth poses, the object's
-metadata and the split. The machine that runs the port on the GPU has no
-PIL. The box and cylinder meshes and :func:`render_multiclass_view` are the
-JAX module's fuse-style multi-class scenes (data/multiclass.py builds them).
+metadata and the split. :func:`write_synthetic_linemod` writes the JAX
+generator's LINEMOD tree itself, file for file (its JPEGs through
+data/image_io's encoder, which writes PIL's bytes; the GPU host has no
+PIL). The box and cylinder meshes and :func:`render_multiclass_view` are
+the JAX module's fuse-style multi-class scenes (data/multiclass.py builds
+them).
 """
 from __future__ import annotations
 
 import multiprocessing
-from concurrent.futures import ProcessPoolExecutor
+import os
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
-from pvnet_tpu_torch.config import LINEMOD_K
-from pvnet_tpu_torch.data.ply import PlyMesh
+from pvnet_tpu_torch.config import LINEMOD_K, PathConfig
+from pvnet_tpu_torch.data.ply import PlyMesh, save_ply_ascii
 from pvnet_tpu_torch.ops.fps import farthest_point_sampling
 from pvnet_tpu_torch.ops.rasterize import render_mesh_attributes
 
@@ -393,6 +397,108 @@ def object_metadata(mesh: PlyMesh) -> Dict[str, np.ndarray]:
             "diameter": np.float64(diameter)}
 
 
+def _paint_all(jobs, workers: int) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """:func:`_paint` of each job, in ``workers`` spawned processes."""
+    if workers > 1 and len(jobs) > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(min(workers, len(jobs)),
+                                 mp_context=ctx) as ex:
+            return list(ex.map(_paint_job, jobs,
+                               chunksize=max(1, len(jobs) // (4 * workers))))
+    return [_paint_job(j) for j in jobs]
+
+
+# images drawn, rendered and written at a time by write_synthetic_linemod
+_WRITE_CHUNK = 64
+
+
+def write_synthetic_linemod(root: str, cls_name: str = "duck",
+                            num_images: int = 20,
+                            image_hw: Tuple[int, int] = (480, 640),
+                            seed: int = 0, occluder_prob: float = 0.0,
+                            max_clutter: int = 0,
+                            n_distractor_meshes: int = 8, device="cpu",
+                            workers: int = 1) -> PathConfig:
+    """Write the JAX package's synthetic LINEMOD tree under ``root``, file
+    for file what pvnet_tpu/data/synthetic.py generate_synthetic_linemod
+    writes with the same arguments:
+
+      LINEMOD/{cls}/{cls}.ply, JPEGImages/{k:06}.jpg, mask/{k:04}.png,
+      train.txt / val.txt / test.txt;
+      LINEMOD_ORIG/{cls}/data/rot{k}.rot + tra{k}.tra, distance.txt,
+      mesh.ply.
+
+    One ``RandomState(seed)`` is drawn in the JAX order (distractor meshes,
+    then per image its pose, distractors and background). The views are
+    rasterized in ``workers`` processes; JPEGs are encoded on ``device``
+    (data/image_io: PIL's bytes), masks written as 8-bit PNGs of 0/255."""
+    from pvnet_tpu_torch.data.image_io import write_jpeg, write_png
+    rng = np.random.RandomState(seed)
+    dmeshes = [make_distractor_mesh(rng) for _ in range(n_distractor_meshes)] \
+        if (occluder_prob > 0 or max_clutter > 0) else []
+    h, w = image_hw
+    paths = PathConfig(data_dir=root)
+    cls_dir = os.path.join(paths.linemod_dir, cls_name)
+    os.makedirs(os.path.join(cls_dir, "JPEGImages"), exist_ok=True)
+    os.makedirs(os.path.join(cls_dir, "mask"), exist_ok=True)
+    orig_dir = os.path.join(paths.linemod_orig_dir, cls_name)
+    os.makedirs(os.path.join(orig_dir, "data"), exist_ok=True)
+
+    mesh = make_duck_mesh()
+    save_ply_ascii(os.path.join(cls_dir, f"{cls_name}.ply"), mesh)
+    # the LINEMOD_ORIG mesh in mm in the orig frame (orig = flip @
+    # blender), so that the pose conversion round-trips
+    flip = np.array([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]])
+    orig_vertices = (mesh.vertices @ flip.T) * 1000.0
+    save_ply_ascii(os.path.join(orig_dir, "mesh.ply"),
+                   PlyMesh(vertices=orig_vertices.astype(np.float32),
+                           faces=mesh.faces))
+    ext = np.linalg.norm(mesh.vertices.max(0) - mesh.vertices.min(0))
+    np.savetxt(os.path.join(orig_dir, "distance.txt"),
+               np.asarray([ext * 100.0]))   # cm (ref data_utils.py:111-118)
+    # the orig-frame pose that orig_pose_to_blender_pose turns back into
+    # the blender pose: R_o = R_b @ flip^-1, t_o = t_b - R_o @ trans
+    trans = (np.mean(orig_vertices / 1000.0, axis=0)
+             - np.mean(mesh.vertices @ flip.T, axis=0))
+    inv_flip = np.linalg.inv(flip)
+
+    def write(k, pose, rgb, mask):
+        write_jpeg(os.path.join(cls_dir, "JPEGImages", f"{k:06}.jpg"), rgb,
+                   device)
+        write_png(os.path.join(cls_dir, "mask", f"{k:04}.png"), mask * 255)
+        R_o = pose[:, :3] @ inv_flip
+        t_o = pose[:, 3] - R_o @ trans
+        with open(os.path.join(orig_dir, "data", f"rot{k}.rot"), "w") as f:
+            f.write("3 3\n")
+            for row in R_o:
+                f.write(" ".join(f"{v:.8f}" for v in row) + "\n")
+        with open(os.path.join(orig_dir, "data", f"tra{k}.tra"), "w") as f:
+            f.write("1 3\n")
+            f.write(" ".join(f"{v:.8f}" for v in t_o * 100.0) + "\n")
+
+    for k0 in range(0, num_images, _WRITE_CHUNK):
+        jobs, poses = [], []
+        for _ in range(k0, min(k0 + _WRITE_CHUNK, num_images)):
+            pose = sample_object_pose(rng)
+            distractors = sample_distractors(pose, rng, dmeshes,
+                                             occluder_prob, max_clutter)
+            jobs.append((mesh, pose, LINEMOD_K, h, w, distractors,
+                         _background(rng, h, w)))
+            poses.append(pose)
+        views = _paint_all(jobs, workers)
+        # ctypes releases the GIL: the C encoder runs on several threads
+        with ThreadPoolExecutor(max(1, min(workers, len(views)))) as pool:
+            list(pool.map(lambda i: write(k0 + i, poses[i], *views[i]),
+                          range(len(views))))
+
+    names = [f"{k:06}.jpg" for k in range(num_images)]
+    lists = split_indices(num_images)
+    for name in ("train", "val", "test"):
+        with open(os.path.join(cls_dir, f"{name}.txt"), "w") as f:
+            f.writelines(names[i] + "\n" for i in lists[name])
+    return paths
+
+
 def generate_synthetic_linemod(num_images: int = 20,
                                image_hw: Tuple[int, int] = (480, 640),
                                seed: int = 0, occluder_prob: float = 0.0,
@@ -442,14 +548,7 @@ def generate_synthetic_linemod(num_images: int = 20,
             jobs.append((mesh, pose, K, h, w, distractors, background))
             poses.append(pose)
             index.append(k)
-    if workers > 1 and len(jobs) > 1:
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(min(workers, len(jobs)),
-                                 mp_context=ctx) as ex:
-            views = list(ex.map(_paint_job, jobs,
-                                chunksize=max(1, len(jobs) // (4 * workers))))
-    else:
-        views = [_paint_job(j) for j in jobs]
+    views = _paint_all(jobs, workers)
     out = {"images": np.stack([v[0] for v in views]).astype(np.uint8),
            "masks": np.stack([v[1] for v in views]).astype(np.uint8),
            "poses": np.stack(poses).astype(np.float32),

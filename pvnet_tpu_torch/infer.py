@@ -25,10 +25,11 @@ calibrated on the first 8 images by default, as tools/infer.py does.
 7x7 stem folded exactly) and sends the uint8 images to the device, where
 they are packed and normalized (pipeline.normalize_packed_u8).
 
-``--images`` is an .npz (key ``images``) or .npy of uint8 [n, h, w, 3]; a
-glob of image files works only where PIL is installed. ``--points_3d`` is
-a text file of the object's 3D keypoints (one x y z row each) or an .npz
-with a ``points_3d`` key.
+``--images`` is an .npz (key ``images``) or .npy of uint8 [n, h, w, 3], or
+a glob of JPEG or PNG files of one size, decoded by the port's own decoder
+(data/image_io; no PIL or cv2). ``--points_3d`` is a text file of the
+object's 3D keypoints (one x y z row each) or an .npz with a
+``points_3d`` key.
 """
 from __future__ import annotations
 
@@ -181,7 +182,7 @@ def parse_args(argv=None):
                         "duck_ckpt.msgpack)")
     p.add_argument("--images", required=True,
                    help=".npz/.npy of uint8 [n, h, w, 3], or a glob of "
-                        "image files (needs PIL)")
+                        "JPEG/PNG files of one size (data/image_io)")
     p.add_argument("--points_3d", required=True,
                    help="txt of the object's 3D keypoints, or an .npz "
                         "with a points_3d key")

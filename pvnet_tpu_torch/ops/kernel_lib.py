@@ -60,6 +60,8 @@ _SIGNATURES = {
                                   _VP],
     "pvnet_png_unfilter": [ctypes.c_char_p, ctypes.c_size_t, _I, _I, _I,
                            _VP],
+    # host code of jpeg_encode.cu (no stream)
+    "pvnet_jpeg_encode": [_VP, _I, _I, _VP, ctypes.c_long, _VP],
 }
 
 _lib = None

@@ -35,12 +35,14 @@ the port's own JPEG/PNG decoder) and augmented there: the counterpart of
 JAX's ``--device_aug --device_data``, the only training route of the port
 (JAX's host augmentation needs cv2).
 
-``--synthetic`` trains as tools/train.py --synthetic does: the JAX
-package's synthetic split (data/synthetic.generate_synthetic_linemod, seed
-0; only its train and val lists are rendered, and cached as an .npz under
-``--data_dir``), training on the train list and validating on the val list
-on the JAX loop's schedule. The port trains on the raw renders; JAX trains
-on their JPEG round trip.
+``--synthetic`` does what tools/train.py --synthetic does: it writes the
+JAX package's synthetic LINEMOD tree (data/synthetic.write_synthetic_linemod,
+seed 0: JPEG frames equal to the ones PIL writes, PNG masks, pose files
+and the three lists) under ``--data_dir``/synthetic, or /synthetic_occ with
+occluders or clutter, unless its train.txt is there already, and then
+takes the ``--linemod_cls`` route on that tree, for training and for
+``--test_model``: the network trains and is evaluated on the decoded JPEG
+frames, as JAX's is.
 
 Otherwise ``--data`` is an .npz with the keys of tools/make_torch_fixture.py:
 images [n, h, w, 3] uint8, masks [n, h, w] uint8, poses [n, 3, 4],
@@ -63,9 +65,7 @@ kernels' launches.
 ``--linemod_cls`` (with ``--normal``, the default), the Occlusion LINEMOD
 test list (``--occluded``, for its 8 classes) and the Truncation LINEMOD
 set with its per-image K (``--truncated``); its last line is a JSON object
-with each set's rates. ``--synthetic`` generates the test half of the
-synthetic split in the order tools/train.py evaluates it (test, then val)
-and caches it as an .npz under ``--data_dir``.
+with each set's rates (and the seconds writing the synthetic tree).
 """
 from __future__ import annotations
 
@@ -74,21 +74,18 @@ import json
 import os
 import sys
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pvnet_tpu_torch.config import (OCC_LINEMOD_CLS_NAMES, PathConfig,
                                     TrainConfig)
-from pvnet_tpu_torch.data.dataset import (eval_batches, keypoint_targets,
-                                          load_training_set, record_loader)
+from pvnet_tpu_torch.data.dataset import load_training_set, record_loader
 from pvnet_tpu_torch.data.linemod import (LineModImageDB,
                                           OcclusionLineModImageDB,
                                           TruncatedLineModImageDB)
-from pvnet_tpu_torch.data.synthetic import (evaluation_order,
-                                            generate_synthetic_linemod,
-                                            split_indices)
+from pvnet_tpu_torch.data.synthetic import write_synthetic_linemod
 from pvnet_tpu_torch.eval.evaluator import Evaluator
 from pvnet_tpu_torch.ops.kernel_lib import launch_counts
 from pvnet_tpu_torch.train.checkpoint import load_net
@@ -96,8 +93,6 @@ from pvnet_tpu_torch.train.loop import TrainLoop
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-# the keys of a generated split that hold one entry per image
-_PER_IMAGE = ("images", "masks", "poses", "index")
 
 
 def parse_buckets(spec: str) -> Optional[List[Tuple[int, int]]]:
@@ -172,8 +167,9 @@ def parse_args(argv=None):
                    help="checkpoint epoch to evaluate without --init "
                         "(-1: the latest)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train (or with --test_model evaluate) on the "
-                        "generated synthetic split")
+                   help="write the synthetic LINEMOD tree under --data_dir "
+                        "(unless it is there) and train (or with "
+                        "--test_model evaluate) on it")
     p.add_argument("--synthetic_images", type=int, default=64)
     p.add_argument("--synthetic_occluder_prob", type=float, default=0.0,
                    help="probability of an occluder object per image")
@@ -181,61 +177,31 @@ def parse_args(argv=None):
                    help="max clutter objects per image")
     p.add_argument("--data_dir", default=os.path.join(_REPO, "data"),
                    help="the LINEMOD root (LINEMOD/, LINEMOD_ORIG/, "
-                        "OCCLUSION_LINEMOD/); with --synthetic where the "
-                        "generated split is cached")
+                        "OCCLUSION_LINEMOD/); with --synthetic the parent "
+                        "of the synthetic tree's root")
     return p.parse_args(argv)
 
 
-def synthetic_split(args, part: str, order: np.ndarray
-                    ) -> Tuple[Dict[str, np.ndarray], float]:
-    """The images ``order`` of the synthetic split, in that order, from the
-    cache ``..._{part}.npz`` under --data_dir or generated (and cached);
-    with the seconds generating them took (0 from the cache)."""
-    n, occ, clutter = (args.synthetic_images, args.synthetic_occluder_prob,
-                       args.synthetic_clutter)
-    path = os.path.join(args.data_dir, f"synthetic_duck_{n}_occ{occ:g}_"
-                                       f"clutter{clutter}_seed0_{part}.npz")
-    if os.path.exists(path):
-        with np.load(path) as z:
-            return {k: z[k] for k in z.files}, 0.0
-    print(f"generating the {part} images of the synthetic split "
-          f"({len(order)} of {n} images, occluder_prob={occ}, "
-          f"clutter<={clutter}) ...", flush=True)
+def synthetic_tree(args, cls_name: str, device) -> Tuple[str, float]:
+    """tools/train.py --synthetic's tree: its root under --data_dir
+    (``synthetic``, or ``synthetic_occ`` with occluders or clutter),
+    written by data/synthetic.write_synthetic_linemod unless its train.txt
+    exists; with the seconds writing it took (0 when it was there)."""
+    occ = args.synthetic_occluder_prob > 0 or args.synthetic_clutter > 0
+    root = os.path.join(args.data_dir, "synthetic_occ" if occ else "synthetic")
+    if os.path.exists(os.path.join(root, "LINEMOD", cls_name, "train.txt")):
+        return root, 0.0
+    print(f"generating synthetic dataset ({args.synthetic_images} images, "
+          f"occluder_prob={args.synthetic_occluder_prob}, "
+          f"clutter<={args.synthetic_clutter}) ...", flush=True)
     t0 = time.time()
-    split = generate_synthetic_linemod(
-        n, occluder_prob=occ, max_clutter=clutter, render=order,
-        workers=len(os.sched_getaffinity(0)))
+    write_synthetic_linemod(root, cls_name, num_images=args.synthetic_images,
+                            occluder_prob=args.synthetic_occluder_prob,
+                            max_clutter=args.synthetic_clutter, device=device,
+                            workers=len(os.sched_getaffinity(0)))
     seconds = time.time() - t0
-    pos = {int(k): i for i, k in enumerate(split["index"])}
-    perm = np.asarray([pos[int(k)] for k in order])
-    for k in _PER_IMAGE:
-        split[k] = split[k][perm]
-    os.makedirs(args.data_dir, exist_ok=True)
-    np.savez(path, **split)
-    print(f"generated in {seconds:.1f} s; cached as {path}", flush=True)
-    return split, seconds
-
-
-def synthetic_test_split(args) -> Tuple[Dict[str, np.ndarray], float]:
-    """The synthetic split's test half in evaluation order
-    (:func:`synthetic_split`)."""
-    return synthetic_split(args, "test",
-                           evaluation_order(args.synthetic_images))
-
-
-def synthetic_train_val(args) -> Tuple[Dict[str, np.ndarray],
-                                       Dict[str, np.ndarray], float]:
-    """(train list, val list, generation seconds) of the synthetic split:
-    LineModImageDB's ``train_real_set`` and ``val_real_set`` of the JAX
-    generator's tree (train.txt and val.txt, in their order)."""
-    lists = split_indices(args.synthetic_images)
-    n_train = len(lists["train"])
-    both, gen_s = synthetic_split(
-        args, "trainval", np.concatenate([lists["train"], lists["val"]]))
-    train, val = ({k: v[sl] if k in _PER_IMAGE else v
-                   for k, v in both.items()}
-                  for sl in (slice(None, n_train), slice(n_train, None)))
-    return train, val, gen_s
+    print(f"wrote {root} in {seconds:.1f} s", flush=True)
+    return root, seconds
 
 
 def _eval_state(args, loop: TrainLoop, model_dir: str):
@@ -248,35 +214,6 @@ def _eval_state(args, loop: TrainLoop, model_dir: str):
     if epoch == 0:
         raise SystemExit(f"no checkpoint in {model_dir}; give --init")
     return state, epoch
-
-
-def run_test_model(args, cfg: TrainConfig, model_dir: str, device) -> int:
-    """tools/train.py --test_model on the synthetic split."""
-    split, gen_s = synthetic_test_split(args)
-    loop = TrainLoop(cfg, model_dir, record_dir=model_dir, device=device)
-    state, epoch = _eval_state(args, loop, model_dir)
-    n = len(split["images"])
-    print(f"evaluating {args.init or model_dir} on {n} images at "
-          f"{split['images'].shape[1]}x{split['images'].shape[2]}; "
-          f"{'bf16' if cfg.bf16 else 'f32'}; tail_depth {args.tail_depth};"
-          f" uncertainty {args.use_uncertainty_pnp}; device {device}",
-          flush=True)
-    t0 = time.time()
-    losses = loop.validate(
-        state, eval_batches(split, cfg.test_batch_size), epoch,
-        evaluate_pose=True, uncertainty=args.use_uncertainty_pnp,
-        tail_depth=args.tail_depth, vote_seed=args.vote_seed,
-        evaluator=Evaluator(loop.object_meta(split), device=device))
-    eval_s = time.time() - t0
-    loop.recorder.close()
-    print(json.dumps({
-        "images": n, "proj": losses["val/scalar/projection_error"],
-        "add": losses["val/scalar/add"], "cm": losses["val/scalar/cm"],
-        "dtype": "bf16" if cfg.bf16 else "f32",
-        "uncertainty": args.use_uncertainty_pnp,
-        "tail_depth": args.tail_depth, "generate_s": gen_s,
-        "evaluate_s": eval_s, "images_per_s": n / eval_s}), flush=True)
-    return 0
 
 
 def linemod_test_sets(args, cls_name: str, paths: PathConfig, device):
@@ -302,9 +239,10 @@ def linemod_test_sets(args, cls_name: str, paths: PathConfig, device):
 
 
 def run_test_linemod(args, cfg: TrainConfig, cls_name: str, model_dir: str,
-                     device) -> int:
-    """tools/train.py --test_model on the LINEMOD tree under --data_dir."""
-    paths = PathConfig(data_dir=args.data_dir)
+                     device, data_dir: str, gen_s: float) -> int:
+    """tools/train.py --test_model on the LINEMOD tree under ``data_dir``
+    (``gen_s``: the seconds writing it, for the summary)."""
+    paths = PathConfig(data_dir=data_dir)
     loop = TrainLoop(cfg, model_dir, record_dir=model_dir, device=device)
     state, epoch = _eval_state(args, loop, model_dir)
     meta = loop.linemod_object_meta(cls_name, paths)
@@ -341,7 +279,7 @@ def run_test_linemod(args, cfg: TrainConfig, cls_name: str, model_dir: str,
                       "dtype": "bf16" if cfg.bf16 else "f32",
                       "uncertainty": args.use_uncertainty_pnp,
                       "tail_depth": args.tail_depth,
-                      "vote_seed": args.vote_seed,
+                      "vote_seed": args.vote_seed, "generate_s": gen_s,
                       "launches": launch_counts()}), flush=True)
     return 0
 
@@ -363,21 +301,6 @@ def linemod_train_val(cfg: TrainConfig, cls_name: str, paths: PathConfig,
     return train_db, val_db
 
 
-def array_set(args, cfg: TrainConfig):
-    """(images, masks, hcoords, val split or None, generation seconds) of
-    the array routes: the synthetic split's train and val lists, or the
-    --data .npz."""
-    if not args.synthetic:
-        return load_training_set(args.data) + (None, 0.0)
-    if not cfg.use_real_train:
-        raise SystemExit("no training records: the synthetic split has only "
-                         "its real train list (use_real_train)")
-    train, val, gen_s = synthetic_train_val(args)
-    hcoords = keypoint_targets(train["poses"], train["points_3d"],
-                               train["K"])
-    return train["images"], train["masks"], hcoords, val, gen_s
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg = TrainConfig.from_json(args.cfg_file)
@@ -391,15 +314,16 @@ def main(argv=None) -> int:
     cls_name = args.linemod_cls or "duck"
     name = f"{cls_name}_{cfg.model_name}"
     model_dir = args.model_dir or os.path.join(_REPO, "data", "model", name)
+    data_dir, gen_s = args.data_dir, 0.0
+    if args.synthetic:
+        data_dir, gen_s = synthetic_tree(args, cls_name, device)
     if args.test_model:
-        if args.synthetic:
-            return run_test_model(args, cfg, model_dir, device)
-        return run_test_linemod(args, cfg, cls_name, model_dir, device)
+        return run_test_linemod(args, cfg, cls_name, model_dir, device,
+                                data_dir, gen_s)
     loop = TrainLoop(cfg, model_dir, record_dir=model_dir,
                      buckets=parse_buckets(args.buckets), device=device)
-    gen_s, n_val = 0.0, 0
-    if args.linemod_cls and not args.synthetic:
-        paths = PathConfig(data_dir=args.data_dir)
+    if args.linemod_cls or args.synthetic:
+        paths = PathConfig(data_dir=data_dir)
         train_db, val_db = linemod_train_val(cfg, cls_name, paths, device)
         if not train_db:
             raise SystemExit(f"no training records of {cls_name} under "
@@ -418,21 +342,16 @@ def main(argv=None) -> int:
                          max_steps=args.steps,
                          num_threads=args.num_threads)
     else:
-        images, masks, hcoords, val, gen_s = array_set(args, cfg)
-        n_train = len(images)
+        images, masks, hcoords = load_training_set(args.data)
+        n_train, n_val = len(images), 0
         if n_train < cfg.train_batch_size:
             tile = np.arange(cfg.train_batch_size) % n_train
             images, masks, hcoords = images[tile], masks[tile], hcoords[tile]
-        n_val = len(val["images"]) if val else 0
         print(f"train set: {len(images)} images at {images.shape[1]}x"
               f"{images.shape[2]}; batch {cfg.train_batch_size}; "
               f"{'bf16' if cfg.bf16 else 'f32'}; device {device}", flush=True)
-        if val:
-            print(f"synthetic split: {n_train} train, {n_val} val images; "
-                  f"{cfg.network}", flush=True)
         loop.fit(images, masks, hcoords, init=args.init,
-                 imagenet_pth=args.imagenet_pth, max_steps=args.steps,
-                 val=val)
+                 imagenet_pth=args.imagenet_pth, max_steps=args.steps)
     print(f"checkpoints in {model_dir}", flush=True)
     print(json.dumps({"train_images": n_train, "val_images": n_val,
                       "generate_s": gen_s, "epochs": loop.epoch_log,

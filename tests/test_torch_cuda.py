@@ -1232,3 +1232,62 @@ def test_png_unfilter_matches_plain(cuda):
         np.testing.assert_array_equal(
             IO.decode_png(data, p, native=True).samples,
             IO.decode_png(data, p, native=False).samples, err_msg=p)
+
+
+def test_png_unfilter_two_byte_samples(cuda, tmp_path):
+    """16-bit gray PNGs (the render set's depth maps): the C unfilter on
+    2-byte samples equals the plain one, and read_mask on the card the
+    CPU's."""
+    from _png_rows import filtered_stream
+    from pvnet_tpu_torch.data import image_io as IO
+    rows = np.random.RandomState(2).randint(0, 256, (10, 2 * 37)).astype(
+        np.uint8)
+    raw = filtered_stream(rows, 2)
+    np.testing.assert_array_equal(
+        IO.png_unfilter_native(raw, 10, rows.shape[1], 2), rows)
+    d16 = np.random.RandomState(3).randint(0, 65536, (31, 47)).astype(
+        np.uint16)
+    p = str(tmp_path / "0_depth.png")
+    IO.write_png(p, d16)
+    np.testing.assert_array_equal(IO.read_mask(p, cuda), d16)
+    np.testing.assert_array_equal(IO.read_mask(p, cuda), IO.read_mask(p))
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (17, 3), (37, 53), (33, 31),
+                                 (2, 2), (480, 640)])
+def test_jpeg_encoder_c_equals_plain(cuda, h, w):
+    """The C encoder (csrc/jpeg_encode.cu, taken for a CUDA device) writes
+    the plain numpy encoder's bytes, on noise and on a checkerboard (the
+    largest coefficients)."""
+    from pvnet_tpu_torch.data import image_io as IO
+    noise = np.random.RandomState(h * w).randint(0, 256, (h, w, 3)).astype(
+        np.uint8)
+    checker = ((np.indices((h, w)).sum(0) % 2) * 255).astype(np.uint8)
+    checker = np.repeat(checker[..., None], 3, -1)
+    for a in (noise, checker):
+        got = IO.encode_jpeg(a, cuda)
+        assert got == IO.jpeg_encode_plain(a)
+        assert torch.equal(IO.decode_rgb_bytes(got, device=cuda).cpu(),
+                           IO.decode_rgb_bytes(got))
+
+
+def test_synthetic_tree_on_the_card_equals_cpu(cuda, tmp_path, monkeypatch):
+    """write_synthetic_linemod with the card's encoder writes the files the
+    CPU's plain encoder writes."""
+    from pvnet_tpu_torch.data import synthetic as TS
+    K = TS.LINEMOD_K.copy()
+    K[:2] /= 4
+    monkeypatch.setattr(TS, "LINEMOD_K", K)
+    roots = {}
+    for dev in (cuda, "cpu"):
+        roots[str(dev)] = str(tmp_path / str(dev).replace(":", "_"))
+        TS.write_synthetic_linemod(roots[str(dev)], "duck", num_images=4,
+                                   image_hw=(120, 160), occluder_prob=0.5,
+                                   max_clutter=2, device=dev)
+    a, b = roots.values()
+    files = sorted(os.path.relpath(os.path.join(d, f), a)
+                   for d, _, fs in os.walk(a) for f in fs)
+    assert len(files) == 4 * 4 + 6
+    for f in files:
+        assert open(os.path.join(a, f), "rb").read() == \
+            open(os.path.join(b, f), "rb").read(), f

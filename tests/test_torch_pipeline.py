@@ -437,13 +437,17 @@ def test_port_imports_and_infers_without_jax(tmp_path):
             f" {str(tmp_path / 'views.npz')!r}, '--images',"
             f" {str(tmp_path / 'views.npz')!r}, '--device', 'cpu',"
             " '--batch', '1', '--output', ")
-    # and the evaluation entry: --test_model on a 4-image split (its test
-    # half, 2 images at 480x640, generated, cached and evaluated)
+    # and the evaluation entry: --test_model on a 4-image split (its
+    # LINEMOD tree written, then its test and val lists, 2 JPEG frames at
+    # 480x640, decoded and evaluated)
     test_model = ["train", "--test_model", "--synthetic",
                   "--synthetic_images", "4", "--synthetic_occluder_prob",
                   "0.5", "--synthetic_clutter", "2", "--init", CKPT,
                   "--device", "cpu", "--data_dir", str(tmp_path / "data"),
                   "--model_dir", str(tmp_path / "model")]
+    prep = str(tmp_path / "prep")
+    prepare = ["prepare", "--type", "render", "--linemod_cls", "duck",
+               "--num", "1", "--data_dir", prep, "--device", "cpu"]
     code = (
         "import runpy\n"
         "import pvnet_tpu_torch.ops.voting, pvnet_tpu_torch.ops.pnp\n"
@@ -470,15 +474,30 @@ def test_port_imports_and_infers_without_jax(tmp_path):
         "    runpy.run_module('pvnet_tpu_torch.train', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0, e.code\n"
+        # dataset preparation: a render set written into a copy of the
+        # LINEMOD tree (JPEG encoder, 16-bit PNG writer)
+        "import shutil\n"
+        f"shutil.copytree({os.path.dirname(os.path.dirname(MINI_DUCK))!r},"
+        f" {prep!r})\n"
+        f"sys.argv = {prepare!r}\n"
+        "try:\n"
+        "    runpy.run_module('pvnet_tpu_torch.prepare', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         f"sys.argv = {argv}{str(out)!r}]\n"
         "runpy.run_module('pvnet_tpu_torch.infer', run_name='__main__')\n")
     proc = _run_blocked(code, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    rates = json.loads(next(line for line in proc.stdout.splitlines()
-                            if line.startswith('{"images"')))
-    assert rates["images"] == 2 and rates["dtype"] == "bf16"
+    summary = json.loads(next(line for line in proc.stdout.splitlines()
+                              if line.startswith('{"class"')))
+    rates = summary["sets"]["val"]
+    assert rates["images"] == 2 and summary["dtype"] == "bf16"
     assert all(0.0 <= rates[k] <= 1.0 for k in ("proj", "add", "cm"))
-    assert list((tmp_path / "data").glob("synthetic_duck_4_*.npz"))
+    assert len(list((tmp_path / "data" / "synthetic_occ" / "LINEMOD" / "duck"
+                     / "JPEGImages").glob("*.jpg"))) == 4
+    renders = tmp_path / "prep" / "LINEMOD" / "renders" / "duck"
+    assert sorted(os.listdir(renders)) == ["0.jpg", "0_RT.pkl",
+                                           "0_depth.png"]
     assert "bf16; int8 stages [0, 1, 2, 3] (static)" in proc.stdout
     assert "calibrated static int8 scales on 2 images" in proc.stdout
     for path in (out, out3, outq):

@@ -1,9 +1,10 @@
 """Training on the synthetic split from the port's CLI (``python -m
 pvnet_tpu_torch.train --synthetic``, tools/train.py --synthetic's
-counterpart): its train and val sets are the JAX generator's train.txt and
-val.txt lists, ``main()`` trains a tiny recipe from a synthesized ImageNet
-backbone and writes a checkpoint the inference entry point reads, and the
-ImageNet backbone survives TrainLoop.init_state exactly."""
+counterpart): it writes the JAX generator's LINEMOD tree and trains on its
+train.txt and val.txt lists, ``main()`` trains a tiny recipe from a
+synthesized ImageNet backbone and writes a checkpoint the inference entry
+point reads, and the ImageNet backbone survives TrainLoop.init_state
+exactly."""
 import json
 import os
 import subprocess
@@ -18,7 +19,10 @@ from pvnet_tpu.config import PathConfig
 from pvnet_tpu.data.linemod import LineModImageDB, read_mask_np
 from pvnet_tpu.data.synthetic import generate_synthetic_linemod
 from pvnet_tpu_torch import infer
+from pvnet_tpu_torch.config import PathConfig as PortPathConfig
 from pvnet_tpu_torch.config import TrainConfig
+from pvnet_tpu_torch.data.image_io import read_mask
+from pvnet_tpu_torch.data.linemod import LineModImageDB as PortImageDB
 from pvnet_tpu_torch.train import __main__ as CLI
 from pvnet_tpu_torch.train.loop import TrainLoop
 from pvnet_tpu_torch.utils.torchvision_manifest import synthesize_state_dict
@@ -35,33 +39,45 @@ def _imagenet_pth(path, arch="resnet18", seed=0):
 
 
 def test_train_and_val_sets_are_the_jax_lists(tmp_path):
-    """20 images: the JAX tree's train.txt (10) and val.txt (2), read by
-    LineModImageDB as tools/train.py does, in their order: the same
-    images (masks bit for bit) and poses (within the tree's 8-decimal text
-    round trip)."""
+    """20 images: the CLI's synthetic tree is the JAX generator's, file for
+    file (JPEG bytes, mask pixels, pose text, lists), and LineModImageDB
+    reads the same train.txt (10) and val.txt (2) records from it as the
+    JAX package's does from its own, in their order (masks bit for bit,
+    poses equal)."""
     args = SimpleNamespace(synthetic_images=20, synthetic_occluder_prob=0.0,
                            synthetic_clutter=0,
                            data_dir=str(tmp_path / "port"))
-    train, val, gen_s = CLI.synthetic_train_val(args)
-    assert gen_s > 0
-    root = str(tmp_path / "jax")
-    generate_synthetic_linemod(root, "duck", num_images=20)
-    paths = PathConfig(data_dir=root)
-    db = LineModImageDB("duck", has_render_set=False, has_fuse_set=False,
-                        paths=paths)
-    for got, recs in ((train, db.train_real_set), (val, db.val_real_set)):
-        assert [int(r["rgb_pth"][-10:-4]) for r in recs] \
-            == got["index"].tolist()
-        for i, r in enumerate(recs):
-            mask = read_mask_np(os.path.join(paths.linemod_dir,
-                                             r["dpt_pth"]))
-            np.testing.assert_array_equal(got["masks"][i], mask > 0)
-            np.testing.assert_allclose(got["poses"][i], r["RT"], atol=2e-6)
-    assert (len(train["images"]), len(val["images"])) == (10, 2)
-    # cached: the second call reads the .npz
-    again = CLI.synthetic_train_val(args)
-    assert again[2] == 0.0
-    np.testing.assert_array_equal(again[0]["images"], train["images"])
+    root, gen_s = CLI.synthetic_tree(args, "duck", "cpu")
+    assert gen_s > 0 and root == str(tmp_path / "port" / "synthetic")
+    jroot = str(tmp_path / "jax")
+    generate_synthetic_linemod(jroot, "duck", num_images=20)
+    n = 0
+    for d, _, files in os.walk(jroot):
+        for f in files:
+            want = os.path.join(d, f)
+            got = os.path.join(root, os.path.relpath(want, jroot))
+            if f.endswith(".png"):
+                np.testing.assert_array_equal(read_mask_np(got),
+                                              read_mask_np(want))
+            else:
+                assert open(got, "rb").read() == open(want, "rb").read(), f
+            n += 1
+    assert n == 20 * 4 + 3 + 3          # frames, masks, poses; lists; meshes
+    jdb = LineModImageDB("duck", has_render_set=False, has_fuse_set=False,
+                         paths=PathConfig(data_dir=jroot))
+    pdb = PortImageDB("duck", has_render_set=False, has_fuse_set=False,
+                      paths=PortPathConfig(data_dir=root))
+    for got, recs in ((pdb.train_real_set, jdb.train_real_set),
+                      (pdb.val_real_set, jdb.val_real_set)):
+        assert [r["rgb_pth"] for r in got] == [r["rgb_pth"] for r in recs]
+        for g, r in zip(got, recs):
+            np.testing.assert_array_equal(
+                read_mask(os.path.join(root, "LINEMOD", g["dpt_pth"])),
+                read_mask_np(os.path.join(jroot, "LINEMOD", r["dpt_pth"])))
+            np.testing.assert_array_equal(g["RT"], r["RT"])
+    assert (len(pdb.train_real_set), len(pdb.val_real_set)) == (10, 2)
+    # written once: the second call finds train.txt
+    assert CLI.synthetic_tree(args, "duck", "cpu") == (root, 0.0)
 
 
 def test_main_trains_from_imagenet_and_writes_a_loadable_checkpoint(
