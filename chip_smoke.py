@@ -229,12 +229,40 @@ Phases, each of which fails the run (non-zero exit) on any error:
     launch a frame. Prints the encoder's ms a frame, the render and
     truncation seconds and (n3)'s step ms beside the card's name and
     power limit;
+(o) the demo and visualization layer, the gather warps and the packed
+    family, on assets/demo_mini (the duck's frame 0 of assets/linemod_mini
+    under the names tools/demo.py reads; tools/make_torch_demo_fixture.py):
+    (o1) ``python -m pvnet_tpu_torch.demo`` on the card with the GT field
+    (K1 once, K3 once, the JPEG decoder once), then the same voting from
+    the same fields and draws card vs CPU (selection, hypotheses and
+    counts equal, keypoints within 1e-2 px, poses within 0.05 deg / 1 mm,
+    corners within 1e-2 px), the pose error against GT printed and the
+    written PNG decoded back equal to the drawing; (o2) the same with
+    ``--checkpoint assets/duck_ckpt.msgpack`` in float32 (no TF32), the
+    FCN also card vs CPU as in (l1); (o3) ``python -m
+    pvnet_tpu_torch.visualize``: its six files, K1 and K3 three times
+    each, and its calls (hypotheses with counts, v3, the covariance at hn
+    4096, the uncertainty PnP) card vs CPU with the same draws (hypotheses
+    and counts equal, points within 1e-2 px, covariances within 1e-3 of
+    their largest entry or 1e-4 px^2, the pose within 0.05 deg / 1 mm);
+    (o4) ``train --linemod_cls duck --test_model --save_inter_result`` on
+    a copy of assets/linemod_mini: four files a batch, decoded back; (o5)
+    a bf16 b=16 480x640 training step, then 2 timed ones, with the
+    recipe's rotation widened to +-90 deg (the one-pass gather warps: K4
+    never launched), and one f32 b=2 augmentation card vs CPU on the same
+    draws (images within 1e-4 on all but 0.5 % of values, masks equal on
+    >= 99 % of pixels, hcoords within rtol 1e-5); (o6) resnet34_8s and
+    resnet50_8s with the packed4 stem (conv7 weights folded) and
+    tail_depth 3, backbones from synthesized ImageNet checkpoints as in
+    (l1): the packed field of 4 images against the plain forward ((g)'s
+    tolerance), one 16-image request each (K2 once, K3 once) with its
+    latency printed;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
     bf16 mode with their cold times and (c)'s times at the variants'
     shapes; launches summed over the phases that drive their paths, (j)'s
     programs and server, (k), (l) and (m) included; the JPEG decoder's
-    pixel kernel from (m); (n)'s launches added to each), then, as the
-    last line,
+    pixel kernel from (m); (n)'s and (o)'s launches added to each), then,
+    as the last line,
     {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -1066,7 +1094,7 @@ def run_packed(dev, fixture, kernels, plain_latencies):
     and without uncertainty (see the module docstring)."""
     import torch
     from pvnet_tpu_torch import infer, pipeline as pl
-    from pvnet_tpu_torch.ops import packed_tail, select_kernel, voting
+    from pvnet_tpu_torch.ops import select_kernel, voting
 
     model = infer.load_model(os.path.join(REPO, "assets",
                                           "duck_ckpt.msgpack"), VN, dev)
@@ -1114,26 +1142,8 @@ def run_packed(dev, fixture, kernels, plain_latencies):
             k["launches"] = k2_launches
 
     # the packed field, unpacked, against the plain forward's fields
-    with torch.no_grad():
-        imgs, _ = request_images(views, 0)
-        x = pl.normalize_images(torch.from_numpy(imgs).to(dev))
-        x = x.permute(0, 3, 1, 2).contiguous()
-        packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
-            model, *model(x, return_8s_features=True), x,
-            dtype=torch.float32)
-        seg, ver = model(x)
-        full = torch.cat([seg, ver], 1).permute(0, 2, 3, 1)
-        hout = full.shape[-1]
-        unpacked = packed.reshape(BATCH, H // 2, W // 2, 2, 2, hout) \
-            .permute(0, 1, 3, 2, 4, 5).reshape(BATCH, H, W, hout)
-        same = float((unpacked[..., :2].argmax(-1) == full[..., :2]
-                      .argmax(-1)).float().mean())
-        rel = float((unpacked - full).abs().max() / full.abs().max())
-        del seg, ver, full, unpacked
-    print(f"packed field unpacked vs the plain forward (card): argmax equal "
-          f"on {same * 100:.4f} % of pixels; max abs difference "
-          f"{rel:.3e} of the field's max abs", flush=True)
-    assert same >= 0.999 and rel <= 1e-3
+    imgs, _ = request_images(views, 0)
+    packed, fgcnt = packed_against_plain(model, imgs, dev, "")
 
     # the card path against the CPU path from the same packed field,
     # fgcnt and draws
@@ -1150,6 +1160,38 @@ def run_packed(dev, fixture, kernels, plain_latencies):
               + f"; sum {sum(med.values()):.3f}", flush=True)
         meds[unc] = med
     return meds
+
+
+def packed_against_plain(model, imgs, dev, tag):
+    """The depth-3 packed field of uint8 images [b, H, W, 3], unpacked,
+    against the plain forward's fields on the card, float32: argmax equal
+    on >= 99.9 % of pixels, values within 1e-3 of the field's max abs.
+    Returns (packed, fgcnt)."""
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.ops import packed_tail
+
+    b = imgs.shape[0]
+    with torch.no_grad():
+        x = pl.normalize_images(torch.from_numpy(imgs).to(dev))
+        x = x.permute(0, 3, 1, 2).contiguous()
+        packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
+            model, *model(x, return_8s_features=True), x,
+            dtype=torch.float32)
+        seg, ver = model(x)
+        full = torch.cat([seg, ver], 1).permute(0, 2, 3, 1)
+        hout = full.shape[-1]
+        unpacked = packed.reshape(b, H // 2, W // 2, 2, 2, hout) \
+            .permute(0, 1, 3, 2, 4, 5).reshape(b, H, W, hout)
+        same = float((unpacked[..., :2].argmax(-1) == full[..., :2]
+                      .argmax(-1)).float().mean())
+        rel = float((unpacked - full).abs().max() / full.abs().max())
+        del seg, ver, full, unpacked
+    print(f"{tag}packed field unpacked vs the plain forward (card): argmax "
+          f"equal on {same * 100:.4f} % of pixels; max abs difference "
+          f"{rel:.3e} of the field's max abs", flush=True)
+    assert same >= 0.999 and rel <= 1e-3
+    return packed, fgcnt
 
 
 def packed_card_vs_cpu(packed, fgcnt, pts, K, params, gen, dev, impl=None,
@@ -3428,19 +3470,25 @@ def check_records(root, manifest):
               for k, v in worst.items()), flush=True)
 
 
+def run_quiet(main, argv):
+    """``main(argv)`` of a CLI in this process; returns its standard output
+    (the exit code must be 0)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    assert rc == 0, buf.getvalue()[-3000:]
+    return buf.getvalue()
+
+
 def run_cli(argv):
     """python -m pvnet_tpu_torch.train ``argv`` in this process; returns
     the JSON object of its last line and the seconds it took."""
-    import contextlib
-    import io
     from pvnet_tpu_torch.train import __main__ as T
-    buf = io.StringIO()
     t0 = time.time()
-    with contextlib.redirect_stdout(buf):
-        rc = T.main(argv)
+    out = run_quiet(T.main, argv)
     wall = time.time() - t0
-    out = buf.getvalue()
-    assert rc == 0, out[-3000:]
     return json.loads(out.strip().splitlines()[-1]), wall, out
 
 
@@ -3885,6 +3933,390 @@ def run_preparation(dev, kernels):
     torch.cuda.empty_cache()
 
 
+# --- phase (o): the demo, the gallery, intermediate results, the gather
+# warp route, the packed tail and stem behind resnet34/50 --------------------
+
+DEMO_DIR = os.path.join(REPO, "assets", "demo_mini")
+O_HYP = 512               # (o1)-(o3): the tools' --hyp_num
+O_SEED = 29
+O_ROT = 90.0              # (o5): the recipe's rotation range, +-degrees
+O_STEPS = 2               # (o5): timed bf16 training steps
+
+
+def demo_draws(dev, gen, h, w, hn):
+    import torch
+    return (torch.rand((1, h, w), generator=gen, device=dev),
+            torch.rand((1, hn, 2), generator=gen, device=dev))
+
+
+def held_poses(tag, pose_g, pose_c):
+    """Card and CPU poses within 0.05 deg / 1 mm (float64 angles)."""
+    import torch
+    rot, trans = pose_errors(torch.as_tensor(pose_g), torch.as_tensor(pose_c))
+    assert float(rot.max()) < 0.05 and float(trans.max()) < 1e-3, \
+        f"{tag}: poses differ by {float(rot.max()):.3e} deg, " \
+        f"{float(trans.max()):.3e} m"
+    return float(rot.max()), float(trans.max())
+
+
+def demo_card_vs_cpu(tag, data, mask, vertex, dev, gen):
+    """tools/demo.py's voting and PnP (demo.run_demo) on the card and on
+    the CPU from the same fields and draws: selection, hypotheses and
+    counts equal, keypoints within 1e-2 px, poses within 0.05 deg / 1 mm,
+    corners within 1e-2 px."""
+    import torch
+    from pvnet_tpu_torch import demo
+    from pvnet_tpu_torch.ops import voting
+
+    noise, pair = demo_draws(dev, gen, H, W, O_HYP)
+    outs, parts = [], []
+    with torch.no_grad():
+        for where in (dev, torch.device("cpu")):
+            m, v = mask.to(where), vertex.float().to(where)
+            nz, pu = noise.to(where), pair.to(where)
+            fg = voting.sample_foreground(m, v, 1024, nz)
+            hyps = voting.generate_hypotheses(fg, O_HYP, pu)
+            counts = voting.count_inliers(fg, hyps, 0.99)
+            parts.append([t.cpu() for t in (*fg[:3], hyps, counts)])
+            outs.append(demo.run_demo(data, m, v, O_HYP, noise=nz,
+                                      pair_u=pu))
+    for name, a, b in zip(("coords", "dirs", "valid", "hyps", "counts"),
+                          *parts):
+        assert torch.equal(a, b), f"{tag}: card != CPU on {name}"
+    g, c = outs
+    kd = float(abs(g["kps"] - c["kps"]).max())
+    cd = float(abs(g["corners_pred"] - c["corners_pred"]).max())
+    rot, trans = held_poses(tag, g["pose"], c["pose"])
+    print(f"{tag} card vs CPU, same fields and draws: selection, hypotheses "
+          f"and counts equal; keypoints max diff {kd:.3e} px, pose "
+          f"{rot:.3e} deg / {trans:.3e} m, corners {cd:.3e} px", flush=True)
+    assert kd < 1e-2 and cd < 1e-2
+    return g
+
+
+def run_demo_phase(dev, tmp, kernels, tag, checkpoint=None):
+    """(o1) / (o2): ``python -m pvnet_tpu_torch.demo`` on the card (its
+    launches counted: K1 and K3 once, the JPEG decoder once), then the
+    same voting card vs CPU, the GT pose error, and the written PNG
+    decoded back against the drawing."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import demo, pipeline as pl
+    from pvnet_tpu_torch.data.image_io import read_rgb
+    from pvnet_tpu_torch.infer import load_model
+    from pvnet_tpu_torch.utils import viz
+
+    out_png = os.path.join(tmp, f"demo_{tag[1:3]}.png")
+    argv = ["--demo_dir", DEMO_DIR, "--device", str(dev), "--output",
+            out_png, "--seed", str(O_SEED)]
+    if checkpoint:
+        argv += ["--checkpoint", checkpoint]
+    reset_all_counters()
+    t0 = time.perf_counter()
+    printed = run_quiet(demo.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_all_counters()
+    assert counts["stratified_select_cmajor"] == 1, counts
+    assert counts["count_inliers"] == 1, counts
+    assert counts["jpeg_pixels"] == 1, counts
+    add_launches(kernels, counts)
+    lines = printed.strip().splitlines()
+    assert lines[0].startswith("pose error: "), printed
+
+    data = demo.load_demo(DEMO_DIR, dev)
+    mask, vertex = demo.demo_fields(data, dev, checkpoint)
+    if checkpoint:
+        # the FCN card vs CPU on the frame, as (l1)
+        with torch.no_grad():
+            cpu = load_model(checkpoint, VN, "cpu")
+            mask_c, vertex_c = pl.predict_fields(
+                cpu, pl.normalize_images(data["rgb_t"].cpu()[None]))
+        agree = float((mask.cpu() == mask_c).double().mean())
+        rel = float((vertex.cpu() - vertex_c).abs().max()
+                    / vertex_c.abs().max())
+        print(f"{tag} FCN card vs CPU (f32, no TF32): mask equal on "
+              f"{agree:.6f} of the pixels, field max diff {rel:.2e} of its "
+              f"max abs", flush=True)
+        assert agree >= 0.999 and rel < 1e-3
+    demo_card_vs_cpu(tag, data, mask, vertex, dev,
+                     torch.Generator(device=dev).manual_seed(O_SEED + 1))
+    # the CLI's own result again (same seed): its PNG decodes to the drawing
+    out = demo.run_demo(data, mask, vertex, O_HYP,
+                        torch.Generator(device=dev).manual_seed(O_SEED))
+    drawn = viz.visualize_bounding_box(data["rgb"], out["corners_pred"],
+                                       out["corners_gt"])
+    assert np.array_equal(read_rgb(out_png, dev).cpu().numpy(), drawn), \
+        f"{tag}: the written PNG does not decode to the drawing"
+    ang, trans, px = demo.pose_errors(out["pose"], data["pose"],
+                                      out["corners_pred"], out["corners_gt"])
+    print(f"{tag} python -m pvnet_tpu_torch.demo "
+          f"{'--checkpoint ' + os.path.basename(checkpoint) if checkpoint else '(GT field)'}"
+          f" on the card: {lines[0]}; {wall:.2f} s with the model's load; "
+          f"launches {counts}; the PNG decodes to the drawing; {SMI}",
+          flush=True)
+    assert np.isfinite([ang, trans, px]).all()
+    return ang, trans
+
+
+def run_gallery_phase(dev, tmp, kernels):
+    """(o3): ``python -m pvnet_tpu_torch.visualize`` on the card: the six
+    files, K1 and K3 three times each, then the gallery's calls card vs
+    CPU with the same draws."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch import demo, visualize
+    from pvnet_tpu_torch.data.image_io import read_rgb
+
+    out_dir = os.path.join(tmp, "gallery")
+    reset_all_counters()
+    t0 = time.perf_counter()
+    printed = run_quiet(visualize.main, [
+        "--demo_dir", DEMO_DIR, "--device", str(dev), "--out_dir", out_dir,
+        "--seed", str(O_SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_all_counters()
+    assert counts["stratified_select_cmajor"] == 3, counts
+    assert counts["count_inliers"] == 3, counts
+    add_launches(kernels, counts)
+    for name in visualize.GALLERY:
+        img = read_rgb(os.path.join(out_dir, name), dev)
+        assert img.shape[0] == H, (name, img.shape)
+
+    data = demo.load_demo(DEMO_DIR, dev)
+    mask, vertex = demo.demo_fields(data, dev)
+    gen = torch.Generator(device=dev).manual_seed(O_SEED + 2)
+    draws = {}
+    for name, hn in (("hyp", O_HYP), ("vote", O_HYP), ("cov", 4096)):
+        draws[f"{name}_noise"], draws[f"{name}_pair"] = demo_draws(
+            dev, gen, H, W, hn)
+    outs = []
+    with torch.no_grad():
+        for where in (dev, torch.device("cpu")):
+            outs.append(visualize.run_gallery(
+                data, mask.to(where), vertex.to(where), O_HYP,
+                draws={k: v.to(where) for k, v in draws.items()}))
+    g, c = outs
+    for k in ("hyps", "counts"):
+        assert np.array_equal(g[k], c[k]), f"(o3) card != CPU on {k}"
+    kd = float(max(abs(g[k] - c[k]).max() for k in ("kps", "mean")))
+    cov_tol = max(1e-3 * float(abs(c["cov"]).max()), 1e-4)
+    cd = float(abs(g["cov"] - c["cov"]).max())
+    rot, trans = held_poses("(o3)", g["pose"], c["pose"])
+    ang, tr, _ = demo.pose_errors(g["pose"], data["pose"], g["corners_pred"],
+                                  g["corners_gt"])
+    print(f"(o3) python -m pvnet_tpu_torch.visualize on the card: "
+          f"{len(visualize.GALLERY)} files, {wall:.2f} s; launches {counts}; "
+          f"card vs CPU with the same draws: hypotheses and counts equal, "
+          f"keypoints / means max diff {kd:.3e} px, covariance {cd:.3e} "
+          f"(tolerance {cov_tol:.1e}), uncertainty pose {rot:.3e} deg / "
+          f"{trans:.3e} m; pose error against GT {ang:.3f} deg, "
+          f"{tr * 100:.3f} cm; {printed.strip().splitlines()[0]}; {SMI}",
+          flush=True)
+    assert kd < 1e-2 and cd <= cov_tol
+
+
+def run_save_inter(dev, tmp, kernels):
+    """(o4): ``train --test_model --save_inter_result`` on a copy of
+    assets/linemod_mini's duck: four files a batch, decoded back."""
+    import pickle
+    import shutil
+    import numpy as np
+    from pvnet_tpu_torch.data.image_io import read_mask, read_rgb
+
+    root = os.path.join(tmp, "lm")
+    shutil.copytree(LINEMOD_MINI, root)
+    inter = os.path.join(tmp, "save_result")
+    reset_all_counters()
+    out, wall, _ = run_cli([
+        "--linemod_cls", "duck", "--data_dir", root, "--init", CKPT,
+        "--test_model", "--device", str(dev), "--model_dir",
+        os.path.join(tmp, "m_inter"), "--save_inter_result",
+        "--save_inter_dir", inter])
+    counts = read_all_counters()
+    add_launches(kernels, counts)
+    n = out["sets"]["val"]["images"]
+    batches = -(-n // 8)
+    names = sorted(os.listdir(inter))
+    assert len(names) == 4 * batches, names
+    for b in range(batches):
+        for kind in ("mask_pr", "mask_gt"):
+            m = read_mask(os.path.join(inter, f"{b}_{kind}.png"), dev)
+            assert m.shape == (H, W) and set(np.unique(m)) <= {0, 255}
+        assert read_rgb(os.path.join(inter, f"{b}_rgb.png"),
+                        dev).shape == (H, W, 3)
+        with open(os.path.join(inter, f"{b}_pose.pkl"), "rb") as f:
+            pose = pickle.load(f)
+        assert pose.shape == (3, 4) and np.isfinite(pose).all()
+    assert counts["stratified_select_cmajor"] == batches, counts
+    print(f"(o4) --test_model --save_inter_result on {n} frames of "
+          f"assets/linemod_mini (bf16 recipe): {len(names)} files for "
+          f"{batches} batches, each decoded back; rates {out['sets']['val']}"
+          f"; {wall:.2f} s; launches {counts}", flush=True)
+
+
+def run_gather_route(dev, kernels):
+    """(o5): bf16 b=16 training steps at 480x640 with the recipe's
+    augmentation rotating +-90 deg (the one-pass gather warps), and one
+    f32 b=2 augmentation card vs CPU on the same draws."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.config import TrainConfig
+    from pvnet_tpu_torch.data import augment_device as AD
+    from pvnet_tpu_torch.data.dataset import load_training_set
+    from pvnet_tpu_torch.train import trainer as TT
+    from pvnet_tpu_torch.train.loop import TrainLoop
+
+    cfg = TrainConfig.from_json(RECIPE)
+    cfg.aug_cfg = dataclasses.replace(cfg.aug_cfg, rot_ang_min=-O_ROT,
+                                      rot_ang_max=O_ROT)
+    images, masks, hcoords = load_training_set(FIXTURE)
+    tile = np.arange(BATCH) % len(images)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        loop = TrainLoop(cfg, os.path.join(tmp, "model"), device=dev,
+                         buckets=[(H, W)])
+        state = loop.init_state(init=CKPT)
+        data = loop.build_device_dataset(images[tile], masks[tile],
+                                         hcoords[tile])
+        ids = torch.arange(BATCH, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(O_SEED)
+
+        def step():
+            return TT.train_step_from_data(
+                state, data, ids, generator=gen, aug_cfg=cfg.aug_cfg,
+                aug_hw=(H, W), bf16=cfg.bf16)
+
+        assert torch.isfinite(step()["loss"])          # first launches
+        torch.cuda.synchronize()
+        reset_all_counters()
+        step_ms, losses = [], []
+        for _ in range(O_STEPS):
+            t0 = time.perf_counter()
+            met = step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+        counts = read_all_counters()
+        assert np.isfinite(losses).all(), losses
+        assert counts["shift_lanes"] == 0 and counts["shift_sublanes"] == 0
+        add_launches(kernels, counts)
+        raw = {k: v[ids] for k, v in data.items()}
+        draws = AD.sample_draws(BATCH, cfg.aug_cfg, gen, dev)
+        aug_ms = cuda_ms(lambda: TT.apply_device_aug(
+            raw, cfg.aug_cfg, (H, W), draws=draws), iters=10)
+        del state, data, raw
+    print(f"(o5) {O_STEPS} bf16 training steps, b={BATCH}, {H}x{W}, "
+          f"rotation +-{O_ROT:g} deg (gather warps): step ms "
+          f"{[round(x, 3) for x in step_ms]}; augmentation {aug_ms:.3f} ms; "
+          f"losses {[round(x, 5) for x in losses]}; launches {counts} (the "
+          f"gather route launches no kernel of the port); {SMI}",
+          flush=True)
+
+    # one f32 b=2 augmentation card vs CPU, uint8 input (the packed-word
+    # warp), the same draws
+    d = AD.sample_draws(2, cfg.aug_cfg, torch.Generator().manual_seed(O_SEED),
+                        "cpu")
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        outs.append([t.cpu() for t in AD.augment_batch(
+            torch.from_numpy(images[:2]).to(where),
+            torch.from_numpy(masks[:2]).to(where),
+            torch.from_numpy(hcoords[:2]).to(where), (H, W), cfg.aug_cfg,
+            draws=AD.AugDraws(*(t.to(where) for t in d)))])
+    (ig, mg, hg), (ic, mc, hc) = outs
+    off = float(((ig - ic).abs() > 1e-4).double().mean())
+    same_mask = float((mg == mc).double().mean())
+    print(f"(o5) f32 b=2 augmentation, card vs CPU on the same draws: image "
+          f"max diff {float((ig - ic).abs().max()):.3e} (share above 1e-4: "
+          f"{off:.2e}), mask equal on {same_mask:.6f} of the pixels, "
+          f"hcoords max diff {float((hg - hc).abs().max()):.3e}", flush=True)
+    assert off <= 0.005 and same_mask >= 0.99
+    assert torch.allclose(hg, hc, rtol=1e-5, atol=1e-4)
+    torch.cuda.empty_cache()
+
+
+def run_packed_family(dev, fixture, tmp, kernels, network):
+    """(o6): ``network`` with the packed4 stem (the conv7 weights folded)
+    and the depth-3 packed tail: backbone from a synthesized ImageNet
+    checkpoint as in (l1), heads seeded; the packed field against the
+    plain forward on the card; one warm-up and one timed 16-image request
+    (K2 once, K3 once)."""
+    import torch
+    from pvnet_tpu_torch import infer, pipeline as pl
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.models.resnet import init_weights
+    from pvnet_tpu_torch.utils.weights import (fold_stem_state_dict,
+                                               load_imagenet_backbone)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = network.split("_")[0]
+    path = os.path.join(tmp, f"{arch}.pth")
+    synthesized_backbone(arch, path, FAMILY_SEED)
+    conv7 = build_model(network, ver_dim=2 * VN)
+    init_weights(conv7, torch.Generator().manual_seed(FAMILY_SEED))
+    load_imagenet_backbone(conv7, path, arch=arch)
+    model = build_model(network, ver_dim=2 * VN, stem="packed4")
+    model.load_state_dict(fold_stem_state_dict(conv7.state_dict()))
+    model = model.to(dev).eval()
+    del conv7
+    views = fixture["images"]
+    imgs = request_images(views, 0)[0]
+    packed_against_plain(model, imgs[:4], dev, f"(o6) {network} packed4, ")
+    pts = torch.as_tensor(fixture["points_3d"], device=dev)
+    K = torch.as_tensor(fixture["K"], device=dev)
+    params = pl.VoteParams()
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    infer.infer_batch(model, request_images(views, -1)[0], pts, K, params,
+                      gen, tail_depth=3, packed_stem=True)   # warm-up
+    torch.cuda.synchronize()
+    reset_all_counters()
+    t0 = time.perf_counter()
+    est = infer.infer_batch(model, imgs, pts, K, params, gen, tail_depth=3,
+                            packed_stem=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_all_counters()
+    assert counts["stratified_select"] == 1 and \
+        counts["count_inliers"] == 1, counts
+    assert counts["stratified_select_cmajor"] == 0, counts
+    assert est.pose.shape == (BATCH, 3, 4) and torch.isfinite(est.pose).all()
+    add_launches(kernels, counts)
+    print(f"(o6) {network}, packed4 stem, tail_depth 3, f32: one request of "
+          f"{BATCH} images at {H}x{W}: {ms:.3f} ms; launches {counts}; "
+          f"{SMI}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def run_visualization(dev, fixture, kernels):
+    """Phase (o) (see the module docstring)."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        t = {}
+        t0 = time.time()
+        run_demo_phase(dev, tmp, kernels, "(o1)")
+        t["o1"] = time.time() - t0
+        run_demo_phase(dev, tmp, kernels, "(o2)", checkpoint=CKPT)
+        t["o2"] = time.time() - t0 - sum(t.values())
+        run_gallery_phase(dev, tmp, kernels)
+        t["o3"] = time.time() - t0 - sum(t.values())
+        run_save_inter(dev, tmp, kernels)
+        t["o4"] = time.time() - t0 - sum(t.values())
+        run_gather_route(dev, kernels)
+        t["o5"] = time.time() - t0 - sum(t.values())
+        for network in FAMILY:
+            run_packed_family(dev, fixture, tmp, kernels, network)
+        t["o6"] = time.time() - t0 - sum(t.values())
+    print("(o) seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in t.items()), flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3938,6 +4370,8 @@ def main() -> int:
           kernels)
     phase("(m) LINEMOD from disk", run_linemod, dev, kernels)
     phase("(n) dataset preparation", run_preparation, dev, kernels)
+    phase("(o) demo, gallery, gather warps, packed family",
+          run_visualization, dev, fixture, kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -14,7 +14,8 @@ on a synthetic occluded split that the port generates itself.
 
 Module names mirror ``pvnet_tpu`` so each function's JAX counterpart is
 found under the same path. The package imports ``torch`` and ``numpy``
-only; it never imports JAX, flax, msgpack, PIL or ``pvnet_tpu``.
+only; it never imports JAX, flax, msgpack, PIL, cv2, matplotlib or
+``pvnet_tpu``.
 
 Subpackages
 -----------
@@ -32,8 +33,11 @@ Subpackages
   pvnet_tpu_torch.train`` trains, and evaluates with ``--test_model``;
   ``python -m pvnet_tpu_torch.prepare`` prepares datasets
   (tools/prepare.py).
-- ``pvnet_tpu_torch.utils``  : the flax-msgpack checkpoint reader and the
-  weight mapping both ways.
+- ``pvnet_tpu_torch.utils``  : the flax-msgpack checkpoint reader, the
+  weight mapping both ways, and the visualization helpers (viz, drawn
+  with the port's own rasterizer, draw, and a copy of viridis, colormap);
+  ``python -m pvnet_tpu_torch.demo`` and ``python -m
+  pvnet_tpu_torch.visualize`` are tools/demo.py and tools/visualize.py.
 - ``pvnet_tpu_torch.csrc``   : the CUDA C++ kernel sources.
 """
 

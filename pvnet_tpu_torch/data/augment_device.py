@@ -11,9 +11,16 @@ linemod_dataset.py:221-240).
 
 Every random value comes from :class:`AugDraws`: :func:`sample_draws`
 takes them from a ``torch.Generator``, and a caller may hand its own (the
-tests hand the JAX package's draws, rebuilt from its key splits). The
-one-pass gather warps that the JAX module uses for |rotation| >= 75 deg
-are not ported.
+tests hand the JAX package's draws, rebuilt from its key splits).
+
+Where the recipe's rotation reaches 75 deg the separable factorization
+degenerates (its pass V divides by cos(rotation)), and the warp is the
+JAX module's one-pass gather instead: :func:`_warp_image` (float input:
+four bilinear taps of the image, one nearest tap of the mask) or
+:func:`_warp_image_u32` (uint8 input: rgb and mask packed in one 32-bit
+word plane, four gathers serving both outputs). Both are plain
+``torch.gather`` code, as the JAX module computes them with ``jnp.take``
+outside any kernel.
 
 Separable warp (see the design note in the JAX module): the dst->src map
 xs = a x + b y + c, ys = d x + e y + f factors into a vertical resample of
@@ -178,6 +185,118 @@ def _invert_affine(M: torch.Tensor) -> torch.Tensor:
     ], 1) / det[:, None, None]
     tinv = (-Ainv @ t[..., None])[..., 0]
     return torch.cat([Ainv, tinv[..., None]], 2)
+
+
+# ---------------------------------------------------------------------------
+# One-pass gather warps (|rotation| >= 75 deg)
+# ---------------------------------------------------------------------------
+
+def _sample_grid(Ms: torch.Tensor, out_h: int, out_w: int):
+    """The source position of every output pixel of forward affines
+    Ms [b, 2, 3]: (x0, y0) int64 floors and (wx, wy) fractions, each
+    [b, out_h, out_w], computed as the JAX module's warps do (float32,
+    the same order)."""
+    dev = Ms.device
+    Minv = _invert_affine(Ms)
+    xo = torch.arange(out_w, dtype=torch.float32, device=dev)[None, None, :]
+    yo = torch.arange(out_h, dtype=torch.float32, device=dev)[None, :, None]
+    m = [[Minv[:, i, j][:, None, None] for j in range(3)] for i in range(2)]
+    xs = m[0][0] * xo + m[0][1] * yo + m[0][2]
+    ys = m[1][0] * xo + m[1][1] * yo + m[1][2]
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    return (x0.to(torch.int64), y0.to(torch.int64), xs - x0, ys - y0,
+            xs, ys)
+
+
+def _tap_index(xi: torch.Tensor, yi: torch.Tensor, h: int, w: int):
+    """(flat index into an [h*w] plane, inside mask) of integer taps, the
+    index clamped into the image as the JAX module clamps it."""
+    inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+    return idx.flatten(1), inside
+
+
+def _warp_image(img: torch.Tensor, mask: torch.Tensor, Ms: torch.Tensor,
+                out_h: int, out_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bilinear (image) / nearest (mask) affine warp with zero border
+    (cv2.warpAffine BORDER_CONSTANT semantics), the JAX module's
+    ``_warp_image`` per image of a batch.
+
+    img [b, H, W, 3] float32, mask [b, H, W] integer, Ms [b, 2, 3] forward
+    affines. Returns (image float32 [b, out_h, out_w, 3], mask
+    [b, out_h, out_w] of the mask's dtype)."""
+    b, h, w = mask.shape
+    x0, y0, wx, wy, xs, ys = _sample_grid(Ms, out_h, out_w)
+    flat_img = img.reshape(b, h * w, -1)
+    c = flat_img.shape[-1]
+
+    def fetch(xi, yi):
+        idx, inside = _tap_index(xi, yi, h, w)
+        vals = torch.gather(flat_img, 1, idx[..., None].expand(-1, -1, c))
+        return vals.reshape(b, out_h, out_w, c) * inside[..., None]
+
+    v00 = fetch(x0, y0)
+    v01 = fetch(x0 + 1, y0)
+    v10 = fetch(x0, y0 + 1)
+    v11 = fetch(x0 + 1, y0 + 1)
+    wx, wy = wx[..., None], wy[..., None]
+    out = ((1 - wy) * ((1 - wx) * v00 + wx * v01)
+           + wy * ((1 - wx) * v10 + wx * v11))
+
+    xn = torch.floor(xs + 0.5).to(torch.int64)
+    yn = torch.floor(ys + 0.5).to(torch.int64)
+    idx, inside = _tap_index(xn, yn, h, w)
+    out_mask = torch.gather(mask.reshape(b, h * w), 1, idx)
+    out_mask = out_mask.reshape(b, out_h, out_w) * inside
+    return out, out_mask
+
+
+def _warp_image_u32(img: torch.Tensor, mask: torch.Tensor, Ms: torch.Tensor,
+                    out_h: int, out_w: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed-word form of :func:`_warp_image` for uint8 input (the
+    JAX module's ``_warp_image_u32``): r | g << 8 | b << 16 | m << 24 in
+    one [b, H*W] word plane (int64 here: PyTorch has no uint32 gather),
+    four gathers for the bilinear corners, and the mask's nearest tap is
+    the corner that rounding each fraction picks.
+
+    img [b, H, W, 3] uint8, mask [b, H, W] (values 0..255). Returns (image
+    float32 [b, out_h, out_w, 3], mask int32 [b, out_h, out_w])."""
+    b, h, w = mask.shape
+    i = img.to(torch.int64)
+    word = (i[..., 0] | (i[..., 1] << 8) | (i[..., 2] << 16)
+            | (mask.to(torch.int64) << 24)).reshape(b, h * w)
+    x0, y0, wx, wy, _, _ = _sample_grid(Ms, out_h, out_w)
+
+    def tap(xi, yi):
+        idx, inside = _tap_index(xi, yi, h, w)
+        return torch.gather(word, 1, idx).reshape(b, out_h, out_w), inside
+
+    w00, in00 = tap(x0, y0)
+    w01, in01 = tap(x0 + 1, y0)
+    w10, in10 = tap(x0, y0 + 1)
+    w11, in11 = tap(x0 + 1, y0 + 1)
+
+    def chan(shift):
+        c00 = ((w00 >> shift) & 0xFF).to(torch.float32) * in00
+        c01 = ((w01 >> shift) & 0xFF).to(torch.float32) * in01
+        c10 = ((w10 >> shift) & 0xFF).to(torch.float32) * in10
+        c11 = ((w11 >> shift) & 0xFF).to(torch.float32) * in11
+        return ((1 - wy) * ((1 - wx) * c00 + wx * c01)
+                + wy * ((1 - wx) * c10 + wx * c11))
+
+    out = torch.stack([chan(0), chan(8), chan(16)], -1)
+
+    # nearest tap = the bilinear corner selected by rounding each frac
+    right = wx >= 0.5
+    down = wy >= 0.5
+    wn = torch.where(down, torch.where(right, w11, w10),
+                     torch.where(right, w01, w00))
+    inn = torch.where(down, torch.where(right, in11, in10),
+                      torch.where(right, in01, in00))
+    out_mask = ((wn >> 24) & 0xFF).to(torch.int32) * inn
+    return out, out_mask
 
 
 # ---------------------------------------------------------------------------
@@ -432,13 +551,18 @@ def augment_batch(image: torch.Tensor, mask: torch.Tensor,
     # --- geometric: one composed affine per image --------------------------
     if cfg.rotation or cfg.crop:
         rot_max = max(abs(cfg.rot_ang_min), abs(cfg.rot_ang_max))
-        if rot_max >= 75.0:
-            raise NotImplementedError(
-                f"rotation range up to {rot_max} deg needs the one-pass "
-                "gather warp, which is not ported (the separable warp "
-                "needs |rotation| < 75 deg)")
         Ms = _sample_warp(mask, draws, out_h, out_w, cfg)    # [b, 2, 3]
-        image, mask = _warp_batch_sep(image, mask, Ms, out_h, out_w)
+        if rot_max < 75.0:
+            image, mask = _warp_batch_sep(image, mask, Ms, out_h, out_w)
+        else:
+            # the gather warps for rotation ranges where the separable
+            # factorization's cos(rotation) nears 0 (JAX :598-604)
+            if image.dtype == torch.uint8:
+                image, mask = _warp_image_u32(image, mask, Ms, out_h, out_w)
+            else:
+                image, mask = _warp_image(image.to(torch.float32), mask, Ms,
+                                          out_h, out_w)
+            image = image.permute(0, 3, 1, 2)
         last = _constants(dev)["e3"].expand(b, 1, 3)
         T = torch.cat([Ms, last], 1)                         # [b, 3, 3]
         hcoords = torch.einsum("bkj,bij->bki", hcoords, T)

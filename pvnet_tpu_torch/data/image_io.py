@@ -920,6 +920,59 @@ def read_mask(path: str, device="cpu") -> np.ndarray:
     return png_to_mask(decode_png(data, path, native=_native(device)))
 
 
+def _trunc_div16(s: np.ndarray) -> np.ndarray:
+    """C's ``s / 16`` on ints: the quotient truncated towards zero."""
+    return np.where(s < 0, -((-s) // 16), s // 16)
+
+
+def to_bilevel(gray: np.ndarray) -> np.ndarray:
+    """``np.array(Image.fromarray(gray).convert("1"))`` of a uint8 [h, w]
+    image: PIL's Floyd-Steinberg dither (libImaging/Convert.c
+    ``tobilevel``), not a threshold. Each pixel takes its value plus
+    (7 e[y, x-1] + 3 e[y-1, x+1] + 5 e[y-1, x] + e[y-1, x-1]) / 16 of its
+    neighbours' errors in C integer division, clipped to 0..255; it is white
+    above 128, and its error is that value less 0 or 255. A pixel depends
+    on its left neighbour and on the row above up to x+1, so the pixels
+    with one 2y + x are independent: the loop runs over those wavefronts.
+    Returns bool [h, w] (True = white)."""
+    g = np.asarray(gray)
+    if g.ndim != 2 or g.dtype != np.uint8:
+        raise ValueError(f"to_bilevel takes uint8 [h, w]; got {g.dtype} "
+                         f"{g.shape}")
+    h, w = g.shape
+    gi = g.astype(np.int64)
+    err = np.zeros((h + 1, w + 2), np.int64)       # err[y + 1, x + 1]
+    out = np.zeros((h, w), bool)
+    for t in range(2 * (h - 1) + w):
+        ys = np.arange(max(0, (t - w + 2) // 2), min(h - 1, t // 2) + 1)
+        xs = t - 2 * ys
+        s = (7 * err[ys + 1, xs] + 3 * err[ys, xs + 2]
+             + 5 * err[ys, xs + 1] + err[ys, xs])
+        level = np.clip(gi[ys, xs] + _trunc_div16(s), 0, 255)
+        white = level > 128
+        out[ys, xs] = white
+        err[ys + 1, xs + 1] = level - 255 * white
+    return out
+
+
+def read_bilevel(path: str, device="cpu") -> np.ndarray:
+    """``np.array(Image.open(path).convert("1"))`` of a gray PNG, as
+    tools/demo.py reads its mask: a 1-bit file as stored (PIL copies a
+    mode "1" image), any other gray depth dithered by :func:`to_bilevel`
+    from its 8-bit levels. Returns bool [h, w]."""
+    data = _read(path)
+    if not _is_png(data):
+        raise ImageDecodeError(f"{path}: masks are read from PNG files")
+    img = decode_png(data, path, native=_native(device))
+    if img.color_type != 0 or img.bit_depth == 16:
+        raise ImageDecodeError(
+            f"{path}: bilevel reading takes gray PNGs of 1-8 bits; got "
+            f"colour type {img.color_type}, bit depth {img.bit_depth}")
+    if img.bit_depth == 1:
+        return img.samples[..., 0] != 0
+    return to_bilevel(png_to_mask(img).astype(np.uint8))
+
+
 def _decode_one(path: str, native: bool):
     """Host stage of one file: ('jpeg', JpegCoefficients) or ('rgb',
     uint8 [h, w, 3])."""

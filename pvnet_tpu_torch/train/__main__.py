@@ -8,7 +8,7 @@ branch).
 
   python -m pvnet_tpu_torch.train --linemod_cls cat --data_dir data \\
       --test_model [--use_test_set] [--occluded] [--truncated] \\
-      [--use_uncertainty_pnp] [--tail_depth 3]
+      [--use_uncertainty_pnp] [--tail_depth 3] [--save_inter_result]
 
   python -m pvnet_tpu_torch.train --synthetic --epochs 3
 
@@ -157,6 +157,11 @@ def parse_args(argv=None):
                    help="seed of RANSAC's draws in the evaluation")
     p.add_argument("--num_threads", type=int, default=4,
                    help="loader threads of the evaluation")
+    p.add_argument("--save_inter_result", action="store_true",
+                   help="with --test_model: write each batch's first "
+                        "image's predicted and GT masks, image and pose "
+                        "of the normal set into --save_inter_dir")
+    p.add_argument("--save_inter_dir", default="save_result")
     p.add_argument("--use_uncertainty_pnp", action="store_true")
     p.add_argument("--tail_depth", type=int, default=0, choices=(0, 1, 2, 3),
                    help="evaluation decoder tail: 0 plain; 1-3 packed "
@@ -218,23 +223,26 @@ def _eval_state(args, loop: TrainLoop, model_dir: str):
 
 def linemod_test_sets(args, cls_name: str, paths: PathConfig, device):
     """tools/train.py --test_model's sets of the LINEMOD tree:
-    [(name, records, data prefix, per-image K)] for --normal (the test
-    list, then the val list), --occluded (Occlusion LINEMOD's test list,
-    for its classes) and --truncated."""
+    [(name, records, data prefix, per-image K, intermediate-result dir)]
+    for --normal (the test list, then the val list; with
+    --save_inter_result its results go to --save_inter_dir, as
+    tools/train.py writes them for this set only), --occluded (Occlusion
+    LINEMOD's test list, for its classes) and --truncated."""
     prefix = "test" if args.use_test_set else "val"
     sets = []
     if args.normal:
         db = LineModImageDB(cls_name, has_render_set=False,
                             has_fuse_set=False, paths=paths, device=device)
         sets.append((prefix, db.test_real_set + db.val_real_set,
-                     paths.linemod_dir, False))
+                     paths.linemod_dir, False,
+                     args.save_inter_dir if args.save_inter_result else None))
     if args.occluded and cls_name in OCC_LINEMOD_CLS_NAMES:
         odb = OcclusionLineModImageDB(cls_name, paths=paths)
         sets.append((f"occ_{prefix}", odb.test_real_set,
-                     paths.occlusion_linemod_dir, False))
+                     paths.occlusion_linemod_dir, False, None))
     if args.truncated:
         tdb = TruncatedLineModImageDB(cls_name, paths=paths)
-        sets.append(("trun_test", tdb.set, paths.linemod_dir, True))
+        sets.append(("trun_test", tdb.set, paths.linemod_dir, True, None))
     return sets
 
 
@@ -247,8 +255,8 @@ def run_test_linemod(args, cfg: TrainConfig, cls_name: str, model_dir: str,
     state, epoch = _eval_state(args, loop, model_dir)
     meta = loop.linemod_object_meta(cls_name, paths)
     results = {}
-    for name, records, prefix, own_k in linemod_test_sets(args, cls_name,
-                                                          paths, device):
+    for name, records, prefix, own_k, inter_dir in linemod_test_sets(
+            args, cls_name, paths, device):
         if not records:
             print(f"{name}: no records under {prefix}", flush=True)
             continue
@@ -266,7 +274,8 @@ def run_test_linemod(args, cfg: TrainConfig, cls_name: str, model_dir: str,
             uncertainty=args.use_uncertainty_pnp,
             use_camera_intrinsic=own_k, tail_depth=args.tail_depth,
             vote_seed=args.vote_seed,
-            evaluator=Evaluator(meta, device=device))
+            evaluator=Evaluator(meta, device=device),
+            save_inter_dir=inter_dir)
         seconds = time.time() - t0
         results[name] = {
             "images": len(records),

@@ -24,11 +24,14 @@ The training set comes as arrays (:meth:`TrainLoop.fit`: ``--data``,
 (:meth:`TrainLoop.fit_records`: ``train_db``, ``val_db``, ``data_prefix``,
 as the JAX loop's ``fit`` takes them), decoded onto the device by
 data/dataset.load_device_set. That is JAX's ``--device_aug --device_data``
-route, the only one the port has: JAX's host augmentation needs cv2. Not
-ported: the intermediate-result dumps of ``--save_inter_result``.
+route, the only one the port has: JAX's host augmentation needs cv2.
+:meth:`TrainLoop.validate` writes the intermediate results of
+``--save_inter_result`` (``save_inter_dir``) as the JAX loop does.
 """
 from __future__ import annotations
 
+import os
+import pickle
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
@@ -42,6 +45,7 @@ from pvnet_tpu_torch.config import (LINEMOD_K, SYMMETRIC_CLS_NAMES,
 from pvnet_tpu_torch.data.dataset import (ImageSizeBatchSampler, VotingType,
                                           eval_batches, load_device_set,
                                           record_loader)
+from pvnet_tpu_torch.data.image_io import write_png
 from pvnet_tpu_torch.data.linemod import LineModModelDB
 from pvnet_tpu_torch.eval.evaluator import Evaluator, ObjectMeta
 from pvnet_tpu_torch.models.pvnet import build_model
@@ -50,6 +54,7 @@ from pvnet_tpu_torch.ops import quant_conv
 from pvnet_tpu_torch.train import trainer as trainer_mod
 from pvnet_tpu_torch.train.checkpoint import load_model, save_model
 from pvnet_tpu_torch.train.recorder import AverageMeter, Recorder
+from pvnet_tpu_torch.utils.viz import imagenet_to_uint8
 from pvnet_tpu_torch.utils.weights import (load_imagenet_backbone,
                                            load_weights)
 
@@ -250,7 +255,8 @@ class TrainLoop:
                  tail_depth: int = 0, tail_quant: bool = False,
                  vote_impl: Optional[str] = None,
                  draws: Optional[Callable[..., Dict[str, torch.Tensor]]]
-                 = None, vote_seed: int = 0) -> Dict[str, float]:
+                 = None, vote_seed: int = 0,
+                 save_inter_dir: Optional[str] = None) -> Dict[str, float]:
         """(ref val() :177-253) The loss meters of every batch (trainer's
         eval_step) and, with evaluate_pose, the poses of every image
         through the evaluator; returns the averaged scalars, the three
@@ -264,7 +270,9 @@ class TrainLoop:
         dict of tensors for :meth:`eval_pipeline`'s fwd). The loss meters'
         forward takes per-image int8 scales, as the JAX loop's applies
         without the calibrated collection; the poses use the calibrated
-        ones."""
+        ones. With ``save_inter_dir`` (and evaluate_pose) each batch's
+        first image's masks, image and pose go there
+        (:meth:`save_inter`)."""
         meters = {k: AverageMeter() for k in _METRICS}
         gen = torch.Generator(self.device).manual_seed(vote_seed)
         begin = time.time()
@@ -297,6 +305,10 @@ class TrainLoop:
                 else:
                     evaluator.evaluate_batch(out, batch["pose"], Ks)
 
+                if save_inter_dir is not None:
+                    self.save_inter(save_inter_dir, bidx, state, batch,
+                                    image)
+
         losses = {f"{prefix}/scalar/{k}": m.avg for k, m in meters.items()}
         if evaluate_pose and evaluator is not None:
             proj, add, cm = evaluator.average_precision(verbose=True)
@@ -307,6 +319,32 @@ class TrainLoop:
         print(f"epoch {epoch} {prefix} cost {time.time() - begin:.1f} s",
               flush=True)
         return losses
+
+    def save_inter(self, out_dir: str, idx: int, state, batch,
+                   image: torch.Tensor) -> None:
+        """Write the first image of a validation batch as JAX's
+        ``_save_inter`` does (ref train_linemod.py:221-229,
+        --save_inter_result): ``{idx}_mask_pr.png`` (the plain
+        predict_fields' argmax of the normalized ``image`` [b, h, w, 3], in
+        the recipe's dtype, per-image int8 scales as the JAX loop's
+        variables without the quant collection), ``{idx}_mask_gt.png``
+        (both 0/255), ``{idx}_rgb.png`` (the normalized image mapped back,
+        utils/viz.imagenet_to_uint8) and ``{idx}_pose.pkl`` (the batch's
+        first pose)."""
+        os.makedirs(out_dir, exist_ok=True)
+        model = state.model
+        model.eval()
+        with torch.no_grad(), quant_conv.uncalibrated(model), \
+                pl_mod._bf16_autocast(self.device.type, self.cfg.bf16):
+            mask_pr, _ = pl_mod.predict_fields(model, image[:1])
+        write_png(os.path.join(out_dir, f"{idx}_mask_pr.png"),
+                  (mask_pr[0].cpu().numpy() * 255).astype(np.uint8))
+        write_png(os.path.join(out_dir, f"{idx}_mask_gt.png"),
+                  (np.asarray(batch["mask"][0]) * 255).astype(np.uint8))
+        write_png(os.path.join(out_dir, f"{idx}_rgb.png"),
+                  imagenet_to_uint8(image[0].cpu().numpy()))
+        with open(os.path.join(out_dir, f"{idx}_pose.pkl"), "wb") as f:
+            pickle.dump(np.asarray(batch["pose"][0]), f)
 
     def object_meta(self, split: Dict[str, np.ndarray],
                     cls_name: str = "duck") -> ObjectMeta:

@@ -5,8 +5,9 @@ scalars always go to the console and to ``{rec_dir}/log.jsonl``;
 TensorBoard is a sink when asked for (``use_tensorboard=True``) and only
 where ``torch.utils.tensorboard`` imports. It is off by default: where
 TensorFlow is installed that import loads it, seconds of start-up. The
-image summaries of the JAX module (colourized segmentation and vector
-field grids) are not ported.
+image summaries (ref net_utils.py:212-239) add the JAX module's grids of
+colourized segmentations and vector fields (utils/viz.py), from the
+port's channel-major outputs.
 """
 from __future__ import annotations
 
@@ -15,6 +16,12 @@ import os
 import time
 from collections import OrderedDict
 from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from pvnet_tpu_torch.utils.viz import (colorize_segmentation,
+                                       colorize_vertex_field, make_grid)
 
 
 class AverageMeter:
@@ -37,8 +44,15 @@ class AverageMeter:
         self.avg = self.sum / self.count
 
 
+def _nhwc(x) -> np.ndarray:
+    """A channel-major [b, c, h, w] tensor or array as NHWC numpy."""
+    if torch.is_tensor(x):
+        x = x.detach().float().cpu().numpy()
+    return np.moveaxis(np.asarray(x), 1, -1)
+
+
 class Recorder:
-    """Scalar sink (ref net_utils.py:152-239)."""
+    """Scalar/image sink (ref net_utils.py:152-239)."""
 
     def __init__(self, rec_dir: Optional[str] = None,
                  use_tensorboard: bool = False):
@@ -72,6 +86,27 @@ class Recorder:
         if self.writer is not None:
             for k, v in losses.items():
                 self.writer.add_scalar(k, float(v), step)
+
+    def rec_segmentation(self, seg_pred, step: int,
+                         name: str = "train/image/seg") -> None:
+        """Colorized argmax segmentation grid (ref net_utils.py:212-227) of
+        seg_pred [b, C, h, w] logits; nothing without a writer."""
+        if self.writer is None:
+            return
+        imgs = colorize_segmentation(np.argmax(_nhwc(seg_pred), axis=-1))
+        grid = make_grid(imgs, nrow=min(5, imgs.shape[0]))
+        self.writer.add_image(name, grid.transpose(2, 0, 1), step)
+
+    def rec_vertex(self, ver_pred, ver_weights, step: int,
+                   name: str = "train/image/ver") -> None:
+        """Colormapped first vector-field channel grid
+        (ref net_utils.py:229-239) of ver_pred [b, 2vn, h, w] weighted by
+        ver_weights [b, 1, h, w]; nothing without a writer."""
+        if self.writer is None:
+            return
+        imgs = colorize_vertex_field(_nhwc(ver_pred), _nhwc(ver_weights))
+        grid = make_grid(imgs, nrow=min(4, imgs.shape[0]))
+        self.writer.add_image(name, grid.transpose(2, 0, 1), step)
 
     def close(self):
         if self.writer is not None:

@@ -194,9 +194,68 @@ def test_sample_draws_ranges_and_determinism():
 
 
 def test_gather_warp_range_is_refused(batch):
-    images, masks, hcoords = batch
+    """A recipe rotating +-90 deg was refused until the one-pass gather
+    warps were ported; it now runs through them and equals JAX's
+    augment_batch (its gather branch, :590-606) with JAX's draws, the
+    uint8 input through _warp_image_u32. Tolerances: test_augment_device's
+    (images within atol 1e-3 of a 0..255 level, i.e. 2e-5 once
+    normalized, on all but 0.5 % of values), masks equal on >= 99 % of
+    pixels, hcoords within rtol 1e-5."""
     cfg = dataclasses.replace(RECIPE, rot_ang_min=-90.0, rot_ang_max=90.0)
-    with pytest.raises(NotImplementedError, match="gather warp"):
-        TA.augment_batch(torch.from_numpy(images), torch.from_numpy(masks),
-                         torch.from_numpy(hcoords), (48, 64), cfg,
-                         generator=torch.Generator().manual_seed(0))
+    (ti, tm, th), (wi, wm, wh) = _augment_both(batch, cfg, 9)
+    assert ti.shape == wi.shape == (2, 3, 48, 64)
+    assert tm.dtype == wm.dtype == np.int32
+    assert (np.abs(ti - wi) > 1e-3 / 255 / 0.224).mean() <= 0.005
+    assert (tm == wm).mean() >= 0.99 and wm.sum() > 100
+    np.testing.assert_allclose(th, wh, rtol=1e-5, atol=1e-4)
+
+
+def _gather_affines(n=4, seed=3):
+    """Forward affines of rotations up to +-100 deg, scales 0.8-1.3 and
+    shifts that keep part of a [64, 80] frame in a [48, 64] output."""
+    rng = np.random.RandomState(seed)
+    Ms = []
+    for _ in range(n):
+        ang = rng.uniform(-1.75, 1.75)
+        s = rng.uniform(0.8, 1.3)
+        c, sn = s * np.cos(ang), s * np.sin(ang)
+        Ms.append([[c, sn, rng.uniform(-20, 20)],
+                   [-sn, c, rng.uniform(-20, 20)]])
+    return np.asarray(Ms, np.float32)
+
+
+@pytest.mark.parametrize("u8", [False, True])
+def test_gather_warps_match_jax(batch, u8):
+    """_warp_image (float32 input) and _warp_image_u32 (uint8 input)
+    against JAX's on the same forward affines, [64, 80] frames to
+    [48, 64]. Tolerances: test_augment_device.py's, the image within
+    rtol 1e-5 / atol 1e-3 (the same taps; the blend's weights may differ
+    by an ulp), the mask equal on >= 99.5 % of pixels (a nearest tap
+    whose coordinate sits within an ulp of a half pixel may flip), the
+    float32 and the packed warp equal to each other on uint8 input."""
+    images, masks, _ = batch
+    Ms = _gather_affines()
+    imgs = np.concatenate([images, images])
+    msks = np.concatenate([masks, masks]).astype(np.int32)
+    if u8:
+        warp_j, warp_t = JA._warp_image_u32, TA._warp_image_u32
+        img_j, img_t = imgs, torch.from_numpy(imgs)
+    else:
+        warp_j, warp_t = JA._warp_image, TA._warp_image
+        img_j = imgs.astype(np.float32)
+        img_t = torch.from_numpy(img_j)
+    want = [warp_j(jnp.asarray(i), jnp.asarray(m), jnp.asarray(M), 48, 64)
+            for i, m, M in zip(img_j, msks, Ms)]
+    wi = np.stack([np.asarray(w[0]) for w in want])
+    wm = np.stack([np.asarray(w[1]) for w in want])
+    ti, tm = warp_t(img_t, torch.from_numpy(msks), torch.from_numpy(Ms),
+                    48, 64)
+    assert ti.shape == (4, 48, 64, 3) and ti.dtype == torch.float32
+    np.testing.assert_allclose(ti.numpy(), wi, rtol=1e-5, atol=1e-3)
+    assert (tm.numpy() == wm).mean() >= 0.995 and wm.sum() > 100
+    if u8:
+        fi, fm = TA._warp_image(img_t.float(), torch.from_numpy(msks),
+                                torch.from_numpy(Ms), 48, 64)
+        np.testing.assert_allclose(ti.numpy(), fi.numpy(), rtol=1e-5,
+                                   atol=1e-3)
+        np.testing.assert_array_equal(tm.numpy(), fm.numpy())

@@ -581,6 +581,35 @@ def test_augmentation_never_waits_for_the_device(cuda):
         torch.cuda.set_sync_debug_mode("default")
 
 
+@pytest.mark.parametrize("u8", [True, False])
+def test_gather_augmentation_never_waits_for_the_device(cuda, u8):
+    # the one-pass gather warps of a +-90 deg recipe: uint8 input takes
+    # the packed-word warp, float input the float one; neither may block
+    # the host, and neither launches K4
+    import dataclasses
+    from pvnet_tpu_torch.config import AugConfig
+    from pvnet_tpu_torch.data import augment_device as AD
+    dtype = torch.uint8 if u8 else torch.float32
+    image = torch.zeros(2, 60, 80, 3, dtype=dtype, device=cuda)
+    mask = torch.zeros(2, 60, 80, dtype=torch.uint8, device=cuda)
+    mask[:, 20:40, 30:60] = 1
+    hcoords = torch.ones(2, 1, 3, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    cfg = dataclasses.replace(AugConfig(), rot_ang_min=-90.0,
+                              rot_ang_max=90.0)
+    AD.augment_batch(image, mask, hcoords, (48, 64), cfg, generator=gen)
+    torch.cuda.synchronize()
+    before = RS.shift_lanes.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = AD.augment_batch(image, mask, hcoords, (48, 64), cfg,
+                               generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert RS.shift_lanes.launches == before
+    assert out[0].shape == (2, 3, 48, 64) and out[1].dtype == torch.int32
+
+
 # --- K3's bfloat16 mode ------------------------------------------------------
 
 # the main path (hn=tn=512, vn=9), the covariance pass (hn=1024), tn and
