@@ -257,11 +257,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
     (l1): the packed field of 4 images against the plain forward ((g)'s
     tolerance), one 16-image request each (K2 once, K3 once) with its
     latency printed;
+(p) the host-augmented training route (tools/train.py's default):
+    (p1) every data/cv_ops call (the OpenCV arithmetic of the host
+    augmentation: warps, resizes, blurs, colour conversions, line
+    filters) at 480x640 on the card equals its CPU result bit for bit;
+    (p2) a synthetic JPEG tree of 256 images written, and 8 samples of
+    PoseDataset(augment=True) over it (configs/linemod_train.json's
+    augmentation, frames decoded by jpeg_pixels) card vs CPU: the
+    collated batches equal bit for bit, the draws the same; (p3) ``python
+    -m pvnet_tpu_torch.train --synthetic`` with no route flag (the default
+    recipe: resnet18_8s, bf16, b=32) for 2 epochs of 4 steps at 480x640:
+    the route, step ms and the loader's wait a batch of the second epoch,
+    K4 never launched, the decoder once a sample; the ms a sample through
+    the dataset on the card (and of it the decode), and the device's idle
+    share over one profiled host-augmented epoch; (p4) the same with
+    ``--device_aug``: step ms, wait, K4 twice a step;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
     bf16 mode with their cold times and (c)'s times at the variants'
     shapes; launches summed over the phases that drive their paths, (j)'s
     programs and server, (k), (l) and (m) included; the JPEG decoder's
-    pixel kernel from (m); (n)'s and (o)'s launches added to each), then,
+    pixel kernel from (m); (n)'s, (o)'s and (p)'s launches added to each),
+    then,
     as the last line,
     {"ok": true, "device": {...}}.
 """
@@ -3171,7 +3187,8 @@ def run_synthetic_training(tmp, kernels):
     pth = os.path.join(tmp, "resnet18.pth")
     synthesized_backbone("resnet18", pth, FAMILY_SEED)
     cmd = [sys.executable, "-m", "pvnet_tpu_torch.train", "--synthetic",
-           "--cfg_file", cfg_file, "--synthetic_images", str(SYNTH_IMAGES),
+           "--device_data", "--cfg_file", cfg_file,
+           "--synthetic_images", str(SYNTH_IMAGES),
            "--epochs", str(SYNTH_EPOCHS), "--buckets", f"{H}x{W}",
            "--imagenet_pth", pth, "--data_dir", os.path.join(tmp, "data"),
            "--model_dir", os.path.join(tmp, "model"), "--device", DEVICE]
@@ -3502,7 +3519,8 @@ def linemod_training(dev, root, tmp, kernels):
     summary, wall, _ = run_cli([
         "--linemod_cls", "duck", "--data_dir", root, "--init", CKPT,
         "--steps", str(M_STEPS), "--buckets", f"{H}x{W}", "--model_dir",
-        os.path.join(tmp, "model"), "--device", str(dev)])
+        os.path.join(tmp, "model"), "--cfg_file", RECIPE, "--device_data",
+        "--device", str(dev)])
     counts = read_all_counters()
     losses = [x for e in summary["epochs"] for x in e["losses"]]
     steps = sum(e["steps"] for e in summary["epochs"])
@@ -3851,7 +3869,8 @@ def run_preparation(dev, kernels):
         summary, wall, _ = run_cli([
             "--linemod_cls", "duck", "--data_dir", root, "--init", CKPT,
             "--steps", str(N_STEPS), "--buckets", f"{H}x{W}", "--model_dir",
-            os.path.join(tmp, "model"), "--device", str(dev)])
+            os.path.join(tmp, "model"), "--cfg_file", RECIPE,
+            "--device_data", "--device", str(dev)])
         counts = read_all_counters()
         losses = [x for e in summary["epochs"] for x in e["losses"]]
         steps = sum(e["steps"] for e in summary["epochs"])
@@ -3907,7 +3926,8 @@ def run_preparation(dev, kernels):
             str(N_SYNTH), "--synthetic_occluder_prob", str(occ),
             "--synthetic_clutter", str(clutter), "--init", CKPT,
             "--data_dir", synth_dir, "--model_dir",
-            os.path.join(tmp, "model_test"), "--device", str(dev)])
+            os.path.join(tmp, "model_test"), "--cfg_file", RECIPE,
+            "--device", str(dev)])
         counts = read_all_counters()
         rates = out["sets"]["val"]
         n_test = N_SYNTH - max(1, int(N_SYNTH * 0.5))
@@ -4131,8 +4151,8 @@ def run_save_inter(dev, tmp, kernels):
     reset_all_counters()
     out, wall, _ = run_cli([
         "--linemod_cls", "duck", "--data_dir", root, "--init", CKPT,
-        "--test_model", "--device", str(dev), "--model_dir",
-        os.path.join(tmp, "m_inter"), "--save_inter_result",
+        "--test_model", "--device", str(dev), "--cfg_file", RECIPE,
+        "--model_dir", os.path.join(tmp, "m_inter"), "--save_inter_result",
         "--save_inter_dir", inter])
     counts = read_all_counters()
     add_launches(kernels, counts)
@@ -4317,6 +4337,242 @@ def run_visualization(dev, fixture, kernels):
     torch.cuda.empty_cache()
 
 
+# --- phase (p): the host-augmented training route ---------------------------
+P_RECIPE = os.path.join(REPO, "configs", "linemod_train.json")  # (p): the
+# train CLI's default recipe, named
+P_IMAGES = 256            # (p): the synthetic tree; 128 train frames
+P_EPOCHS = 2              # (p3)/(p4): epoch 0 warms up, epoch 1 is timed
+P_CHECK = 8               # (p2): samples held card vs CPU
+P_TIMED = 32              # (p3): samples timed through the dataset
+P_SEED = 3
+
+
+def cv_ops_cases(mask):
+    """(name, fn) of every data/cv_ops call at 480x640, as the host route
+    makes them: the fused path's warps (rotation about the instance,
+    1/ratio, crop offset) to the sampler's sizes, v1's and v2's resizes,
+    the blur sizes, the colour conversions, add_noise's line kernels."""
+    import numpy as np
+    from pvnet_tpu_torch.data import cv_ops as C
+    hs, ws = np.nonzero(mask)
+    R = C.get_rotation_matrix_2d((float(ws.mean()), float(hs.mean())), 17.3,
+                                 1)
+    M = R / 0.93
+    M[:, 2] -= (31.0, -12.0)
+    line = np.zeros((15, 15))
+    line[7, :] = 1 / 15
+    col = np.zeros((9, 9))
+    col[:, 4] = 1 / 9
+    cases = [(f"warp_affine linear {w}x{h}",
+              lambda f, m, w=w, h=h: C.warp_affine(f, M, (w, h)))
+             for h, w in ((480, 640), (256, 344))]
+    cases += [
+        ("warp_affine nearest int32", lambda f, m: C.warp_affine(
+            m, M, (640, 480), C.INTER_NEAREST)),
+        ("warp_affine nearest uint8", lambda f, m: C.warp_affine(
+            m.to(f.dtype), M, (640, 480), C.INTER_NEAREST)),
+        ("resize linear down", lambda f, m: C.resize(f, (512, 384))),
+        ("resize linear up", lambda f, m: C.resize(f[:400, :500], (640, 480))),
+        ("resize nearest int32", lambda f, m: C.resize(
+            m, (512, 384), C.INTER_NEAREST))]
+    cases += [(f"gaussian_blur {k}", lambda f, m, k=k: C.gaussian_blur(f, k))
+              for k in (3, 5, 7, 9)]
+    cases += [
+        ("rgb_to_gray", lambda f, m: C.rgb_to_gray(f)),
+        ("rgb_to_hsv", lambda f, m: C.rgb_to_hsv(f)),
+        ("hsv_to_rgb", lambda f, m: C.hsv_to_rgb(C.rgb_to_hsv(f))),
+        ("filter2d 15 row", lambda f, m: C.filter2d(f, line)),
+        ("filter2d 9 column", lambda f, m: C.filter2d(f, col))]
+    return cases
+
+
+def check_cv_ops(dev, fixture):
+    """(p1): each cv_ops call on the card equals its CPU result on the
+    same 480x640 frame and mask; its ms on the card (host clock around 10
+    calls and a synchronize)."""
+    import torch
+    frame = torch.from_numpy(fixture["images"][0])
+    mask = torch.from_numpy(fixture["masks"][0].astype("int32"))
+    fd, md = frame.to(dev), mask.to(dev)
+    times = []
+    for name, fn in cv_ops_cases(mask.numpy()):
+        want = fn(frame, mask)
+        got = fn(fd, md)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.equal(got.cpu(), want), f"(p1) {name}: card != CPU"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn(fd, md)
+        torch.cuda.synchronize()
+        times.append(f"{name} {(time.perf_counter() - t0) * 100:.3f}")
+    print(f"(p1) data/cv_ops at 480x640: every call equal on the card and on "
+          f"the CPU; ms a call on the card: {'; '.join(times)}", flush=True)
+
+
+def host_batch_card_vs_cpu(dev, prefix, records, cfg):
+    """(p2): P_CHECK samples of PoseDataset(augment=True) at 480x640 in
+    order, seed P_SEED, on the card (frames decoded by jpeg_pixels) and on
+    the CPU: the collated batches equal, the draws the same."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.data.dataset import PoseDataset, collate
+    batches, rngs = [], []
+    reset_all_counters()
+    for where in (dev, torch.device("cpu")):
+        ds = PoseDataset(records, prefix, cfg.vote_type, augment=True,
+                         aug_cfg=cfg.aug_cfg, seed=P_SEED, device=where)
+        batches.append(collate([ds[(i, H, W)] for i in range(P_CHECK)]))
+        rngs.append(ds.rng.get_state())
+        if len(batches) == 1:
+            counts = read_all_counters()
+    (g, c) = batches
+    assert counts["jpeg_pixels"] == P_CHECK, counts
+    assert g["image"].device == dev
+    assert torch.equal(g["image"].cpu(), c["image"]), "(p2) image"
+    for k in ("mask", "vertex_weights", "hcoords", "pose"):
+        assert np.array_equal(g[k], c[k]), f"(p2) {k}"
+    assert np.array_equal(rngs[0][1], rngs[1][1]) and rngs[0][2] == rngs[1][2]
+    print(f"(p2) PoseDataset(augment=True) on the synthetic JPEG tree: "
+          f"{P_CHECK} samples at {H}x{W} (configs/linemod_train.json's "
+          f"augmentation, seed {P_SEED}) equal on the card and on the CPU: "
+          f"the normalized images bit for bit, masks, vertex_weights, "
+          f"hcoords, the RandomState after them; jpeg_pixels {P_CHECK}x",
+          flush=True)
+    return counts
+
+
+def host_sample_ms(dev, prefix, records, cfg):
+    """(ms a sample through PoseDataset(augment=True), of it the decode)
+    on the card, P_TIMED samples, one thread, synchronized."""
+    import torch
+    from pvnet_tpu_torch.data.dataset import PoseDataset
+    from pvnet_tpu_torch.data.image_io import read_mask, read_rgb
+    ds = PoseDataset(records, prefix, cfg.vote_type, augment=True,
+                     aug_cfg=cfg.aug_cfg, seed=P_SEED, device=dev)
+    ds[(0, H, W)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(P_TIMED):
+        ds[(i % len(records), H, W)]
+    torch.cuda.synchronize()
+    sample = (time.perf_counter() - t0) * 1e3 / P_TIMED
+    t0 = time.perf_counter()
+    for i in range(P_TIMED):
+        r = records[i % len(records)]
+        read_rgb(os.path.join(prefix, r["rgb_pth"]), dev)
+        read_mask(os.path.join(prefix, r["dpt_pth"]), dev)
+    torch.cuda.synchronize()
+    return sample, (time.perf_counter() - t0) * 1e3 / P_TIMED
+
+
+def profiled_host_epoch(dev, prefix, records, cfg, tmp):
+    """The device's idle share over one host-augmented epoch (4 steps of
+    the recipe's b=32 after a warm-up step): torch.profiler's device time
+    summed over the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pvnet_tpu_torch.train.loop import TrainLoop
+    loop = TrainLoop(cfg, os.path.join(tmp, "m_prof"), buckets=[(H, W)],
+                     device=dev)
+    state = loop.init_state(CKPT)
+    loader, _ = loop.make_loaders(records, [], prefix)
+    loop.train_epoch(state, loader, 0, max_steps=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, steps = loop.train_epoch(state, loader, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU)
+    return steps, wall_ms, busy
+
+
+def run_host_route(dev, fixture, kernels):
+    """Phase (p): the host-augmented training route (see the module
+    docstring)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.config import PathConfig, TrainConfig
+    from pvnet_tpu_torch.data.synthetic import write_synthetic_linemod
+    from pvnet_tpu_torch.train import __main__ as T
+
+    check_cv_ops(dev, fixture)
+    cfg = TrainConfig.from_json(P_RECIPE)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        data_dir = os.path.join(tmp, "data")
+        t0 = time.time()
+        write_synthetic_linemod(os.path.join(data_dir, "synthetic"), "duck",
+                                num_images=P_IMAGES, device=dev,
+                                workers=len(os.sched_getaffinity(0)))
+        gen_s = time.time() - t0
+        paths = PathConfig(data_dir=os.path.join(data_dir, "synthetic"))
+        train, _ = T.linemod_train_val(cfg, "duck", paths, dev)
+        prefix = paths.linemod_dir
+        counts = host_batch_card_vs_cpu(dev, prefix, train, cfg)
+        add_launches(kernels, counts)
+
+        # (p3) and (p4): the CLI on the tree, no route flag, then
+        # --device_aug; epoch 1 timed
+        routes = {}
+        for flags, route in (([], "host aug"), (["--device_aug"],
+                                                 "device aug")):
+            reset_all_counters()
+            summary, wall, _ = run_cli([
+                "--synthetic", "--synthetic_images", str(P_IMAGES),
+                "--data_dir", data_dir, "--init", CKPT, "--cfg_file",
+                P_RECIPE, "--epochs", str(P_EPOCHS), "--buckets", f"{H}x{W}",
+                "--model_dir",
+                os.path.join(tmp, f"m_{route[:4]}"), "--device", str(dev)]
+                + flags)
+            counts = read_all_counters()
+            add_launches(kernels, counts)
+            epochs = summary["epochs"]
+            steps = [e["steps"] for e in epochs]
+            losses = [x for e in epochs for x in e["losses"]]
+            per_epoch = len(train) // cfg.train_batch_size
+            assert summary["route"] == route and summary["generate_s"] == 0
+            assert steps == [per_epoch] * P_EPOCHS and per_epoch >= 4, steps
+            assert np.isfinite(losses).all(), losses
+            if route == "host aug":
+                assert counts["shift_lanes"] == 0, counts
+                assert counts["jpeg_pixels"] >= sum(steps) * \
+                    cfg.train_batch_size, counts
+            else:
+                assert counts["shift_lanes"] == 2 * sum(steps), counts
+            last = epochs[-1]
+            routes[route] = (last["seconds"] / last["steps"] * 1e3,
+                             last["wait_s"] / last["steps"] * 1e3,
+                             losses, counts, wall)
+        sample_ms, decode_ms = host_sample_ms(dev, prefix, train, cfg)
+        steps, wall_ms, busy = profiled_host_epoch(dev, prefix, train, cfg,
+                                                   tmp)
+    for route, (step_ms, wait_ms, losses, counts, wall) in routes.items():
+        print(f"(p{3 if route == 'host aug' else 4}) python -m "
+              f"pvnet_tpu_torch.train --synthetic"
+              f"{'' if route == 'host aug' else ' --device_aug'} "
+              f"(configs/linemod_train.json: resnet18_8s, bf16, b=32) on "
+              f"{len(train)} train frames at {H}x{W}, {P_EPOCHS} epochs of "
+              f"{len(losses) // P_EPOCHS} steps: route {route}; epoch 1 step "
+              f"ms {step_ms:.1f}, loader wait ms a batch {wait_ms:.1f}; loss "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches {counts}; "
+              f"{wall:.1f} s; {SMI}", flush=True)
+    print(f"(p3) host augmentation on the card, one thread: "
+          f"{sample_ms:.2f} ms a sample (decode, fused warp, blur, jitter, "
+          f"normalization), of it {decode_ms:.2f} ms decoding; the synthetic "
+          f"tree ({P_IMAGES} images) written in {gen_s:.1f} s; profiled "
+          f"host-augmented epoch of {steps} steps: device busy {busy:.1f} ms "
+          f"of {wall_ms:.1f} ms, idle share {1 - busy / wall_ms:.3f} (the "
+          f"profiler slows the host); {SMI}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4372,6 +4628,8 @@ def main() -> int:
     phase("(n) dataset preparation", run_preparation, dev, kernels)
     phase("(o) demo, gallery, gather warps, packed family",
           run_visualization, dev, fixture, kernels)
+    phase("(p) host-augmented training", run_host_route, dev, fixture,
+          kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

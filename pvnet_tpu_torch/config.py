@@ -137,13 +137,14 @@ class AugConfig:
 class TrainConfig:
     """Training recipe, JSON-compatible with ref configs/linemod_train.json.
 
-    The port trains channel-major (PyTorch's own layout) on the
-    device-resident data path only, so ``head_layout``, ``input_layout``,
-    ``device_aug``, ``device_data`` and the TPU knobs (``mesh_shape``,
-    ``cache_images``) are kept so that the JAX package's recipes load
-    unchanged, and are not read. The ``quant_*`` fields build the int8
-    inference model (:func:`model_kwargs`); ``quant_tail`` is the packed
-    tail's int8 branch."""
+    ``device_aug`` / ``device_data`` pick the training route as in the
+    JAX package (train/loop.py); ``cache_images`` keeps the host route's
+    decoded frames. The port trains channel-major (PyTorch's own layout),
+    so ``head_layout``, ``input_layout`` and the TPU knob ``mesh_shape``
+    are kept so that the JAX package's recipes load unchanged, and are not
+    read. The ``quant_*`` fields build the int8 inference model
+    (:func:`model_kwargs`); ``quant_tail`` is the packed tail's int8
+    branch."""
     model_name: str = "linemod_train"
     network: str = "resnet18_8s"
     head_layout: str = "NHWC"

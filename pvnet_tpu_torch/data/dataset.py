@@ -1,6 +1,7 @@
 """Data on the host, ported from pvnet_tpu/data/dataset.py: the vote-type
-registry (``VotingType``), per-record samples of the LINEMOD layout in raw
-mode (``PoseDataset``: full-frame uint8 pixels for the device
+registry (``VotingType``), per-record samples of the LINEMOD layout
+(``PoseDataset``: host-augmented and normalized at the sampler's size,
+plain normalized, or raw full-frame uint8 pixels for the device
 augmentation), their batches (``collate``), the threaded look-ahead over
 them (``Prefetcher``), the multi-resolution batch sampler
 (``ImageSizeBatchSampler``), and the port's own readers: a record list
@@ -9,10 +10,11 @@ counterpart of JAX's ``TrainLoop.build_device_dataset``), a training set
 stored as one .npz, and the batches of an evaluation split held as arrays.
 
 Frames are decoded by data/image_io (the port's own JPEG/PNG decoder; on a
-CUDA device its C entropy decoder and CUDA pixel kernel). Not ported: the
-host augmentation (``PoseDataset(augment=True)``, data/augment.py, which
-needs cv2's warps) and host-side vertex targets; the port trains only on
-the route of JAX's ``--device_aug --device_data``.
+CUDA device its C entropy decoder and CUDA pixel kernel) onto the
+dataset's device, where the host augmentation's pixel work runs too
+(data/augment, OpenCV's arithmetic through data/cv_ops); its draws and
+geometry run on the host from the dataset's ``RandomState``, in JAX's
+order.
 """
 from __future__ import annotations
 
@@ -27,10 +29,13 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pvnet_tpu_torch.config import AugConfig, LINEMOD_CLS_NAMES
+from pvnet_tpu_torch.config import (AugConfig, IMAGENET_MEAN, IMAGENET_STD,
+                                    LINEMOD_CLS_NAMES)
+from pvnet_tpu_torch.data import augment as A
 from pvnet_tpu_torch.data.image_io import (DECODE_THREADS, decode_rgb_into,
                                            image_size, read_mask, read_rgb)
 from pvnet_tpu_torch.data.pose_transforms import project_np
+from pvnet_tpu_torch.data.vertex import compute_vertex_targets_np
 
 
 class VotingType:
@@ -104,23 +109,23 @@ class VotingType:
 
 @dataclass
 class Sample:
-    """One raw sample: full-frame pixels for the device augmentation."""
-    rgb: torch.Tensor         # [h, w, 3] uint8 on the dataset's device
-    mask: np.ndarray          # [h, w] uint8, 0/1
+    """One prepared sample: raw full-frame pixels for the device
+    augmentation (``out_hw`` set), or the normalized image (host-augmented
+    at the sampler's size with ``augment``)."""
+    rgb: torch.Tensor         # [h, w, 3] on the dataset's device: uint8
+                              # raw, else float32 ImageNet-normalized
+    mask: np.ndarray          # [h, w] 0/1: uint8 raw, else int32
     hcoords: np.ndarray       # [k, 3] float32 homogeneous 2D keypoints
     pose: np.ndarray          # [3, 4] float32
     K: Optional[np.ndarray] = None      # [3, 3] per-image intrinsics
+    vertex: Optional[np.ndarray] = None  # [h, w, 2k] if computed on host
     ignore_vertex: bool = False         # zero the vertex loss weight
                                         # (fuse set, ref :242)
     out_hw: Optional[Tuple[int, int]] = None   # the sampler's target size
+                                               # (raw mode)
 
 
-def record_mask(mask: np.ndarray, rec: dict) -> np.ndarray:
-    """The training mask of a record's decoded mask file, uint8 0/1 (JAX
-    PoseDataset, pvnet_tpu/data/dataset.py:184-191): a real record's
-    colour mask is its non-black pixels, a fuse record's mask the pixels of
-    its class's label (class index + 1), any other value above 1 is
-    foreground."""
+def _record_mask_i32(mask: np.ndarray, rec: dict) -> np.ndarray:
     if rec["rnd_typ"] == "real" and mask.ndim == 3:
         mask = np.asarray(np.sum(mask, 2) > 0, np.int32)
     if rec["rnd_typ"] == "fuse":
@@ -129,64 +134,184 @@ def record_mask(mask: np.ndarray, rec: dict) -> np.ndarray:
     mask = mask.astype(np.int32)
     if mask.max() > 1:
         mask = (mask > 0).astype(np.int32)
-    return np.ascontiguousarray(mask, np.uint8)
+    return mask
+
+
+def record_mask(mask: np.ndarray, rec: dict) -> np.ndarray:
+    """The training mask of a record's decoded mask file, uint8 0/1 (JAX
+    PoseDataset, pvnet_tpu/data/dataset.py:184-191): a real record's
+    colour mask is its non-black pixels, a fuse record's mask the pixels of
+    its class's label (class index + 1), any other value above 1 is
+    foreground."""
+    return np.ascontiguousarray(_record_mask_i32(mask, rec), np.uint8)
 
 
 class PoseDataset:
-    """One record's raw sample (JAX PoseDataset with raw=True, ref
-    LineModDatasetRealAug :174-290 without the host augmentation): the
-    frame decoded onto ``device``, the mask by the record's rule, the
-    vote type's 2D keypoints, the pose, and with ``use_intrinsic`` the
-    record's own K."""
+    """Load + augment one record (JAX PoseDataset, ref
+    LineModDatasetRealAug :174-290), with the JAX package's arguments: the
+    frame decoded onto ``device``, the mask by the record's rule, the vote
+    type's 2D keypoints, the pose, and with ``use_intrinsic`` the record's
+    own K.
+
+    ``raw``: full-frame uint8 pixels for the device augmentation. Else the
+    image comes back ImageNet-normalized in float32, host-augmented to the
+    sampler's (h, w) with ``augment`` (``_augmentation``; ``fast_aug``
+    takes the one-warp path where the recipe allows it), and with
+    ``host_vertex`` with its vertex targets. The draws come from one
+    ``RandomState(seed)`` of the dataset, in JAX's order; the Prefetcher's
+    threads share it, so only one thread reproduces JAX's draws.
+    ``cache_images`` keeps the decoded frames and masks."""
 
     def __init__(self, imagedb: Sequence[dict], data_prefix: str,
                  vote_type: str = VotingType.Farthest,
+                 augment: bool = False,
                  aug_cfg: Optional[AugConfig] = None,
-                 use_intrinsic: bool = False, device="cpu"):
+                 use_intrinsic: bool = False, use_motion: bool = False,
+                 host_vertex: bool = False, seed: int = 0,
+                 fast_aug: bool = True, raw: bool = False,
+                 cache_images: bool = False, device="cpu"):
         self.imagedb = list(imagedb)
         self.data_prefix = data_prefix
         self.vote_type = vote_type
+        self.augment = augment
         self.cfg = aug_cfg or AugConfig()
         self.use_intrinsic = use_intrinsic
+        self.use_motion = use_motion
+        self.host_vertex = host_vertex
+        self.fast_aug = fast_aug
+        self.raw = raw
+        self.cache_images = cache_images
+        self._cache: dict = {}
+        self.rng = np.random.RandomState(seed)
         self.device = torch.device(device)
+        # on the device: a CUDA division by a host scalar multiplies by
+        # its reciprocal, which can round otherwise than numpy's division
+        self._255 = torch.tensor(255.0, device=self.device)
+        self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
+        self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
 
     def __len__(self) -> int:
         return len(self.imagedb)
+
+    def _read(self, index: int, rec: dict):
+        if self.cache_images and index in self._cache:
+            return self._cache[index]
+        rgb = read_rgb(os.path.join(self.data_prefix, rec["rgb_pth"]),
+                       self.device)
+        mask = _record_mask_i32(read_mask(os.path.join(
+            self.data_prefix, rec["dpt_pth"]), self.device), rec)
+        if self.cache_images:
+            self._cache[index] = (rgb, mask)
+        return rgb, mask
 
     def __getitem__(self, index_hw: Tuple[int, int, int]) -> Sample:
         """index_hw = (index, target_h, target_w), the batch sampler's
         tuple (ref :200-201)."""
         index, height, width = index_hw
         rec = self.imagedb[index]
-        rgb = read_rgb(os.path.join(self.data_prefix, rec["rgb_pth"]),
-                       self.device)
-        mask = record_mask(read_mask(os.path.join(self.data_prefix,
-                                                  rec["dpt_pth"]),
-                                     self.device), rec)
+        rgb, mask = self._read(index, rec)
+        pose = rec["RT"].astype(np.float32)
+        hcoords = VotingType.get_data_pts_2d(self.vote_type, rec)
         K = rec["K"].astype(np.float32) if self.use_intrinsic else None
-        return Sample(
-            rgb=rgb, mask=mask,
-            hcoords=VotingType.get_data_pts_2d(self.vote_type, rec),
-            pose=rec["RT"].astype(np.float32), K=K,
-            ignore_vertex=(rec["rnd_typ"] == "fuse"
-                           and self.cfg.ignore_fuse_ms_vertex),
-            out_hw=(height, width))
+        ignore = (rec["rnd_typ"] == "fuse"
+                  and self.cfg.ignore_fuse_ms_vertex)
+
+        if self.raw:
+            return Sample(rgb=rgb, mask=np.ascontiguousarray(mask, np.uint8),
+                          hcoords=hcoords, pose=pose, K=K,
+                          ignore_vertex=ignore, out_hw=(height, width))
+
+        if self.augment:
+            rgb, mask, hcoords = self._augmentation(rgb, mask, hcoords,
+                                                    height, width)
+            if self.cfg.blur and self.rng.random() < 0.5:
+                rgb = A.blur_image(rgb, int(self.rng.choice([3, 5, 7, 9])))
+            if self.cfg.jitter:
+                rgb = A.color_jitter(rgb, self.cfg.brightness,
+                                     self.cfg.contrast, self.cfg.saturation,
+                                     self.cfg.hue, self.rng)
+        rgb = rgb.to(torch.float32) / self._255
+        rgb = (rgb - self._mean) / self._std
+        if self.augment and self.cfg.use_mask_out \
+                and self.rng.random() < 0.1:
+            rgb = rgb * torch.from_numpy(
+                np.ascontiguousarray(mask[:, :, None], np.float32)).to(
+                    rgb.device)
+
+        vertex = None
+        if self.host_vertex:
+            vertex = compute_vertex_targets_np(mask, hcoords,
+                                               self.use_motion)
+        return Sample(rgb=rgb, mask=np.ascontiguousarray(mask),
+                      hcoords=hcoords.astype(np.float32), pose=pose, K=K,
+                      vertex=vertex, ignore_vertex=ignore)
+
+    def _augmentation(self, img, mask, hcoords, height, width):
+        """(ref :254-290; JAX dataset.py:222-261)"""
+        cfg, rng = self.cfg, self.rng
+        foreground = int(np.sum(mask))
+        if cfg.mask and rng.random() < 0.5 and foreground > 0:
+            img, mask = A.mask_out_instance(img, mask, cfg.min_mask,
+                                            cfg.max_mask, rng)
+        if foreground > 0:
+            if (self.fast_aug and cfg.rotation and cfg.crop
+                    and cfg.use_old and np.sum(mask) > 0):
+                img, mask, hcoords = A.fused_rotate_crop_resize(
+                    img, mask, hcoords, height, width, cfg.rot_ang_min,
+                    cfg.rot_ang_max, cfg.overlap_ratio,
+                    cfg.resize_ratio_min, cfg.resize_ratio_max, rng)
+                if cfg.flip and rng.random() < 0.5:
+                    img, mask, hcoords = A.flip(img, mask, hcoords)
+                return img, mask, hcoords
+            if cfg.rotation:
+                img, mask, hcoords = A.rotate_instance(
+                    img, mask, hcoords, cfg.rot_ang_min, cfg.rot_ang_max,
+                    rng)
+            if cfg.crop:
+                if cfg.use_old:
+                    img, mask, hcoords = A.crop_resize_instance_v1(
+                        img, mask, hcoords, height, width,
+                        cfg.overlap_ratio, cfg.resize_ratio_min,
+                        cfg.resize_ratio_max, rng)
+                else:
+                    img, mask, hcoords = A.crop_resize_instance_v2(
+                        img, mask, hcoords, height, width,
+                        cfg.overlap_ratio, cfg.resize_hmin, cfg.resize_hmax,
+                        cfg.resize_wmin, cfg.resize_wmax, rng)
+        else:
+            img, mask = A.crop_or_padding_to_fixed_size(img, mask, height,
+                                                        width, rng)
+        if cfg.flip and rng.random() < 0.5:
+            img, mask, hcoords = A.flip(img, mask, hcoords)
+        return img, mask, hcoords
 
 
 def collate(samples: List[Sample]) -> Dict[str, object]:
-    """A batch of raw samples (JAX collate's raw branch): image uint8
-    [b, h, w, 3] (a tensor on the dataset's device), mask uint8 [b, h, w],
-    hcoords, pose, out_hw, ignore and, with per-image intrinsics, K."""
+    """A batch (JAX collate): image [b, h, w, 3] (a tensor on the
+    dataset's device), mask, hcoords, pose and, with per-image intrinsics,
+    K. Raw samples: uint8 image and mask, out_hw and ignore. Else: float32
+    image, int32 mask, vertex_weights = (mask > 0) * (1 - ignore)
+    [b, h, w, 1] and, with host vertex targets, vertex."""
+    raw = samples[0].out_hw is not None
     batch = {
         "image": torch.stack([s.rgb for s in samples]),
-        "mask": np.stack([s.mask for s in samples]).astype(np.uint8),
+        "mask": np.stack([s.mask for s in samples]).astype(
+            np.uint8 if raw else np.int32),
         "hcoords": np.stack([s.hcoords for s in samples]),
         "pose": np.stack([s.pose for s in samples]),
-        "out_hw": np.asarray(samples[0].out_hw, np.int32),
-        "ignore": np.array([s.ignore_vertex for s in samples], np.float32),
     }
+    ignore = np.array([s.ignore_vertex for s in samples], np.float32)
+    if raw:
+        batch["out_hw"] = np.asarray(samples[0].out_hw, np.int32)
+        batch["ignore"] = ignore
+    else:
+        batch["vertex_weights"] = ((batch["mask"] > 0)[..., None]
+                                   * (1.0 - ignore)[:, None, None, None]
+                                   ).astype(np.float32)
     if samples[0].K is not None:
         batch["K"] = np.stack([s.K for s in samples])
+    if samples[0].vertex is not None:
+        batch["vertex"] = np.stack([s.vertex for s in samples])
     return batch
 
 
@@ -322,7 +447,7 @@ def record_loader(records: Sequence[dict], data_prefix: str,
     order, ``batch_size`` a batch, the last one short (tools/train.py's
     unshuffled PoseDataset + ImageSizeBatchSampler + Prefetcher)."""
     ds = PoseDataset(records, data_prefix, vote_type, aug_cfg=aug_cfg,
-                     use_intrinsic=use_intrinsic, device=device)
+                     use_intrinsic=use_intrinsic, raw=True, device=device)
     sampler = ImageSizeBatchSampler(range(len(ds)), batch_size,
                                     aug_cfg=aug_cfg, shuffle=False)
     return Prefetcher(ds, sampler, num_threads=num_threads)

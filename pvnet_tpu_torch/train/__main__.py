@@ -1,10 +1,8 @@
 """Train or evaluate PVNet with the port (tools/train.py: its training
-branch with ``--device_data`` — the set held on the device, augmentation on
-the device, channel-major model input and head — and its ``--test_model``
-branch).
+branch on its three routes, and its ``--test_model`` branch).
 
   python -m pvnet_tpu_torch.train --linemod_cls cat --data_dir data \\
-      [--imagenet_pth resnet18-f37072fd.pth]
+      [--imagenet_pth resnet18-f37072fd.pth] [--device_aug | --device_data]
 
   python -m pvnet_tpu_torch.train --linemod_cls cat --data_dir data \\
       --test_model [--use_test_set] [--occluded] [--truncated] \\
@@ -20,20 +18,28 @@ branch).
       --synthetic_images 2048 --synthetic_occluder_prob 0.5 \\
       --synthetic_clutter 2 --init assets/duck_ckpt.msgpack
 
-The network is the recipe's (``network``: resnet18_8s, resnet34_8s,
-resnet50_8s). ``--imagenet_pth`` starts its backbone from a torchvision
-ImageNet checkpoint, the heads from the seeded draw (the reference's
-standard init); ``--init`` starts every weight from a checkpoint.
+The recipe is ``--cfg_file`` (default configs/linemod_train.json, as
+tools/train.py's); the network is its ``network`` (resnet18_8s,
+resnet34_8s, resnet50_8s). ``--imagenet_pth`` starts its backbone from a
+torchvision ImageNet checkpoint, the heads from the seeded draw (the
+reference's standard init); ``--init`` starts every weight from a
+checkpoint.
 
 ``--linemod_cls CLS`` (without ``--synthetic``) trains on the LINEMOD tree
 under ``--data_dir`` (LINEMOD/, LINEMOD_ORIG/, OCCLUSION_LINEMOD/, the JAX
 package's data.linemod layout) as tools/train.py does: LineModImageDB's
 render set, its real train list (the recipe's ``use_real_train``) and its
 fuse set (``use_fuse``), validated on the val list (or the test list when
-there is none). The whole set is decoded onto the device (data/image_io,
-the port's own JPEG/PNG decoder) and augmented there: the counterpart of
-JAX's ``--device_aug --device_data``, the only training route of the port
-(JAX's host augmentation needs cv2).
+there is none). Frames are decoded by data/image_io (the port's own
+JPEG/PNG decoder) onto ``--device``. The route is tools/train.py's:
+
+- no flag: host augmentation. ``--num_threads`` loader threads read,
+  augment (data/augment, OpenCV's arithmetic on the frame's device) and
+  normalize each sample, and the batches stream into the step;
+- ``--device_aug``: raw uint8 batches stream in and the step augments them
+  on the device;
+- ``--device_data`` (implies ``--device_aug``): the whole set is decoded
+  onto the device once and each step gathers its batch there by index.
 
 ``--synthetic`` does what tools/train.py --synthetic does: it writes the
 JAX package's synthetic LINEMOD tree (data/synthetic.write_synthetic_linemod,
@@ -47,15 +53,17 @@ frames, as JAX's is.
 Otherwise ``--data`` is an .npz with the keys of tools/make_torch_fixture.py:
 images [n, h, w, 3] uint8, masks [n, h, w] uint8, poses [n, 3, 4],
 points_3d [k, 3] and K [3, 3]; the keypoint targets are the projections of
-points_3d.
+points_3d. That route (the port's fixture route, with no counterpart in
+tools/train.py) holds the set on the device, as ``--device_data``; name
+its recipe (configs/synthetic_train.json for the fixture).
 
 A training set smaller than one batch is repeated to fill one.
 Checkpoints go to ``{model_dir}/{epoch}.pth`` (default
 data/model/{cls}_{model_name}), which ``python -m pvnet_tpu_torch.infer
 --checkpoint`` reads, and the scalar log to ``{model_dir}/log.jsonl``. The
 last line of a training run is a JSON object: the set's sizes, the
-generation seconds, every epoch's seconds, steps and losses, and the
-kernels' launches.
+route, the generation seconds, every epoch's seconds, steps, losses and
+seconds waiting for batches, and the kernels' launches.
 
 ``--test_model`` evaluates the weights of ``--init`` (or the checkpoint
 ``--load_epoch`` of the model dir) in the recipe's dtype, printing the
@@ -112,7 +120,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--cfg_file",
                    default=os.path.join(_REPO, "configs",
-                                        "synthetic_train.json"))
+                                        "linemod_train.json"))
     p.add_argument("--data",
                    default=os.path.join(_REPO, "assets",
                                         "duck_views_480x640.npz"),
@@ -130,10 +138,9 @@ def parse_args(argv=None):
     p.add_argument("--linemod_cls", default=None,
                    help="LINEMOD class: train (or with --test_model "
                         "evaluate) on the LINEMOD tree under --data_dir; "
-                        "also names the model dir (default duck). The set "
-                        "is decoded onto the device and augmented there, "
-                        "as JAX's --device_aug --device_data: the port has "
-                        "no host augmentation (JAX's needs cv2)")
+                        "also names the model dir (default duck). Trains "
+                        "with host augmentation unless --device_aug or "
+                        "--device_data")
     p.add_argument("--init", default=None,
                    help="initial weights: a flax msgpack or a .pth")
     p.add_argument("--imagenet_pth", default=None,
@@ -156,7 +163,15 @@ def parse_args(argv=None):
     p.add_argument("--vote_seed", type=int, default=0,
                    help="seed of RANSAC's draws in the evaluation")
     p.add_argument("--num_threads", type=int, default=4,
-                   help="loader threads of the evaluation")
+                   help="loader threads of the training set and of the "
+                        "evaluation")
+    p.add_argument("--device_aug", action="store_true",
+                   help="run augmentation on device inside the train step "
+                        "(data.augment_device) instead of in host threads")
+    p.add_argument("--device_data", action="store_true",
+                   help="keep the whole training set resident on the "
+                        "device (uint8) and gather minibatches by index on "
+                        "device; implies --device_aug")
     p.add_argument("--save_inter_result", action="store_true",
                    help="with --test_model: write each batch's first "
                         "image's predicted and GT masks, image and pose "
@@ -315,6 +330,11 @@ def main(argv=None) -> int:
     cfg = TrainConfig.from_json(args.cfg_file)
     if args.epochs is not None:
         cfg.epoch_num = args.epochs
+    if args.device_aug:
+        cfg.device_aug = True
+    if args.device_data:
+        cfg.device_aug = True
+        cfg.device_data = True
     device = torch.device(args.device)
     if device.type == "cuda" and not cfg.bf16:
         # full float32 convolutions and matmuls, as the JAX reference
@@ -341,16 +361,19 @@ def main(argv=None) -> int:
         # a set smaller than one batch is repeated to fill one
         train_db = [train_db[i % n_train]
                     for i in range(max(n_train, cfg.train_batch_size))]
+        route = ("device data" if cfg.device_data else "device aug"
+                 if cfg.device_aug else "host aug")
         print(f"train set: {n_train} records of {cls_name} (render, real "
               f"train, fuse), val: {n_val}; batch {cfg.train_batch_size}; "
-              f"{'bf16' if cfg.bf16 else 'f32'}; {cfg.network}; device "
-              f"{device}", flush=True)
+              f"{'bf16' if cfg.bf16 else 'f32'}; {cfg.network}; {route}; "
+              f"device {device}", flush=True)
         loop.fit_records(train_db, val_db, paths.linemod_dir, cls_name,
                          paths, init=args.init,
                          imagenet_pth=args.imagenet_pth,
                          max_steps=args.steps,
                          num_threads=args.num_threads)
     else:
+        route = "device data"
         images, masks, hcoords = load_training_set(args.data)
         n_train, n_val = len(images), 0
         if n_train < cfg.train_batch_size:
@@ -363,7 +386,8 @@ def main(argv=None) -> int:
                  imagenet_pth=args.imagenet_pth, max_steps=args.steps)
     print(f"checkpoints in {model_dir}", flush=True)
     print(json.dumps({"train_images": n_train, "val_images": n_val,
-                      "generate_s": gen_s, "epochs": loop.epoch_log,
+                      "route": route, "generate_s": gen_s,
+                      "epochs": loop.epoch_log,
                       "launches": launch_counts()}), flush=True)
     return 0
 

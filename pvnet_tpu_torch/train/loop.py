@@ -1,14 +1,23 @@
-"""The device-data training loop and the validation pass (ref
-tools/train_linemod.py:132-253, 305-347).
+"""The training loops and the validation pass (ref
+tools/train_linemod.py:132-253, 305-347), ported from
+pvnet_tpu/train/loop.py (``TrainLoop``). Per epoch: the learning rate from
+the schedule, the steps, a scalar record every ``loss_rec_step`` steps, a
+checkpoint, and on the JAX loop's schedule the validation pass (loss
+meters, and pose evaluation: FCN -> voting -> PnP -> ADD(-S) /
+2D-projection / 5cm5deg, :meth:`TrainLoop.validate`).
 
-Port of the ``device_data`` path of pvnet_tpu/train/loop.py (``TrainLoop``):
-the whole training set lives on the device as uint8 frames, each step
-gathers its minibatch there by index, augments it there, and trains; only
-the index vector and the random draws' seed come from the host. Per epoch:
-the learning rate from the schedule, the steps, a scalar record every
-``loss_rec_step`` steps, a checkpoint, and on the JAX loop's schedule the
-validation pass (loss meters, and pose evaluation: FCN -> voting -> PnP ->
-ADD(-S) / 2D-projection / 5cm5deg, :meth:`TrainLoop.validate`).
+The steps take one of JAX's three routes (:meth:`TrainLoop.fit_records`
+branches on ``cfg.device_aug`` / ``cfg.device_data`` as JAX's ``fit``):
+
+- host augmentation (neither flag, tools/train.py's default): the
+  Prefetcher's threads load, augment and normalize each sample
+  (data/dataset.PoseDataset(augment=True)) and :meth:`TrainLoop.train_epoch`
+  streams the batches into the step;
+- ``device_aug``: :meth:`TrainLoop.train_epoch` streams raw uint8 batches
+  and the step augments them on the device;
+- ``device_data`` (implies ``device_aug``): the whole training set lives
+  on the device as uint8 frames, each step gathers its minibatch there by
+  index and augments it there (:meth:`TrainLoop.train_epoch_from_data`).
 
 The model is built from the recipe's int8 options (config.model_kwargs):
 training runs float, the evaluation int8, with static scales from
@@ -19,13 +28,11 @@ A run starts from the JAX loop's He fan-out draw, from an ImageNet
 backbone (``imagenet_pth``: the reference's standard init, the heads
 fresh) and/or from the weights of a checkpoint (``init``).
 
-The training set comes as arrays (:meth:`TrainLoop.fit`: ``--data``,
-``--synthetic``) or as LINEMOD records read from disk
+The training set comes as LINEMOD records read from disk
 (:meth:`TrainLoop.fit_records`: ``train_db``, ``val_db``, ``data_prefix``,
-as the JAX loop's ``fit`` takes them), decoded onto the device by
-data/dataset.load_device_set. That is JAX's ``--device_aug --device_data``
-route, the only one the port has: JAX's host augmentation needs cv2.
-:meth:`TrainLoop.validate` writes the intermediate results of
+as the JAX loop's ``fit`` takes them; frames decoded by data/image_io) or
+as arrays (:meth:`TrainLoop.fit`: the ``--data`` fixture route, held on
+the device). :meth:`TrainLoop.validate` writes the intermediate results of
 ``--save_inter_result`` (``save_inter_dir``) as the JAX loop does.
 """
 from __future__ import annotations
@@ -42,9 +49,11 @@ from pvnet_tpu_torch import pipeline as pl_mod
 from pvnet_tpu_torch.config import (LINEMOD_K, SYMMETRIC_CLS_NAMES,
                                     PathConfig, TrainConfig,
                                     VOTE_TYPE_TO_NUM, model_kwargs)
-from pvnet_tpu_torch.data.dataset import (ImageSizeBatchSampler, VotingType,
+from pvnet_tpu_torch.data.dataset import (ImageSizeBatchSampler, PoseDataset,
+                                          Prefetcher, VotingType,
                                           eval_batches, load_device_set,
                                           record_loader)
+from pvnet_tpu_torch.data.augment_device import AugDraws
 from pvnet_tpu_torch.data.image_io import write_png
 from pvnet_tpu_torch.data.linemod import LineModModelDB
 from pvnet_tpu_torch.eval.evaluator import Evaluator, ObjectMeta
@@ -137,52 +146,113 @@ class TrainLoop:
                                self.cfg.aug_cfg, self.device)
 
     # -- steps ------------------------------------------------------------
-    def train_epoch_from_data(self, state, data, sampler, epoch: int,
-                              max_steps: Optional[int] = None):
-        """One epoch (or its first ``max_steps`` steps) of device-data
-        training; the sampler yields (index, h, w) batches. Metrics are
-        read back to the host only at record steps."""
+    def _epoch(self, batches, step, size: int, epoch: int,
+               max_steps: Optional[int]) -> int:
+        """Run ``step(idx, batch)`` -> metrics over an epoch's batches (or
+        its first ``max_steps``). Metrics are read back to the host only
+        at record steps; the epoch's seconds, steps, losses and seconds
+        spent waiting for the next batch go to :attr:`epoch_log`."""
         meters = {k: AverageMeter() for k in _METRICS}
         begin = time.time()
-        size = len(sampler)
-        seed = np.random.SeedSequence([self.cfg.seed, 7919 * (epoch + 1)])
-        gen = torch.Generator(self.device).manual_seed(
-            int(seed.generate_state(1)[0]))
         pending, losses = [], []
-        steps = 0
-        for idx, batch_ihw in enumerate(sampler):
-            if max_steps is not None and steps >= max_steps:
-                break
-            # a copy from pinned memory does not wait for the device's queue
-            ids = torch.tensor([i for i, _, _ in batch_ihw], dtype=torch.int64)
-            if self.device.type == "cuda":
-                ids = ids.pin_memory()
-            ids = ids.to(self.device, non_blocking=True)
-            aug_hw = (batch_ihw[0][1], batch_ihw[0][2])
-            metrics = trainer_mod.train_step_from_data(
-                state, data, ids, generator=gen,
-                vertex_loss_ratio=self.cfg.vertex_loss_ratio,
-                use_motion=self.cfg.motion_model, aug_cfg=self.cfg.aug_cfg,
-                aug_hw=aug_hw, bf16=self.cfg.bf16)
-            steps += 1
-            pending.append(metrics)
-            if idx % self.cfg.loss_rec_step == 0:
-                for met in pending:
-                    for k, m in meters.items():
-                        m.update(float(met[k]))
-                    losses.append(float(met["loss"]))
-                pending.clear()
-                self.recorder.rec_loss_batch(
-                    {f"train/scalar/{k}": m.avg for k, m in meters.items()},
-                    epoch * size + idx, epoch)
-                for m in meters.values():
-                    m.reset()
+        steps, wait = 0, 0.0
+        it = iter(batches)
+        try:
+            for idx in range(size):
+                if max_steps is not None and steps >= max_steps:
+                    break
+                t0 = time.time()
+                batch = next(it, None)
+                wait += time.time() - t0
+                if batch is None:
+                    break
+                pending.append(step(idx, batch))
+                steps += 1
+                if idx % self.cfg.loss_rec_step == 0:
+                    for met in pending:
+                        for k, m in meters.items():
+                            m.update(float(met[k]))
+                        losses.append(float(met["loss"]))
+                    pending.clear()
+                    self.recorder.rec_loss_batch(
+                        {f"train/scalar/{k}": m.avg
+                         for k, m in meters.items()},
+                        epoch * size + idx, epoch)
+                    for m in meters.values():
+                        m.reset()
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:       # release a Prefetcher's threads
+                close()
         losses += [float(met["loss"]) for met in pending]
         seconds = time.time() - begin
         self.epoch_log.append({"epoch": epoch, "steps": steps,
-                               "seconds": seconds, "losses": losses})
+                               "seconds": seconds, "wait_s": wait,
+                               "losses": losses})
         print(f"epoch {epoch} training cost {seconds:.1f} s "
               f"({steps} steps)", flush=True)
+        return steps
+
+    def train_epoch_from_data(self, state, data, sampler, epoch: int,
+                              max_steps: Optional[int] = None):
+        """One epoch (or its first ``max_steps`` steps) of device-data
+        training; the sampler yields (index, h, w) batches."""
+        seed = np.random.SeedSequence([self.cfg.seed, 7919 * (epoch + 1)])
+        gen = torch.Generator(self.device).manual_seed(
+            int(seed.generate_state(1)[0]))
+
+        def step(idx, batch_ihw):
+            # a copy from pinned memory does not wait for the device's queue
+            ids = torch.tensor([i for i, _, _ in batch_ihw],
+                               dtype=torch.int64)
+            if self.device.type == "cuda":
+                ids = ids.pin_memory()
+            ids = ids.to(self.device, non_blocking=True)
+            return trainer_mod.train_step_from_data(
+                state, data, ids, generator=gen,
+                vertex_loss_ratio=self.cfg.vertex_loss_ratio,
+                use_motion=self.cfg.motion_model, aug_cfg=self.cfg.aug_cfg,
+                aug_hw=(batch_ihw[0][1], batch_ihw[0][2]), bf16=self.cfg.bf16)
+        steps = self._epoch(sampler, step, len(sampler), epoch, max_steps)
+        return state, steps
+
+    def train_epoch(self, state, loader, epoch: int,
+                    max_steps: Optional[int] = None,
+                    draws: Optional[Callable[[int, int], AugDraws]] = None):
+        """One epoch (or its first ``max_steps`` steps) over a loader's
+        batches (JAX's ``train_epoch``, pvnet_tpu/train/loop.py:253-304).
+        A host-augmented batch (data.dataset.collate's non-raw branch)
+        goes to the step as it is; a raw one (``cfg.device_aug``) is
+        augmented on the device, step ``idx``'s draws from a generator
+        seeded with the ``idx``-th pair of
+        ``SeedSequence([seed, 7919 * (epoch + 1)])`` (JAX's per-step
+        keys), or ``draws(idx, b)`` where given."""
+        size = len(loader)
+        keys = np.random.SeedSequence(
+            [self.cfg.seed, 7919 * (epoch + 1)]).generate_state(
+                2 * size).astype(np.uint64).reshape(size, 2)
+        kw = dict(vertex_loss_ratio=self.cfg.vertex_loss_ratio,
+                  use_motion=self.cfg.motion_model, bf16=self.cfg.bf16)
+
+        def step(idx, batch):
+            if "out_hw" not in batch:
+                return trainer_mod.train_step(
+                    state, trainer_mod.host_batch(batch, self.device), **kw)
+            dev = {"image": batch["image"].to(self.device)}
+            for k in ("mask", "hcoords", "ignore"):
+                dev[k] = torch.from_numpy(batch[k]).to(self.device)
+            b = len(batch["hcoords"])
+            if draws is not None:
+                extra = {"draws": draws(idx, b)}
+            else:
+                k0, k1 = keys[idx % size]
+                extra = {"generator": torch.Generator(
+                    self.device).manual_seed(int(k0 << 32 | k1))}
+            return trainer_mod.train_step(
+                state, dev, aug_cfg=self.cfg.aug_cfg,
+                aug_hw=tuple(int(x) for x in batch["out_hw"]), **extra,
+                **kw)
+        steps = self._epoch(loader, step, size, epoch, max_steps)
         return state, steps
 
     # -- validation -------------------------------------------------------
@@ -370,13 +440,54 @@ class TrainLoop:
             symmetric=cls_name in SYMMETRIC_CLS_NAMES, name=cls_name)
 
     # -- orchestration ----------------------------------------------------
+    def _sampler(self, n: int) -> ImageSizeBatchSampler:
+        """The training batch sampler of an n-record set (drop_last)."""
+        sampler = ImageSizeBatchSampler(
+            range(n), self.cfg.train_batch_size, drop_last=True,
+            aug_cfg=self.cfg.aug_cfg, buckets=self.buckets,
+            seed=self.cfg.seed)
+        if len(sampler) == 0:
+            raise ValueError(f"{n} images make no batch of "
+                             f"{self.cfg.train_batch_size}")
+        return sampler
+
+    def make_loaders(self, train_db, val_db, data_prefix: str,
+                     num_threads: int = 4) -> Tuple[Prefetcher, Prefetcher]:
+        """(train loader, val loader) of JAX's ``make_loaders``
+        (pvnet_tpu/train/loop.py:467-485): the training set host-augmented
+        (or raw for cfg.device_aug), its frames on the loop's device, one
+        RandomState(cfg.seed) for its draws, drop_last batches of the
+        recipe's size and the loop's buckets."""
+        train_set = PoseDataset(train_db, data_prefix, self.cfg.vote_type,
+                                augment=not self.cfg.device_aug,
+                                aug_cfg=self.cfg.aug_cfg,
+                                use_motion=self.cfg.motion_model,
+                                seed=self.cfg.seed,
+                                raw=self.cfg.device_aug,
+                                cache_images=self.cfg.cache_images,
+                                device=self.device)
+        train_loader = Prefetcher(train_set, self._sampler(len(train_set)),
+                                  num_threads=num_threads)
+        return train_loader, self.make_val_loader(val_db, data_prefix,
+                                                  num_threads)
+
+    def make_val_loader(self, val_db, data_prefix: str,
+                        num_threads: int = 4) -> Prefetcher:
+        """The validation loader (JAX's ``make_val_loader``): the records in
+        order, ``test_batch_size`` a batch, raw frames that
+        :meth:`validate` normalizes on the device."""
+        return record_loader(val_db, data_prefix, self.cfg.vote_type,
+                             self.cfg.test_batch_size, self.cfg.aug_cfg,
+                             device=self.device, num_threads=num_threads)
+
     def fit(self, images: np.ndarray, masks: np.ndarray, hcoords: np.ndarray,
             init: Optional[str] = None, imagenet_pth: Optional[str] = None,
             epochs: Optional[int] = None,
             max_steps: Optional[int] = None,
             val: Optional[Dict[str, np.ndarray]] = None
             ) -> trainer_mod.TrainState:
-        """Full training run with resume and a checkpoint per epoch
+        """Full training run on a set held on the device (the ``--data``
+        fixture route), with resume and a checkpoint per epoch
         (ref train_net() :305-347), from :meth:`init_state`'s weights
         (``init``, ``imagenet_pth``); stops after ``max_steps`` steps in
         all when given, saving the epoch it stopped in. With a validation split
@@ -387,6 +498,11 @@ class TrainLoop:
         epochs and after the last epoch."""
         state = self.init_state(init, imagenet_pth)
         data = self.build_device_dataset(images, masks, hcoords)
+        sampler = self._sampler(len(data["image"]))
+
+        def run(state, epoch, left):
+            return self.train_epoch_from_data(state, data, sampler, epoch,
+                                              left)[1]
 
         def validate(state, epoch, do_eval):
             self.validate(state, eval_batches(val, self.cfg.test_batch_size),
@@ -394,7 +510,7 @@ class TrainLoop:
                           evaluator=(Evaluator(self.object_meta(val),
                                                device=self.device)
                                      if do_eval else None))
-        return self._fit(state, data, epochs, max_steps,
+        return self._fit(state, run, epochs, max_steps,
                          validate if val is not None else None)
 
     def fit_records(self, train_db, val_db, data_prefix: str, cls_name: str,
@@ -404,46 +520,54 @@ class TrainLoop:
                     max_steps: Optional[int] = None,
                     num_threads: int = 4) -> trainer_mod.TrainState:
         """:meth:`fit` from LINEMOD records (JAX ``TrainLoop.fit``,
-        pvnet_tpu/train/loop.py:510): ``train_db`` decoded onto the device
-        from ``data_prefix``, ``val_db`` read batch by batch for the
-        validation pass, the evaluator's metadata from the class's models
-        under ``paths``."""
+        pvnet_tpu/train/loop.py:510-559), on the route of cfg.device_aug /
+        cfg.device_data (the module docstring): ``train_db`` read from
+        ``data_prefix`` by :meth:`make_loaders`' training loader, or decoded
+        onto the device with device_data (which needs device_aug, as
+        there); ``val_db`` read batch by batch for the validation pass, the
+        evaluator's metadata from the class's models under ``paths``."""
+        if self.cfg.device_data and not self.cfg.device_aug:
+            raise ValueError("device_data requires device_aug (vertex "
+                             "targets are computed on device post-warp)")
         state = self.init_state(init, imagenet_pth)
-        data = self.build_device_dataset_from_records(train_db, data_prefix)
+        if self.cfg.device_data:
+            data = self.build_device_dataset_from_records(train_db,
+                                                          data_prefix)
+            sampler = self._sampler(len(train_db))
+            val_loader = self.make_val_loader(val_db, data_prefix,
+                                              num_threads)
+
+            def run(state, epoch, left):
+                return self.train_epoch_from_data(state, data, sampler,
+                                                  epoch, left)[1]
+        else:
+            loader, val_loader = self.make_loaders(train_db, val_db,
+                                                   data_prefix, num_threads)
+
+            def run(state, epoch, left):
+                return self.train_epoch(state, loader, epoch, left)[1]
 
         def validate(state, epoch, do_eval):
-            loader = record_loader(val_db, data_prefix, self.cfg.vote_type,
-                                   self.cfg.test_batch_size,
-                                   self.cfg.aug_cfg, device=self.device,
-                                   num_threads=num_threads)
-            self.validate(state, loader, epoch, evaluate_pose=do_eval,
+            self.validate(state, val_loader, epoch, evaluate_pose=do_eval,
                           evaluator=(Evaluator(
                               self.linemod_object_meta(cls_name, paths),
                               device=self.device) if do_eval else None))
-        return self._fit(state, data, epochs, max_steps,
+        return self._fit(state, run, epochs, max_steps,
                          validate if val_db else None)
 
-    def _fit(self, state, data, epochs, max_steps, validate
+    def _fit(self, state, run_epoch, epochs, max_steps, validate
              ) -> trainer_mod.TrainState:
-        """The epochs of :meth:`fit` and :meth:`fit_records` on a device
-        set; ``validate(state, epoch, evaluate_pose)`` runs the validation
-        pass where given."""
+        """The epochs of :meth:`fit` and :meth:`fit_records`:
+        ``run_epoch(state, epoch, max_steps)`` trains one and returns its
+        steps; ``validate(state, epoch, evaluate_pose)`` runs the
+        validation pass where given."""
         state, begin_epoch = self.resume(state)
-        n = len(data["image"])
-        sampler = ImageSizeBatchSampler(
-            range(n), self.cfg.train_batch_size, drop_last=True,
-            aug_cfg=self.cfg.aug_cfg, buckets=self.buckets,
-            seed=self.cfg.seed)
-        if len(sampler) == 0:
-            raise ValueError(f"{n} images make no batch of "
-                             f"{self.cfg.train_batch_size}")
         end_epoch = epochs if epochs is not None else self.cfg.epoch_num
         left = max_steps
         for epoch in range(begin_epoch, end_epoch):
             trainer_mod.set_learning_rate(
                 state, trainer_mod.lr_for_epoch(self.cfg, epoch))
-            state, steps = self.train_epoch_from_data(state, data, sampler,
-                                                      epoch, left)
+            steps = run_epoch(state, epoch, left)
             save_model(state, epoch, self.model_dir,
                        keep=self.cfg.checkpoint_keep)
             do_eval = (self.cfg.eval_epoch

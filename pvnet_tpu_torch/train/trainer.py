@@ -1,22 +1,24 @@
 """Training step, optimizer and LR schedule.
 
-Port of pvnet_tpu/train/trainer.py on the device-data path: Adam at
-lr 1e-3 (ref tools/train_linemod.py:260), stepped decay x0.5 every 20
-epochs with a 1e-5 floor (ref lib/utils/net_utils.py:272-281), and a step
-that augments on the device, builds the vertex targets there, and runs the
+Port of pvnet_tpu/train/trainer.py: Adam at lr 1e-3 (ref
+tools/train_linemod.py:260), stepped decay x0.5 every 20 epochs with a
+1e-5 floor (ref lib/utils/net_utils.py:272-281), and the step: on a raw
+batch it augments on the device first (JAX's ``--device_aug``), on a
+host-augmented batch it takes the batch as it comes; then it builds the
+vertex targets on the device (unless the batch carries them) and runs the
 forward/backward pass and the Adam update.
 
 Where the JAX step is a pure function returning a new state, the port's
 updates the model, its BatchNorm statistics and the optimizer in place and
-returns the step's metrics. The step trains channel-major only (the JAX
-package's ``head_layout='NCHW'``, ``input_layout='NCHW'``, which
-tools/train.py selects for ``--device_data``).
+returns the step's metrics. The step trains channel-major (PyTorch's
+layout; JAX's ``head_layout``/``input_layout`` change no value).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pvnet_tpu_torch.config import TrainConfig
@@ -83,15 +85,18 @@ def apply_device_aug(batch: Dict[str, torch.Tensor], aug_cfg,
 def batch_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
                vertex_loss_ratio: float, use_motion: bool, bf16: bool):
     """Forward pass and loss of an augmented batch (image [b, 3, h, w]
-    normalized, mask [b, h, w], hcoords [b, k, 3], optional ignore [b]):
-    vertex targets and weights on the device, the FCN under bf16 autocast
-    when asked, the loss in float32. Multi-class hcoords [b, C, k, 3]
-    (mask labels 0..C) take the shared multi-class targets
-    (:func:`compute_vertex_targets_multiclass`), as the JAX step's
-    ``_batch_vertex`` chooses; a motion model with them is refused, as
-    there."""
-    mask, hcoords = batch["mask"], batch["hcoords"]
-    if hcoords.dim() == 4:
+    normalized, mask [b, h, w], hcoords [b, k, 3]; optional ignore [b],
+    vertex_weights [b, 1, h, w], vertex [b, 2k, h, w]): vertex targets
+    from hcoords on the device unless the batch carries them (JAX's
+    ``_batch_vertex``), weights (mask > 0) * (1 - ignore) unless given;
+    the FCN under bf16 autocast when asked, the loss in float32.
+    Multi-class hcoords [b, C, k, 3] (mask labels 0..C) take the shared
+    multi-class targets (:func:`compute_vertex_targets_multiclass`); a
+    motion model with them is refused, as there."""
+    mask, hcoords = batch["mask"], batch.get("hcoords")
+    if "vertex" in batch:
+        vertex = batch["vertex"]
+    elif hcoords.dim() == 4:
         if use_motion:
             raise ValueError("motion model + multi-class unsupported")
         vertex = compute_vertex_targets_multiclass(mask, hcoords,
@@ -99,14 +104,39 @@ def batch_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     else:
         vertex = compute_vertex_targets(mask, hcoords, use_motion,
                                         layout="NCHW")
-    vw = (mask > 0)[:, None].to(torch.float32)              # [b, 1, h, w]
-    if "ignore" in batch:
-        vw = vw * (1.0 - batch["ignore"])[:, None, None, None]
+    if "vertex_weights" in batch:
+        vw = batch["vertex_weights"]
+    else:
+        vw = (mask > 0)[:, None].to(torch.float32)          # [b, 1, h, w]
+        if "ignore" in batch:
+            vw = vw * (1.0 - batch["ignore"])[:, None, None, None]
     dev = batch["image"].device
     with torch.autocast(dev.type, dtype=torch.bfloat16, enabled=bf16):
         seg, ver = model(batch["image"])
     return total_loss(seg, ver, mask, vertex, vw, vertex_loss_ratio,
                       channel_axis=1)
+
+
+def host_batch(batch: Dict[str, object], device) -> Dict[str, torch.Tensor]:
+    """A host-augmented loader batch (data.dataset.collate's non-raw
+    branch) as the step takes it, on ``device`` (JAX loop's
+    ``_device_batch``): the image channel-major, mask, vertex_weights
+    [b, 1, h, w], and hcoords, or the host's vertex targets
+    [b, 2k, h, w]."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = {"image": batch["image"].to(device).permute(0, 3, 1, 2)
+           .contiguous(),
+           "mask": dev(batch["mask"])}
+    if "vertex_weights" in batch:
+        out["vertex_weights"] = dev(batch["vertex_weights"]).permute(
+            0, 3, 1, 2)
+    if "vertex" in batch:
+        out["vertex"] = dev(batch["vertex"]).permute(0, 3, 1, 2).contiguous()
+    else:
+        out["hcoords"] = dev(batch["hcoords"])
+    return out
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -121,8 +151,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     With ``aug_cfg``/``aug_hw`` the batch is raw (image [b, H, W, 3] uint8,
     mask [b, H, W], hcoords [b, k, 3], optional ignore [b]) and is
     augmented first, with ``draws`` or draws from ``generator``; without,
-    it is already augmented (image normalized [b, 3, h, w]). After the
-    step every parameter's ``.grad`` holds this step's gradient."""
+    it is already augmented (image normalized [b, 3, h, w]; a
+    host-augmented batch through :func:`host_batch`, JAX's
+    ``train_step(..., aug_cfg=None)``). After the step every parameter's
+    ``.grad`` holds this step's gradient."""
     if aug_cfg is not None:
         batch = apply_device_aug(batch, aug_cfg, aug_hw, draws, generator)
     state.model.train()

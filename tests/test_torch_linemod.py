@@ -186,7 +186,7 @@ def test_raw_samples_and_batches_match_jax(tree, both, case):
     aug = AugConfig(ignore_fuse_ms_vertex=True)
     jaug = JAugConfig(ignore_fuse_ms_vertex=True)
     ds = TD.PoseDataset(recs, prefix, "Farthest", aug_cfg=aug,
-                        use_intrinsic=own_k)
+                        use_intrinsic=own_k, raw=True)
     jds = JD.PoseDataset(jrecs, prefix, "Farthest", aug_cfg=jaug,
                          use_intrinsic=own_k, raw=True)
     samples, jsamples = [], []

@@ -444,7 +444,8 @@ def test_port_imports_and_infers_without_jax(tmp_path):
                   "--synthetic_images", "4", "--synthetic_occluder_prob",
                   "0.5", "--synthetic_clutter", "2", "--init", CKPT,
                   "--device", "cpu", "--data_dir", str(tmp_path / "data"),
-                  "--model_dir", str(tmp_path / "model")]
+                  "--model_dir", str(tmp_path / "model"), "--cfg_file",
+                  recipe]
     prep = str(tmp_path / "prep")
     prepare = ["prepare", "--type", "render", "--linemod_cls", "duck",
                "--num", "1", "--data_dir", prep, "--device", "cpu"]

@@ -251,7 +251,7 @@ def test_render_set_reads_back_as_jax(tmp_path, monkeypatch):
                                            np.asarray(b[k], np.float64),
                                            rtol=1e-6, atol=1e-12, err_msg=k)
     prefix = os.path.join(root, "LINEMOD")
-    ds = TD.PoseDataset(db.render_set, prefix, "Farthest")
+    ds = TD.PoseDataset(db.render_set, prefix, "Farthest", raw=True)
     jds = JD.PoseDataset(jdb.render_set, os.path.join(jroot, "LINEMOD"),
                          "Farthest", raw=True)
     for i in range(2):
@@ -279,7 +279,7 @@ def test_linemod_cli_trains_with_the_render_set(tmp_path, capsys):
     assert CLI.main(["--linemod_cls", "duck", "--data_dir", root, "--init",
                      os.path.join(REPO, "assets", "duck_ckpt.msgpack"),
                      "--steps", "1", "--buckets", "48x64", "--cfg_file", cfg,
-                     "--device", "cpu", "--model_dir",
+                     "--device_data", "--device", "cpu", "--model_dir",
                      str(tmp_path / "m")]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["train_images"] == 2 + 12       # render + real train

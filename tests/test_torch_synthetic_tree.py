@@ -91,7 +91,8 @@ def test_tree_reads_back_as_jax(tmp_path):
             len(db.test_real_set)) == (4, 1, 3)
     recs = db.train_real_set + db.val_real_set
     jrecs = jdb.train_real_set + jdb.val_real_set
-    ds = TD.PoseDataset(recs, os.path.join(root, "LINEMOD"), "Farthest")
+    ds = TD.PoseDataset(recs, os.path.join(root, "LINEMOD"), "Farthest",
+                        raw=True)
     jds = JD.PoseDataset(jrecs, os.path.join(jroot, "LINEMOD"), "Farthest",
                          raw=True)
     for i in range(len(recs)):

@@ -410,7 +410,8 @@ def test_train_entry_point_fills_a_batch_from_a_small_set(tmp_path, capsys):
     _write_set(tmp_path / "set.npz", 32, 32, 216, 300)
     model_dir = tmp_path / "model"
     assert main(["--device", "cpu", "--steps", "1", "--buckets", "32x32",
-                 "--data", str(tmp_path / "set.npz"),
+                 "--cfg_file", RECIPES[0], "--data",
+                 str(tmp_path / "set.npz"),
                  "--model_dir", str(model_dir)]) == 0
     assert "train set: 16 images at 32x32; batch 16" in capsys.readouterr().out
     assert sorted(os.listdir(model_dir)) == ["0.pth", "log.jsonl"]

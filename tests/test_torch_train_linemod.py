@@ -370,7 +370,7 @@ def test_cli_trains_and_tests_from_the_tree(tree, tmp_path, capsys):
     assert CLI.main(["--linemod_cls", "duck", "--data_dir", root,
                      "--init", CKPT, "--steps", "2", "--buckets", "48x64",
                      "--cfg_file", recipe, "--model_dir", model_dir,
-                     "--device", "cpu"]) == 0
+                     "--device_data", "--device", "cpu"]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["train_images"] == 5 and summary["val_images"] == 1
     losses = [x for e in summary["epochs"] for x in e["losses"]]

@@ -90,7 +90,7 @@ def test_main_trains_from_imagenet_and_writes_a_loadable_checkpoint(
     pth = str(tmp_path / "resnet18-f37072fd.pth")
     _imagenet_pth(pth)
     model_dir = str(tmp_path / "model")
-    assert CLI.main(["--synthetic", "--cfg_file", cfg_file,
+    assert CLI.main(["--synthetic", "--device_data", "--cfg_file", cfg_file,
                      "--synthetic_images", "4", "--steps", "2",
                      "--buckets", "64x64", "--imagenet_pth", pth,
                      "--device", "cpu", "--data_dir", str(tmp_path / "d"),
