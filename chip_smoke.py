@@ -3,6 +3,9 @@
 
   python3 chip_smoke.py
 
+(``--parallel-worker OUT`` and ``--gloo-worker OUT`` are phase (q)'s ranks,
+started under torchrun by the script itself.)
+
 Phases, each of which fails the run (non-zero exit) on any error:
 
 (a) refuse to run without a CUDA device; print the card's name and power
@@ -124,9 +127,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
     program's weights and the same draws: every selection, hypothesis and
     count equal, keypoints within 1e-3 px, poses within 0.05 deg / 1 mm;
     then A served on 127.0.0.1 (pvnet_tpu_torch.serve): healthz, 3 lone
-    requests, 3 rounds of 8 concurrent .npy requests (fewer device calls
-    than requests each round, view 0 within 5 cm / 5 deg), a bad payload
-    answered 4xx. Prints export, load and call seconds, the artifacts' MB,
+    requests, a JPEG body of view 0 at 360x480 (answered 200 with a
+    finite pose: decoded and resized to 480x640 as PIL's BILINEAR resize,
+    without PIL), 3 rounds of 8 concurrent .npy requests (fewer device
+    calls than requests each round, view 0 within 5 cm / 5 deg), a bad
+    payload answered 4xx. Prints export, load and call seconds, the artifacts' MB,
     and the served latencies beside the card's name and power limit;
 (k) multi-object inference and the voting variants: 16 scenes of the
     duck, box and cylinder at 480x640 (data/multiclass.generate_split,
@@ -272,11 +277,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
     the dataset on the card (and of it the decode), and the device's idle
     share over one profiled host-augmented epoch; (p4) the same with
     ``--device_aug``: step ms, wait, K4 twice a step;
+(q) data parallelism over torch.distributed, each part in processes of
+    its own under ``python -m torch.distributed.run``: (q1) one rank, a
+    world-size-1 NCCL group on the card: make_sharded_pose_pipeline on 3
+    requests of 16 images, plain (tail_depth 0: K1, K3) and packed (3: K2,
+    K3), f32, each equal to the unsharded pipeline's poses and keypoints
+    with the same draws, K1 / K2 / K3 once a request; 3 sharded bf16
+    --device_aug steps at b=16, 480x640 (synchronized BatchNorm,
+    DistributedDataParallel), each from the state of an unsharded twin
+    that takes the same step with the same draws: K4 twice a step, the
+    loss within 1 %, the running statistics within 1 % of each tensor's
+    largest value, the gradients within 10 % (bf16); (q2) ``python -m
+    pvnet_tpu_torch.train`` under torchrun (NCCL, the fixture route, 2
+    steps): K4 4 times, its rank-0 checkpoint without a ``module.``
+    prefix loaded through infer.load_model; (q3) two gloo ranks sharing
+    the card (CUDA tensors through gloo): one f32 step of the global batch
+    of 16, 8 rows a rank, against one process on the whole batch (loss
+    within 1e-4, statistics within 1e-4, gradients within 1e-2). Prints the
+    sharded requests' latency beside the unsharded ones' and each part's
+    seconds, with the card's name and power limit. One card shows no
+    scaling, and none is measured;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
     bf16 mode with their cold times and (c)'s times at the variants'
     shapes; launches summed over the phases that drive their paths, (j)'s
     programs and server, (k), (l) and (m) included; the JPEG decoder's
-    pixel kernel from (m); (n)'s, (o)'s and (p)'s launches added to each),
+    pixel kernel from (m); (n)'s, (o)'s, (p)'s and (q)'s launches added to
+    each),
     then,
     as the last line,
     {"ok": true, "device": {...}}.
@@ -2252,6 +2278,25 @@ def serve_artifact(dev, out, art, fixture, kernels):
             reply, sec = post_pose(url, request_images(views, 20 + r)[0][0])
             assert np.isfinite(np.asarray(reply["pose"])).all()
             lone.append(sec * 1e3)
+        # a JPEG body of another size (view 0 at 3/4 scale): decoded and
+        # resized as PIL's BILINEAR, without PIL (data/resample)
+        from pvnet_tpu_torch.data.image_io import encode_jpeg
+        from pvnet_tpu_torch.data.resample import resize_bilinear
+        from pvnet_tpu_torch.ops.geometry import rotation_angle_deg
+        small = resize_bilinear(views[0], H * 3 // 4, W * 3 // 4)
+        req = urllib.request.Request(
+            url + "/pose", data=encode_jpeg(small, dev),
+            headers={"Content-Type": "image/jpeg"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            jpeg_code, reply = r.status, json.loads(r.read())
+        jpeg_ms = (time.perf_counter() - t0) * 1e3
+        jpeg_pose = torch.tensor(reply["pose"], dtype=torch.float64)
+        assert jpeg_code == 200 and torch.isfinite(jpeg_pose).all(), reply
+        gt0 = torch.as_tensor(fixture["poses"][0], dtype=torch.float64)
+        jpeg_err = (float(rotation_angle_deg(jpeg_pose[None, :, :3],
+                                             gt0[None, :, :3])[0]),
+                    float((jpeg_pose[:, 3] - gt0[:, 3]).norm()))
         counters = kernel_counters()
         for fn in counters.values():
             fn.launches = 0
@@ -2302,7 +2347,10 @@ def serve_artifact(dev, out, art, fixture, kernels):
           f"{sorted(lone)[1]:.3f}); 8 concurrent requests, 3 rounds: "
           f"median latency ms {[round(x, 3) for x in rounds]}, device "
           f"calls {calls}; launches {launches}; a bad payload got "
-          f"{bad_code}; {SMI}", flush=True)
+          f"{bad_code}; a {small.shape[0]}x{small.shape[1]} JPEG body got "
+          f"{jpeg_code} in {jpeg_ms:.1f} ms, resized on the server, view 0 "
+          f"posed {jpeg_err[0]:.3f} deg / {jpeg_err[1] * 100:.3f} cm from "
+          f"its ground truth; {SMI}", flush=True)
 
 
 def check_served_poses(results, fixture):
@@ -4573,8 +4621,356 @@ def run_host_route(dev, fixture, kernels):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase (q): data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+Q_TIMEOUT = 300           # seconds a torchrun command of (q) may take
+Q_STEPS = 3               # (q1): sharded bf16 steps
+Q3_DEVICE = "cuda:0"      # (q3): the device both gloo ranks share
+
+
+def torchrun(args, nproc: int, tmp: str, timeout: float = Q_TIMEOUT):
+    """``python -m torch.distributed.run --nproc_per_node nproc`` + args on
+    127.0.0.1 (a free port, a 120 s process-group timeout); a non-zero exit
+    fails the phase with the processes' last output."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(nproc), "--master_addr", "127.0.0.1", "--master_port",
+           str(port), *args]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout,
+                          env=dict(os.environ, PVNET_PG_TIMEOUT="120",
+                                   TMPDIR=tmp))
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr)
+    assert proc.returncode == 0, f"(q) {' '.join(args[:2])} under torchrun " \
+        f"exited {proc.returncode}"
+    return proc, time.time() - t0
+
+
+def q_batch(dev):
+    """(q1), (q3): the fixture's views tiled to a raw batch of BATCH."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.data.dataset import load_training_set
+    images, masks, hcoords = load_training_set(FIXTURE)
+    tile = np.arange(BATCH) % len(images)
+    return {"image": torch.from_numpy(images[tile]).to(dev),
+            "mask": torch.from_numpy(masks[tile]).to(dev),
+            "hcoords": torch.from_numpy(hcoords[tile]).to(dev),
+            "ignore": torch.zeros(BATCH, device=dev)}
+
+
+def q_model(dev, cfg):
+    import torch
+    from pvnet_tpu_torch.config import model_kwargs
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.utils.weights import load_weights
+    model = build_model(cfg.network, ver_dim=2 * VN, seg_dim=2,
+                        **model_kwargs(cfg))
+    load_weights(model, CKPT)
+    return model.to(dev)
+
+
+def q_stats(model):
+    """The running statistics of every BatchNorm, by name."""
+    return {k: v.detach().float().clone()
+            for k, v in model.state_dict().items() if "running" in k}
+
+
+def q_stats_err(got, want) -> float:
+    """The largest difference of two sets of running statistics, each
+    relative to its tensor's largest value."""
+    return max(float((got[k] - w).abs().max() / w.abs().max().clamp(
+        min=1e-30)) for k, w in want.items())
+
+
+def parallel_pipeline(mesh, dev, fixture):
+    """(q1) make_sharded_pose_pipeline on 3 requests of 16 images, plain
+    (tail_depth 0) and packed (tail_depth 3), f32: each equal to the
+    unsharded pipeline's poses and keypoints given the same draws; the
+    sharded requests' launches and latency (host clock, after a
+    synchronize) beside the unsharded ones'."""
+    import torch
+    from pvnet_tpu_torch import infer
+    from pvnet_tpu_torch import pipeline as pl
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = infer.load_model(CKPT, VN, dev)
+    pts, K = fixture["points_3d"], fixture["K"]
+    pts_t = torch.as_tensor(pts, device=dev)
+    K_t = torch.as_tensor(K, device=dev)
+    params = pl.VoteParams()
+    out = {}
+    for name, depth in (("plain", 0), ("packed", 3)):
+        fused = depth > 0
+        run = pl.make_sharded_pose_pipeline(
+            mesh, model, pts, K, params, fused_tail=fused, tail_depth=3,
+            tail_dtype=torch.float32)
+        shapes = pl.draw_shapes(BATCH, H, W, params, False, fused)
+        sharded_ms, plain_ms, counts = [], [], {}
+        for r in range(-1, N_REQUESTS):           # -1: a warm-up request
+            imgs, _ = request_images(fixture["images"], 40 + r)
+            x = pl.normalize_images(torch.from_numpy(imgs).to(dev))
+            g = torch.Generator(device=dev).manual_seed(300 + r)
+            draws = {k: torch.rand(s, generator=g, device=dev)
+                     for k, s in shapes.items()}
+            torch.cuda.synchronize()
+            reset_all_counters()
+            t0 = time.perf_counter()
+            pose, kps = run(x, draws=draws)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = read_all_counters()
+            t0 = time.perf_counter()
+            est = pl.estimate_poses(model, x, pts_t, K_t, params,
+                                    fused_tail=fused, tail_depth=3,
+                                    tail_dtype=torch.float32, **draws)
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3
+            assert torch.equal(pose, est.pose) and torch.equal(kps, est.kps), \
+                f"(q1) {name}: the sharded request differs from the " \
+                f"unsharded one"
+            assert torch.isfinite(pose).all()
+            if r < 0:
+                continue
+            sharded_ms.append(ms)
+            plain_ms.append(one_ms)
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+        k_sel = "stratified_select" if fused else "stratified_select_cmajor"
+        assert counts[k_sel] == N_REQUESTS, counts
+        assert counts["count_inliers"] == N_REQUESTS, counts
+        other = ("stratified_select_cmajor" if fused
+                 else "stratified_select")
+        assert counts[other] == 0, counts
+        out[name] = {"sharded_ms": sharded_ms, "unsharded_ms": plain_ms,
+                     "launches": counts}
+    return out
+
+
+def parallel_steps(mesh, dev, cfg, batch, steps: int):
+    """(q1), (q3) ``steps`` sharded device-augmentation steps of the
+    recipe over ``mesh`` (synchronized BatchNorm, DDP), each from the
+    weights and Adam state of an unsharded twin, which takes the same
+    step on the whole batch with the same draws: the sharded step's K4
+    launches, loss and running statistics against the twin's (and on the
+    main rank the gradients)."""
+    import torch
+    from pvnet_tpu_torch.data.augment_device import sample_draws
+    from pvnet_tpu_torch.parallel import convert_sync, replicate
+    from pvnet_tpu_torch.train import trainer as TT
+    one = TT.create_train_state(q_model(dev, cfg), cfg)
+    two = TT.create_train_state(
+        convert_sync(replicate(q_model(dev, cfg), mesh), mesh), cfg)
+    step = TT.make_sharded_train_step(mesh, aug_cfg=cfg.aug_cfg,
+                                      aug_hw=(H, W), bf16=cfg.bf16)
+    rows = []
+    for s in range(steps):
+        two.model.load_state_dict(one.model.state_dict())
+        two.optimizer.load_state_dict(one.optimizer.state_dict())
+        g = torch.Generator(device=dev).manual_seed(70 + s)
+        draws = sample_draws(BATCH, cfg.aug_cfg, g, dev)
+        torch.cuda.synchronize()
+        reset_all_counters()
+        t0 = time.perf_counter()
+        met = step(two, batch, draws=draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_all_counters()
+        want = TT.train_step(one, batch, draws=draws, aug_cfg=cfg.aug_cfg,
+                             aug_hw=(H, W), bf16=cfg.bf16)
+        assert launches["shift_lanes"] == 2, launches
+        grads = {k: p.grad for k, p in one.model.named_parameters()}
+        num = sum(float(((p.grad - grads[k]) ** 2).sum())
+                  for k, p in two.model.named_parameters())
+        den = sum(float((g_ ** 2).sum()) for g_ in grads.values())
+        rows.append({"ms": ms, "loss": float(met["loss"]),
+                     "loss_one": float(want["loss"]),
+                     "stats_err": q_stats_err(q_stats(two.model),
+                                              q_stats(one.model)),
+                     "grad_err": (num / den) ** 0.5, "launches": launches})
+    return rows
+
+
+def parallel_worker(out_path):
+    """(q1) in a process of its own under torchrun, world size 1: an NCCL
+    group on cuda:LOCAL_RANK; the sharded pipeline and bf16 steps."""
+    import torch
+    from pvnet_tpu_torch.config import TrainConfig
+    from pvnet_tpu_torch.ops import kernel_lib
+    from pvnet_tpu_torch.parallel import init_process_group
+    t0 = time.time()
+    mesh = init_process_group("cuda")
+    assert mesh.group is not None and mesh.size == 1, mesh
+    assert torch.distributed.get_backend() == "nccl"
+    kernel_lib.library()
+    import numpy as np
+    with np.load(FIXTURE) as z:
+        pipe = parallel_pipeline(mesh, mesh.device,
+                                 {k: z[k] for k in z.files})
+    cfg = TrainConfig.from_json(RECIPE)
+    assert cfg.bf16 and cfg.train_batch_size == BATCH
+    steps = parallel_steps(mesh, mesh.device, cfg, q_batch(mesh.device),
+                           Q_STEPS)
+    for row in steps:                  # bf16: one step from equal states
+        assert abs(row["loss"] / row["loss_one"] - 1) < 1e-2, row
+        assert row["stats_err"] < 1e-2 and row["grad_err"] < 1e-1, row
+    with open(out_path, "w") as f:
+        json.dump({"pipeline": pipe, "steps": steps, "backend": "nccl",
+                   "seconds": time.time() - t0}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def gloo_worker(out_path):
+    """(q3) one of two gloo ranks sharing cuda:0: one f32 sharded step of
+    the recipe's global batch of 16 against the unsharded step on rank 0."""
+    import torch
+    from pvnet_tpu_torch.config import TrainConfig
+    from pvnet_tpu_torch.ops import kernel_lib
+    from pvnet_tpu_torch.parallel import all_reduce_sum, init_process_group
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_process_group(Q3_DEVICE, backend="gloo")
+    assert mesh.size == 2 and mesh.device == torch.device(Q3_DEVICE)
+    if mesh.device.type == "cuda":
+        kernel_lib.library()
+    cfg = TrainConfig.from_json(RECIPE)
+    cfg.bf16 = False
+    dev = mesh.device
+    from pvnet_tpu_torch.data.augment_device import sample_draws
+    from pvnet_tpu_torch.parallel import convert_sync, replicate
+    from pvnet_tpu_torch.train import trainer as TT
+    batch = q_batch(dev)
+    two = TT.create_train_state(
+        convert_sync(replicate(q_model(dev, cfg), mesh), mesh), cfg)
+    g = torch.Generator(device=dev).manual_seed(90)
+    draws = sample_draws(BATCH, cfg.aug_cfg, g, dev)
+    reset_all_counters()
+    met = TT.make_sharded_train_step(mesh, aug_cfg=cfg.aug_cfg,
+                                     aug_hw=(H, W))(two, batch, draws=draws)
+    launches = read_all_counters()
+    assert launches["shift_lanes"] == 2, launches
+    lanes = all_reduce_sum(torch.tensor([float(launches["shift_lanes"])],
+                                        device=dev), mesh)
+    row = {"loss": float(met["loss"]), "launches": launches,
+           "shift_lanes_all_ranks": float(lanes)}
+    if mesh.is_main:
+        one = TT.create_train_state(q_model(dev, cfg), cfg)
+        want = TT.train_step(one, batch, draws=draws, aug_cfg=cfg.aug_cfg,
+                             aug_hw=(H, W))
+        grads = {k: p.grad for k, p in one.model.named_parameters()}
+        num = sum(float(((p.grad - grads[k]) ** 2).sum())
+                  for k, p in two.model.named_parameters())
+        den = sum(float((g_ ** 2).sum()) for g_ in grads.values())
+        row.update(loss_one=float(want["loss"]),
+                   stats_err=q_stats_err(q_stats(two.model),
+                                         q_stats(one.model)),
+                   grad_err=(num / den) ** 0.5)
+        assert abs(row["loss"] / row["loss_one"] - 1) < 1e-4, row
+        assert row["stats_err"] < 1e-4 and row["grad_err"] < 1e-2, row
+        with open(out_path, "w") as f:
+            json.dump(row, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_parallel(dev, fixture, kernels):
+    """Phase (q): (q1) the sharded pipeline and steps in a world-1 NCCL
+    group, (q2) the train CLI under torchrun, its rank-0 checkpoint
+    through infer.load_model, (q3) two gloo ranks sharing the card."""
+    import tempfile
+    import torch
+    from pvnet_tpu_torch import infer
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        out = os.path.join(tmp, "q1.json")
+        _, q1_s = torchrun([os.path.join(REPO, "chip_smoke.py"),
+                            "--parallel-worker", out], 1, tmp)
+        with open(out) as f:
+            q1 = json.load(f)
+        for name in ("plain", "packed"):
+            p = q1["pipeline"][name]
+            add_launches(kernels, p["launches"])
+            print(f"(q1) make_sharded_pose_pipeline, NCCL world 1, {name} "
+                  f"(tail_depth {3 if name == 'packed' else 0}, f32): "
+                  f"{N_REQUESTS} requests of {BATCH} at {H}x{W} equal to "
+                  f"the unsharded pipeline's poses and keypoints; latency ms "
+                  f"sharded {[round(x, 3) for x in p['sharded_ms']]}, "
+                  f"unsharded {[round(x, 3) for x in p['unsharded_ms']]}; "
+                  f"launches {p['launches']}; {SMI}", flush=True)
+        for row in q1["steps"]:
+            add_launches(kernels, row["launches"])
+        print(f"(q1) {Q_STEPS} sharded bf16 --device_aug steps at b={BATCH}"
+              f", {H}x{W} (synchronized BatchNorm, DDP), each from the "
+              f"unsharded twin's state: ms "
+              f"{[round(r['ms'], 1) for r in q1['steps']]}; loss "
+              f"{[round(r['loss'], 6) for r in q1['steps']]} vs "
+              f"{[round(r['loss_one'], 6) for r in q1['steps']]}; running "
+              f"statistics rel err "
+              f"{[float('%.3g' % r['stats_err']) for r in q1['steps']]}; "
+              f"gradient rel err "
+              f"{[float('%.3g' % r['grad_err']) for r in q1['steps']]}; K4 2 "
+              f"a step; the worker took {q1['seconds']:.1f} s, the command "
+              f"{q1_s:.1f} s; {SMI}", flush=True)
+
+        model_dir = os.path.join(tmp, "q2")
+        proc, q2_s = torchrun(
+            ["-m", "pvnet_tpu_torch.train", "--cfg_file", RECIPE,
+             "--data", FIXTURE, "--buckets", f"{H}x{W}", "--init", CKPT,
+             "--steps", "2", "--model_dir", model_dir, "--device", "cuda"],
+            1, tmp)
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert summary["world_size"] == 1, summary
+        assert summary["launches"]["shift_lanes"] == 4, summary
+        losses = [x for e in summary["epochs"] for x in e["losses"]]
+        assert len(losses) == 2 and all(map(lambda v: v == v, losses))
+        add_launches(kernels, summary["launches"])
+        net = torch.load(os.path.join(model_dir, "0.pth"),
+                         map_location="cpu", weights_only=True)["net"]
+        assert not any(k.startswith("module.") for k in net)
+        model = infer.load_model(os.path.join(model_dir, "0.pth"), VN, dev)
+        with torch.no_grad():
+            seg, ver = model(torch.zeros(1, 3, H, W, device=dev))
+        assert torch.isfinite(seg).all() and torch.isfinite(ver).all()
+        print(f"(q2) torchrun --nproc_per_node 1 -m pvnet_tpu_torch.train "
+              f"(NCCL, the fixture route, bf16 b={BATCH}, 2 steps): losses "
+              f"{[round(x, 5) for x in losses]}, launches "
+              f"{summary['launches']}; its rank-0 checkpoint (no module. "
+              f"prefix) loaded through infer.load_model; {q2_s:.1f} s; {SMI}",
+              flush=True)
+
+        out = os.path.join(tmp, "q3.json")
+        _, q3_s = torchrun([os.path.join(REPO, "chip_smoke.py"),
+                            "--gloo-worker", out], 2, tmp)
+        with open(out) as f:
+            q3 = json.load(f)
+        add_launches(kernels, {"shift_lanes":
+                               int(q3["shift_lanes_all_ranks"])})
+        print(f"(q3) two gloo ranks sharing {torch.cuda.get_device_name(0)}"
+              f": one f32 --device_aug step of b={BATCH} (8 rows a rank) "
+              f"against one process on the whole batch: loss "
+              f"{q3['loss']:.7f} vs {q3['loss_one']:.7f}, running "
+              f"statistics rel err {q3['stats_err']:.3g}, gradient rel err "
+              f"{q3['grad_err']:.3g}; K4 launches on both ranks "
+              f"{int(q3['shift_lanes_all_ranks'])}; {q3_s:.1f} s; {SMI}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) == 3 and sys.argv[1] in ("--parallel-worker",
+                                              "--gloo-worker"):
+        sys.path.insert(0, REPO)         # (q)'s ranks under torchrun
+        return (parallel_worker if sys.argv[1] == "--parallel-worker"
+                else gloo_worker)(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA card", file=sys.stderr)
@@ -4630,6 +5026,7 @@ def main() -> int:
           run_visualization, dev, fixture, kernels)
     phase("(p) host-augmented training", run_host_route, dev, fixture,
           kernels)
+    phase("(q) data parallelism", run_parallel, dev, fixture, kernels)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -48,28 +48,11 @@ import numpy as np
 import torch
 
 from pvnet_tpu_torch import pipeline as pl_mod
+from pvnet_tpu_torch.pipeline import draw_shapes  # noqa: F401 (its home)
 from pvnet_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD, LINEMOD_K
 from pvnet_tpu_torch.ops import kernel_lib, quant_conv
 
 PROGRAM, MANIFEST = "pipeline.pt2", "manifest.json"
-
-
-def draw_shapes(batch: int, height: int, width: int,
-                params: pl_mod.VoteParams, uncertainty: bool,
-                fused_tail: bool) -> Dict[str, List[int]]:
-    """The pipeline's random draws, in the program's argument order, by
-    the names of pipeline.estimate_poses: the selection noise (on the
-    packed lattice with the fused tail), the hypothesis pairs and, with
-    uncertainty, the covariance pass's pairs (and, on the plain path,
-    which samples the foreground again for it, its noise)."""
-    grid = ([batch, height // 2, width // 2] if fused_tail
-            else [batch, height, width])
-    shapes = {"noise": grid, "pair_u": [batch, params.hyp_num, 2]}
-    if uncertainty:
-        if not fused_tail:
-            shapes["cov_noise"] = grid
-        shapes["cov_pair_u"] = [batch, params.uncertainty_hyp_num, 2]
-    return shapes
 
 
 def pipeline_options(manifest: dict) -> dict:

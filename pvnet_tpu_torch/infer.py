@@ -25,6 +25,20 @@ calibrated on the first 8 images by default, as tools/infer.py does.
 7x7 stem folded exactly) and sends the uint8 images to the device, where
 they are packed and normalized (pipeline.normalize_packed_u8).
 
+Under ``torchrun --nproc_per_node N`` the run is data parallel, one
+process per device (NCCL between GPUs, gloo with ``--device cpu``): the
+batch is rounded down to a multiple of N (at least N), as tools/infer.py
+rounds it to the device count; each rank decodes and poses its rows of
+every batch with its rows of the batch's draws (pipeline.
+estimate_poses_sharded), and rank 0 gathers them and writes the output. A
+last batch that N does not divide is padded with black images; its draws
+are drawn for its real images alone and padded with zeros, so that every
+image is posed as one process poses it. Without torchrun the same code
+runs as one rank.
+
+  torchrun --nproc_per_node 4 -m pvnet_tpu_torch.infer --checkpoint ... \
+      --images 'frames/*.jpg' --batch 64
+
 ``--images`` is an .npz (key ``images``) or .npy of uint8 [n, h, w, 3], or
 a glob of JPEG or PNG files of one size, decoded by the port's own decoder
 (data/image_io; no PIL or cv2). ``--points_3d`` is a text file of the
@@ -39,7 +53,7 @@ import json
 import os
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,25 +64,37 @@ from pvnet_tpu_torch.config import (INTRINSIC_MATRICES, TrainConfig,
 from pvnet_tpu_torch.data.image_io import decode_rgb_batch
 from pvnet_tpu_torch.models.pvnet import build_model
 from pvnet_tpu_torch.ops import quant_conv
+from pvnet_tpu_torch.parallel import (Mesh, all_gather_rows,
+                                      init_process_group)
 from pvnet_tpu_torch.utils.weights import load_weights
 
 
-def load_images(spec: str, device="cpu") -> Tuple[np.ndarray, List[str]]:
-    """uint8 [n, h, w, 3] images and a name for each: an .npz (its
-    ``images``), an .npy, or a glob of JPEG/PNG files of one size,
-    decoded by data/image_io (on a CUDA ``device`` through its C entropy
-    decoder and CUDA kernel)."""
-    if spec.endswith(".npz"):
-        with np.load(spec) as z:
-            imgs = z["images"]
-        return imgs, [f"{spec}[{i}]" for i in range(len(imgs))]
-    if spec.endswith(".npy"):
-        imgs = np.load(spec)
-        return imgs, [f"{spec}[{i}]" for i in range(len(imgs))]
+def image_source(spec: str, device="cpu"
+                 ) -> Tuple[List[str], Callable[[Sequence[int]], np.ndarray]]:
+    """A name for each image of ``spec`` and fetch(indices) -> their uint8
+    [k, h, w, 3]: an .npz (its ``images``) or .npy read whole, or a glob of
+    JPEG/PNG files of one size decoded when fetched, by data/image_io (on
+    a CUDA ``device`` through its C entropy decoder and CUDA kernel)."""
+    if spec.endswith((".npz", ".npy")):
+        if spec.endswith(".npz"):
+            with np.load(spec) as z:
+                imgs = z["images"]
+        else:
+            imgs = np.load(spec)
+        return ([f"{spec}[{i}]" for i in range(len(imgs))],
+                lambda idx: imgs[list(idx)])
     paths = sorted(globmod.glob(spec))
     if not paths:
         raise FileNotFoundError(f"no images match {spec}")
-    return decode_rgb_batch(paths, device).cpu().numpy(), paths
+    return paths, lambda idx: decode_rgb_batch(
+        [paths[i] for i in idx], device).cpu().numpy()
+
+
+def load_images(spec: str, device="cpu") -> Tuple[np.ndarray, List[str]]:
+    """uint8 [n, h, w, 3] images and a name for each (:func:`image_source`,
+    every image fetched)."""
+    names, fetch = image_source(spec, device)
+    return fetch(range(len(names))), names
 
 
 def load_points_3d(spec: str, center_3d: Optional[str] = None
@@ -153,10 +179,15 @@ def infer_batch(model: torch.nn.Module, images_u8: np.ndarray,
                 params: pl_mod.VoteParams, generator: torch.Generator,
                 tail_depth: int = 0, uncertainty: bool = False,
                 bf16: bool = False, impl: Optional[str] = None,
-                tail_quant: bool = False,
-                packed_stem: bool = False) -> pl_mod.PoseEstimate:
+                tail_quant: bool = False, packed_stem: bool = False,
+                mesh: Optional[Mesh] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> pl_mod.PoseEstimate:
     """One request: uint8 [b, h, w, 3] host images -> poses on the model's
-    device (upload, normalization, FCN, voting, PnP).
+    device (upload, normalization, FCN, voting, PnP). With ``mesh`` the
+    images are this rank's rows of a global batch of b * mesh.size, posed
+    with its rows of the global draws, ``draws`` or drawn from
+    ``generator`` (pipeline.estimate_poses_sharded).
 
     tail_depth 0 runs the plain decoder; 1-3 the packed-lattice tail of
     that depth (pipeline.fused_tail_foreground; even image dims), its
@@ -166,13 +197,18 @@ def infer_batch(model: torch.nn.Module, images_u8: np.ndarray,
     'bf16'). uncertainty=True adds the covariance pass and the
     uncertainty-weighted PnP."""
     device = points_3d.device
-    x = torch.from_numpy(np.ascontiguousarray(images_u8)).to(device)
-    return pl_mod.estimate_poses(
-        model, pl_mod.normalize_images(x), points_3d, K, params,
-        generator=generator, uncertainty=uncertainty,
-        fused_tail=tail_depth > 0, tail_depth=tail_depth,
-        tail_dtype=torch.bfloat16 if bf16 else torch.float32,
-        fcn_bf16=bf16, impl=impl, tail_quant=tail_quant)
+    x = pl_mod.normalize_images(
+        torch.from_numpy(np.ascontiguousarray(images_u8)).to(device))
+    options = dict(uncertainty=uncertainty, fused_tail=tail_depth > 0,
+                   tail_depth=tail_depth,
+                   tail_dtype=torch.bfloat16 if bf16 else torch.float32,
+                   fcn_bf16=bf16, impl=impl, tail_quant=tail_quant)
+    if mesh is not None:
+        return pl_mod.estimate_poses_sharded(mesh, model, x, points_3d, K,
+                                             params, generator, draws,
+                                             **options)
+    return pl_mod.estimate_poses(model, x, points_3d, K, params,
+                                 generator=generator, **options)
 
 
 def parse_args(argv=None):
@@ -233,60 +269,99 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    device = torch.device(args.device)
+    mesh = init_process_group(args.device)
+    try:
+        return _main(args, mesh)
+    finally:
+        if mesh.group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, mesh: Mesh) -> int:
+    device = mesh.device
     if device.type == "cuda":
         # full float32 convolutions and matmuls, as the JAX reference
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    imgs, names = load_images(args.images, args.device)
+    names, fetch = image_source(args.images, device)
+    n = len(names)
     pts3d = load_points_3d(args.points_3d, args.center_3d)
     K = resolve_K(args.K)
-    n, h, w = imgs.shape[:3]
     cfg = (TrainConfig.from_json(args.cfg_file) if args.cfg_file
            else TrainConfig())
     quant = quant_options(args, cfg)
     tail_quant = quant.pop("tail_quant")
-    print(f"{n} images at {h}x{w}; vn={len(pts3d)}; device {device}; "
-          f"tail_depth {args.tail_depth}; uncertainty {args.uncertainty}; "
-          f"{'bf16' if cfg.bf16 else 'float32'}; int8 stages "
-          f"{list(quant['quant_stages'])} ({quant['quant_mode']}), decoder "
-          f"{quant['quant_decoder']}, tail {tail_quant}; packed stem "
-          f"{args.packed_stem}", flush=True)
+    # the batch as tools/infer.py rounds it to the device count
+    batch = max(args.batch // mesh.size, 1) * mesh.size
+    first = fetch(range(min(8, n)))
+    h, w = first.shape[1:3]
+    if mesh.is_main:
+        print(f"{n} images at {h}x{w}; vn={len(pts3d)}; device {device}; "
+              f"{mesh.size} rank(s), batch {batch}; tail_depth "
+              f"{args.tail_depth}; uncertainty {args.uncertainty}; "
+              f"{'bf16' if cfg.bf16 else 'float32'}; int8 stages "
+              f"{list(quant['quant_stages'])} ({quant['quant_mode']}), "
+              f"decoder {quant['quant_decoder']}, tail {tail_quant}; packed "
+              f"stem {args.packed_stem}", flush=True)
 
     model = load_model(args.checkpoint, len(pts3d), device, cfg,
                        stem="packed4" if args.packed_stem else "conv7",
                        **quant)
     if quant["quant_stages"] and quant["quant_mode"] == "static":
-        k = calibrate_static(model, imgs, cfg.bf16, args.packed_stem)
-        print(f"calibrated static int8 scales on {k} images", flush=True)
+        k = calibrate_static(model, first, cfg.bf16, args.packed_stem)
+        if mesh.is_main:
+            print(f"calibrated static int8 scales on {k} images",
+                  flush=True)
     pts_t = torch.as_tensor(pts3d, device=device)
     K_t = torch.as_tensor(K, device=device)
     params = pl_mod.VoteParams()
     if args.hyp_num:
         params = params._replace(hyp_num=args.hyp_num)
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    kw = dict(tail_depth=args.tail_depth, uncertainty=args.uncertainty,
+              bf16=cfg.bf16, tail_quant=tail_quant,
+              packed_stem=args.packed_stem)
 
     t0 = time.time()
-    with open(args.output, "w") as out:
-        for i in range(0, n, args.batch):
-            est = infer_batch(model, imgs[i:i + args.batch], pts_t, K_t,
-                              params, gen, tail_depth=args.tail_depth,
-                              uncertainty=args.uncertainty, bf16=cfg.bf16,
-                              tail_quant=tail_quant,
-                              packed_stem=args.packed_stem)
+    out = open(args.output, "w") if mesh.is_main else None
+    try:
+        for i in range(0, n, batch):
+            chunk = names[i:i + batch]
+            # rows of a global batch padded to a multiple of the ranks
+            b = -(-len(chunk) // mesh.size) * mesh.size
+            rows = range(i + mesh.rows(b).start, i + mesh.rows(b).stop)
+            mine = [j for j in rows if j < n]
+            imgs = np.zeros((len(rows) - len(mine), h, w, 3), np.uint8)
+            if mine:
+                imgs = np.concatenate([fetch(mine), imgs]) if len(imgs) \
+                    else fetch(mine)
+            draws = pl_mod.draw_votes(
+                pl_mod.draw_shapes(len(chunk), h, w, params,
+                                   args.uncertainty, args.tail_depth > 0),
+                gen, b)
+            est = infer_batch(model, imgs, pts_t, K_t, params, gen,
+                              mesh=mesh, draws=draws, **kw)
+            est = pl_mod.PoseEstimate(
+                *(all_gather_rows(t, mesh) for t in est))
+            if out is None:
+                continue
             poses = est.pose.cpu().numpy()
             kps = est.kps.cpu().numpy()
             fg = est.fg_pixels.cpu().numpy()
-            for j, name in enumerate(names[i:i + args.batch]):
+            for j, name in enumerate(chunk):
                 out.write(json.dumps({
                     "path": name,
                     "pose": np.round(poses[j], 6).tolist(),
                     "kps": np.round(kps[j], 2).tolist(),
                     "fg_pixels": int(fg[j]),
                 }) + "\n")
+    finally:
+        if out is not None:
+            out.close()
     dt = time.time() - t0
-    print(f"wrote {args.output}: {n} poses in {dt:.1f}s on {device}",
-          flush=True)
+    if mesh.is_main:
+        print(f"wrote {args.output}: {n} poses in {dt:.1f}s on {device} "
+              f"x {mesh.size}", flush=True)
     return 0
 
 

@@ -21,12 +21,18 @@ Multi-object inference (``make_multiclass_pose_pipeline``): one forward of
 a model with seg_dim = C+1, per-class voting over the labelled argmax mask
 (ops/voting.ransac_voting_multiclass: K1 and K3 once per class), and one
 PnP call over every (image, class) pair.
+
+Data-parallel inference (``make_sharded_pose_pipeline``): over a
+parallel.Mesh each rank runs its rows of the global batch through the plain
+(K1, K3) or packed (K2, K3) path with its rows of the global batch's draws;
+the result is all-gathered, the only collective, as the JAX docstring has
+it (voting and PnP are per image).
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +43,7 @@ from pvnet_tpu_torch.ops import packed_tail
 from pvnet_tpu_torch.ops import pnp as pnp_mod
 from pvnet_tpu_torch.ops import voting
 from pvnet_tpu_torch.ops.geometry import inv_sqrtm_2x2
+from pvnet_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 
 
 class VoteParams(NamedTuple):
@@ -297,6 +304,45 @@ def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
     return PoseEstimate(pose, kps, fg_pixels)
 
 
+def draw_shapes(batch: int, height: int, width: int,
+                params: VoteParams, uncertainty: bool,
+                fused_tail: bool) -> Dict[str, List[int]]:
+    """The random draws of :func:`estimate_poses`, by name, in the order in
+    which it takes them from a generator (so also an exported program's
+    argument order): the selection noise (on the packed lattice with the
+    fused tail), the hypothesis pairs and, with uncertainty, the
+    covariance pass's pairs (and, on the plain path, which samples the
+    foreground again for it, its noise)."""
+    grid = ([batch, height // 2, width // 2] if fused_tail
+            else [batch, height, width])
+    shapes = {"noise": grid, "pair_u": [batch, params.hyp_num, 2]}
+    if uncertainty:
+        if not fused_tail:
+            shapes["cov_noise"] = grid
+        shapes["cov_pair_u"] = [batch, params.uncertainty_hyp_num, 2]
+    return shapes
+
+
+def draw_votes(shapes: Dict[str, List[int]],
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[int] = None, device=None
+               ) -> Dict[str, torch.Tensor]:
+    """Uniform float32 draws of :func:`draw_shapes`' ``shapes``, taken from
+    ``generator`` in their order as :func:`estimate_poses` takes them, on
+    the generator's device (else ``device``); with ``rows`` each is padded
+    with zeros to that many rows (a batch padded to a multiple of the
+    ranks)."""
+    dev = generator.device if generator is not None else device
+    out = {}
+    for k, s in shapes.items():
+        d = torch.rand(s, generator=generator, dtype=torch.float32,
+                       device=dev)
+        if rows is not None and rows > s[0]:
+            d = torch.cat([d, d.new_zeros([rows - s[0]] + list(s[1:]))])
+        out[k] = d
+    return out
+
+
 def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
                        params: VoteParams = VoteParams(),
                        uncertainty: bool = False, impl: Optional[str] = None,
@@ -329,6 +375,80 @@ def make_pose_pipeline(model: torch.nn.Module, points_3d, K,
                              impl=impl, tail_quant=tail_quant,
                              raw_uint8=raw_uint8)
         return est.pose, est.kps
+
+    return run
+
+
+def estimate_poses_sharded(mesh: Mesh, model: torch.nn.Module,
+                           images: torch.Tensor, points_3d: torch.Tensor,
+                           K: torch.Tensor,
+                           params: VoteParams = VoteParams(),
+                           generator: Optional[torch.Generator] = None,
+                           draws: Optional[Dict[str, torch.Tensor]] = None,
+                           **options) -> PoseEstimate:
+    """This rank's share of a global batch: ``images`` are its rows
+    [n, h, w, 3] (uint8 or packed with raw_uint8) of a global batch of
+    n * mesh.size. The draws are the global batch's, ``draws`` by the
+    names of :func:`draw_shapes` or drawn in its order from ``generator``
+    (seeded alike on every rank), so that each rank poses its images with
+    the draws one process on the whole batch would give them; this rank
+    keeps its rows. ``options`` are :func:`estimate_poses`' (uncertainty,
+    fused_tail, tail_depth, ...). Returns this rank's rows."""
+    n = images.shape[0]
+    b = n * mesh.size
+    h, w = images.shape[1:3]
+    if options.get("raw_uint8") and images.shape[-1] == 12:
+        h, w = 2 * h, 2 * w
+    shapes = draw_shapes(b, h, w, params, options.get("uncertainty", False),
+                         options.get("fused_tail", False))
+    if draws is None:
+        draws = draw_votes(shapes, generator, device=images.device)
+    rows = mesh.rows(b)
+    mine = {k: draws[k][rows].to(images.device) for k in shapes}
+    return estimate_poses(model, images, points_3d, K, params, **mine,
+                          **options)
+
+
+def make_sharded_pose_pipeline(mesh: Mesh, model: torch.nn.Module,
+                               points_3d, K,
+                               params: VoteParams = VoteParams(),
+                               uncertainty: bool = False,
+                               impl: Optional[str] = None,
+                               fused_tail: bool = False,
+                               tail_depth: int = 1,
+                               tail_dtype=torch.bfloat16,
+                               tail_quant: bool = False,
+                               raw_uint8: bool = False,
+                               fcn_bf16: bool = False):
+    """Data-parallel :func:`make_pose_pipeline` over ``mesh`` (JAX
+    ``make_sharded_pose_pipeline``, the same options): the model replicated
+    on each rank's device (parallel.replicate), images split by rows.
+
+    Returns run(images, generator=None, draws=None) -> (pose [B, 3, 4],
+    kps [B, vn, 2]) of the whole global batch on every rank: ``images``
+    the global batch [B, ...], of which each rank takes its rows; the
+    draws as in :func:`estimate_poses_sharded`. Each rank's result is its
+    rows of what the unsharded pipeline gives on the whole batch with the
+    same draws."""
+    device = mesh.device
+    points_3d = torch.as_tensor(np.asarray(points_3d, np.float32),
+                                device=device)
+    K = torch.as_tensor(np.asarray(K, np.float32), device=device)
+    options = dict(uncertainty=uncertainty, fused_tail=fused_tail,
+                   tail_depth=tail_depth, tail_dtype=tail_dtype,
+                   fcn_bf16=fcn_bf16, impl=impl, tail_quant=tail_quant,
+                   raw_uint8=raw_uint8)
+
+    def run(images: torch.Tensor,
+            generator: Optional[torch.Generator] = None,
+            draws: Optional[Dict[str, torch.Tensor]] = None):
+        images = torch.as_tensor(images)
+        images = images[mesh.rows(images.shape[0])]
+        est = estimate_poses_sharded(mesh, model, images.to(device),
+                                     points_3d, K, params, generator, draws,
+                                     **options)
+        return (all_gather_rows(est.pose, mesh),
+                all_gather_rows(est.kps, mesh))
 
     return run
 

@@ -17,8 +17,8 @@ API:
       body: a .npy array [h, w, 3] (uint8, or float32), or image file
       bytes (PNG/JPEG), decoded by data/image_io (the port's own decoder,
       on the artifact's device). A body of another size than the
-      artifact's is resized through PIL: a server without PIL answers 415
-      and names the missing library. Raw
+      artifact's is resized as PIL's BILINEAR resize does it
+      (data/resample, without PIL). Raw
       images are ImageNet-normalized here for a float32 artifact (pass
       "X-Normalized: 1" if the payload already is) and sent as uint8 to a
       packed-stem artifact, which normalizes on the device.
@@ -37,10 +37,7 @@ import numpy as np
 
 from pvnet_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from pvnet_tpu_torch.data.image_io import decode_rgb_bytes
-
-
-class DecoderMissing(ValueError):
-    """A request body that needs an image decoder this host lacks."""
+from pvnet_tpu_torch.data.resample import resize_bilinear
 
 
 class PoseBatcher:
@@ -130,22 +127,12 @@ class PoseBatcher:
 
 
 def _resize(arr: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear resize through PIL (float channels in 'F' mode, so that
-    normalized values keep their sign and fraction)."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise DecoderMissing(f"resizing a {arr.shape[:2]} image to "
-                             f"{(h, w)} needs PIL, which is not "
-                             f"installed") from e
-    if np.issubdtype(arr.dtype, np.floating):
-        return np.stack([
-            np.asarray(Image.fromarray(arr[..., ch].astype(np.float32),
-                                       mode="F").resize((w, h),
-                                                        Image.BILINEAR))
-            for ch in range(arr.shape[-1])], axis=-1)
-    return np.asarray(Image.fromarray(arr.astype(np.uint8)).resize(
-        (w, h), Image.BILINEAR))
+    """PIL's bilinear resize (data/resample): uint8 pixels as an RGB
+    image, float channels each as a mode "F" image, so that normalized
+    values keep their sign and fraction."""
+    if not np.issubdtype(arr.dtype, np.floating):
+        arr = arr.astype(np.uint8)
+    return resize_bilinear(arr, h, w)
 
 
 def decode_image(body: bytes, content_type: str, h: int, w: int,
@@ -154,8 +141,7 @@ def decode_image(body: bytes, content_type: str, h: int, w: int,
     """Request body -> [h, w, 3] float32 ImageNet-normalized, or raw uint8
     for packed-stem artifacts (normalization runs on the device). A .npy
     body is loaded, a JPEG or PNG body decoded by data/image_io on
-    ``device``; resizing needs PIL and raises :class:`DecoderMissing`
-    without it."""
+    ``device``; another size is resized (:func:`_resize`)."""
     if content_type == "application/x-npy" or body[:6] == b"\x93NUMPY":
         arr = np.load(io.BytesIO(body), allow_pickle=False)
     else:
@@ -213,9 +199,6 @@ def make_handler(batcher: PoseBatcher, manifest: dict,
                     self.headers.get("X-Normalized") == "1",
                     raw_uint8=batcher.input_dtype == np.uint8,
                     device=decode_device)
-            except DecoderMissing as e:
-                self._send(415, {"error": str(e)})
-                return
             except Exception as e:                    # a bad payload
                 self._send(400, {"error": repr(e)})
                 return

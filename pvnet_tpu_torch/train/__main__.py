@@ -65,6 +65,17 @@ last line of a training run is a JSON object: the set's sizes, the
 route, the generation seconds, every epoch's seconds, steps, losses and
 seconds waiting for batches, and the kernels' launches.
 
+Under ``torchrun --nproc_per_node N`` the run is data parallel, one
+process per device: NCCL between GPUs (``--device cuda`` is each process's
+``cuda:LOCAL_RANK``), gloo between CPU processes (``--device cpu``). The
+recipe's batch is the global batch, which N must divide; rank 0 writes the
+synthetic tree and the databases' caches before the others read them, and
+alone writes checkpoints, the log, the validation and the summary line
+(train/loop.py). ``--test_model`` runs on rank 0 alone.
+
+  torchrun --nproc_per_node 4 -m pvnet_tpu_torch.train --linemod_cls cat \
+      --data_dir data --device_aug
+
 ``--test_model`` evaluates the weights of ``--init`` (or the checkpoint
 ``--load_epoch`` of the model dir) in the recipe's dtype, printing the
 2D-projection, ADD and 5cm5deg rates; RANSAC's draws come from
@@ -96,6 +107,7 @@ from pvnet_tpu_torch.data.linemod import (LineModImageDB,
 from pvnet_tpu_torch.data.synthetic import write_synthetic_linemod
 from pvnet_tpu_torch.eval.evaluator import Evaluator
 from pvnet_tpu_torch.ops.kernel_lib import launch_counts
+from pvnet_tpu_torch.parallel import init_process_group, rank_zero_first
 from pvnet_tpu_torch.train.checkpoint import load_net
 from pvnet_tpu_torch.train.loop import TrainLoop
 
@@ -327,6 +339,15 @@ def linemod_train_val(cfg: TrainConfig, cls_name: str, paths: PathConfig,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    mesh = init_process_group(args.device)
+    try:
+        return _main(args, mesh)
+    finally:
+        if mesh.group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, mesh) -> int:
     cfg = TrainConfig.from_json(args.cfg_file)
     if args.epochs is not None:
         cfg.epoch_num = args.epochs
@@ -335,7 +356,7 @@ def main(argv=None) -> int:
     if args.device_data:
         cfg.device_aug = True
         cfg.device_data = True
-    device = torch.device(args.device)
+    device = mesh.device
     if device.type == "cuda" and not cfg.bf16:
         # full float32 convolutions and matmuls, as the JAX reference
         torch.backends.cudnn.allow_tf32 = False
@@ -345,15 +366,20 @@ def main(argv=None) -> int:
     model_dir = args.model_dir or os.path.join(_REPO, "data", "model", name)
     data_dir, gen_s = args.data_dir, 0.0
     if args.synthetic:
-        data_dir, gen_s = synthetic_tree(args, cls_name, device)
+        with rank_zero_first(mesh):
+            data_dir, gen_s = synthetic_tree(args, cls_name, device)
     if args.test_model:
+        if not mesh.is_main:
+            return 0
         return run_test_linemod(args, cfg, cls_name, model_dir, device,
                                 data_dir, gen_s)
     loop = TrainLoop(cfg, model_dir, record_dir=model_dir,
                      buckets=parse_buckets(args.buckets), device=device)
     if args.linemod_cls or args.synthetic:
         paths = PathConfig(data_dir=data_dir)
-        train_db, val_db = linemod_train_val(cfg, cls_name, paths, device)
+        with rank_zero_first(mesh):     # the databases cache into the tree
+            train_db, val_db = linemod_train_val(cfg, cls_name, paths,
+                                                 device)
         if not train_db:
             raise SystemExit(f"no training records of {cls_name} under "
                              f"{paths.linemod_dir}")
@@ -384,8 +410,11 @@ def main(argv=None) -> int:
               f"{'bf16' if cfg.bf16 else 'f32'}; device {device}", flush=True)
         loop.fit(images, masks, hcoords, init=args.init,
                  imagenet_pth=args.imagenet_pth, max_steps=args.steps)
+    if not mesh.is_main:
+        return 0
     print(f"checkpoints in {model_dir}", flush=True)
-    print(json.dumps({"train_images": n_train, "val_images": n_val,
+    print(json.dumps({"world_size": mesh.size, "train_images": n_train,
+                      "val_images": n_val,
                       "route": route, "generate_s": gen_s,
                       "epochs": loop.epoch_log,
                       "launches": launch_counts()}), flush=True)

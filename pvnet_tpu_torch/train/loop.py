@@ -34,6 +34,19 @@ as the JAX loop's ``fit`` takes them; frames decoded by data/image_io) or
 as arrays (:meth:`TrainLoop.fit`: the ``--data`` fixture route, held on
 the device). :meth:`TrainLoop.validate` writes the intermediate results of
 ``--save_inter_result`` (``save_inter_dir``) as the JAX loop does.
+
+Data parallelism (``use_mesh=True``, the JAX loop's default): under an
+initialized process group (parallel.init_process_group, one process per
+device) the loop trains over the group's mesh. The state is replicated
+from rank 0 and its BatchNorm layers synchronized (parallel.convert_sync);
+the steps are trainer's ``make_sharded_*``. Every rank runs the same
+sampler (seeded alike: the same sizes and global batches) and takes its
+rows: of each ``idx`` on the resident set, or, streamed, its own loader
+builds only its rows of each batch (the host augmentation's draws then
+come from ``RandomState(seed + rank)``). ``cfg.train_batch_size`` is the
+global batch. Checkpoints, the record log and the validation pass are
+rank 0's. Without a group the mesh has world size 1 and no group, and
+the same steps make no collective call: the one-device loop.
 """
 from __future__ import annotations
 
@@ -60,6 +73,7 @@ from pvnet_tpu_torch.eval.evaluator import Evaluator, ObjectMeta
 from pvnet_tpu_torch.models.pvnet import build_model
 from pvnet_tpu_torch.models.resnet import init_weights
 from pvnet_tpu_torch.ops import quant_conv
+from pvnet_tpu_torch.parallel import Mesh, make_mesh, replicate
 from pvnet_tpu_torch.train import trainer as trainer_mod
 from pvnet_tpu_torch.train.checkpoint import load_model, save_model
 from pvnet_tpu_torch.train.recorder import AverageMeter, Recorder
@@ -70,19 +84,38 @@ from pvnet_tpu_torch.utils.weights import (load_imagenet_backbone,
 _METRICS = ("loss", "seg_loss", "ver_loss", "precision", "recall")
 
 
+class _RankRows:
+    """A batch sampler's global batches, cut to this rank's rows."""
+
+    def __init__(self, sampler, mesh):
+        self.sampler, self.mesh = sampler, mesh
+
+    def __len__(self):
+        return len(self.sampler)
+
+    def __iter__(self):
+        for batch in self.sampler:
+            yield batch[self.mesh.rows(len(batch))]
+
+
 class TrainLoop:
-    """End-to-end trainer for one object class on one device."""
+    """End-to-end trainer for one object class, on one device or data
+    parallel over a process group (``use_mesh``, the module docstring)."""
 
     def __init__(self, cfg: TrainConfig, model_dir: str,
                  record_dir: Optional[str] = None,
                  buckets: Optional[List[Tuple[int, int]]] = None,
-                 device="cuda"):
+                 device="cuda", use_mesh: bool = True):
         self.cfg = cfg
         self.vote_num = VOTE_TYPE_TO_NUM[cfg.vote_type]
         self.model_dir = model_dir
-        self.recorder = Recorder(record_dir)
+        self.mesh = (make_mesh(device) if use_mesh
+                     else Mesh(0, 1, torch.device(device)))
+        self.is_main = self.mesh.is_main
+        self.recorder = Recorder(record_dir if self.is_main else None)
         self.buckets = buckets
-        self.device = torch.device(device)
+        self.device = self.mesh.device
+        self.mesh.rows(cfg.train_batch_size)          # raises if uneven
         # per trained epoch: {epoch, steps, seconds, losses (every step's)}
         self.epoch_log: List[Dict] = []
 
@@ -104,8 +137,8 @@ class TrainLoop:
                                    arch=self.cfg.network.split("_")[0])
         if init:
             load_weights(model, init)
-        model.to(self.device)
-        return trainer_mod.create_train_state(model, self.cfg)
+        return trainer_mod.create_train_state(replicate(model, self.mesh),
+                                              self.cfg)
 
     def resume(self, state: trainer_mod.TrainState
                ) -> Tuple[trainer_mod.TrainState, int]:
@@ -200,6 +233,9 @@ class TrainLoop:
         seed = np.random.SeedSequence([self.cfg.seed, 7919 * (epoch + 1)])
         gen = torch.Generator(self.device).manual_seed(
             int(seed.generate_state(1)[0]))
+        kw = dict(vertex_loss_ratio=self.cfg.vertex_loss_ratio,
+                  use_motion=self.cfg.motion_model, aug_cfg=self.cfg.aug_cfg,
+                  bf16=self.cfg.bf16)
 
         def step(idx, batch_ihw):
             # a copy from pinned memory does not wait for the device's queue
@@ -208,11 +244,9 @@ class TrainLoop:
             if self.device.type == "cuda":
                 ids = ids.pin_memory()
             ids = ids.to(self.device, non_blocking=True)
-            return trainer_mod.train_step_from_data(
-                state, data, ids, generator=gen,
-                vertex_loss_ratio=self.cfg.vertex_loss_ratio,
-                use_motion=self.cfg.motion_model, aug_cfg=self.cfg.aug_cfg,
-                aug_hw=(batch_ihw[0][1], batch_ihw[0][2]), bf16=self.cfg.bf16)
+            aug_hw = (batch_ihw[0][1], batch_ihw[0][2])
+            return trainer_mod.make_sharded_train_step_from_data(
+                self.mesh, aug_hw=aug_hw, **kw)(state, data, ids, gen)
         steps = self._epoch(sampler, step, len(sampler), epoch, max_steps)
         return state, steps
 
@@ -226,7 +260,9 @@ class TrainLoop:
         augmented on the device, step ``idx``'s draws from a generator
         seeded with the ``idx``-th pair of
         ``SeedSequence([seed, 7919 * (epoch + 1)])`` (JAX's per-step
-        keys), or ``draws(idx, b)`` where given."""
+        keys), or ``draws(idx, b)`` where given. Data parallel, the loader
+        yields this rank's rows; ``b`` and the draws are the global
+        batch's."""
         size = len(loader)
         keys = np.random.SeedSequence(
             [self.cfg.seed, 7919 * (epoch + 1)]).generate_state(
@@ -234,24 +270,27 @@ class TrainLoop:
         kw = dict(vertex_loss_ratio=self.cfg.vertex_loss_ratio,
                   use_motion=self.cfg.motion_model, bf16=self.cfg.bf16)
 
+        mesh = self.mesh
+
         def step(idx, batch):
             if "out_hw" not in batch:
-                return trainer_mod.train_step(
-                    state, trainer_mod.host_batch(batch, self.device), **kw)
+                dev = trainer_mod.host_batch(batch, self.device)
+                return trainer_mod.make_sharded_train_step(
+                    mesh, **kw)(state, dev, local=True)
             dev = {"image": batch["image"].to(self.device)}
             for k in ("mask", "hcoords", "ignore"):
                 dev[k] = torch.from_numpy(batch[k]).to(self.device)
-            b = len(batch["hcoords"])
+            b = len(batch["hcoords"]) * mesh.size
             if draws is not None:
                 extra = {"draws": draws(idx, b)}
             else:
                 k0, k1 = keys[idx % size]
                 extra = {"generator": torch.Generator(
                     self.device).manual_seed(int(k0 << 32 | k1))}
-            return trainer_mod.train_step(
-                state, dev, aug_cfg=self.cfg.aug_cfg,
-                aug_hw=tuple(int(x) for x in batch["out_hw"]), **extra,
-                **kw)
+            aug_hw = tuple(int(x) for x in batch["out_hw"])
+            return trainer_mod.make_sharded_train_step(
+                mesh, aug_cfg=self.cfg.aug_cfg, aug_hw=aug_hw,
+                **kw)(state, dev, local=True, **extra)
         steps = self._epoch(loader, step, size, epoch, max_steps)
         return state, steps
 
@@ -457,16 +496,18 @@ class TrainLoop:
         (pvnet_tpu/train/loop.py:467-485): the training set host-augmented
         (or raw for cfg.device_aug), its frames on the loop's device, one
         RandomState(cfg.seed) for its draws, drop_last batches of the
-        recipe's size and the loop's buckets."""
+        recipe's size and the loop's buckets. Data parallel: this rank's
+        rows of each batch, draws from RandomState(cfg.seed + rank)."""
         train_set = PoseDataset(train_db, data_prefix, self.cfg.vote_type,
                                 augment=not self.cfg.device_aug,
                                 aug_cfg=self.cfg.aug_cfg,
                                 use_motion=self.cfg.motion_model,
-                                seed=self.cfg.seed,
+                                seed=self.cfg.seed + self.mesh.rank,
                                 raw=self.cfg.device_aug,
                                 cache_images=self.cfg.cache_images,
                                 device=self.device)
-        train_loader = Prefetcher(train_set, self._sampler(len(train_set)),
+        sampler = _RankRows(self._sampler(len(train_set)), self.mesh)
+        train_loader = Prefetcher(train_set, sampler,
                                   num_threads=num_threads)
         return train_loader, self.make_val_loader(val_db, data_prefix,
                                                   num_threads)
@@ -560,7 +601,9 @@ class TrainLoop:
         """The epochs of :meth:`fit` and :meth:`fit_records`:
         ``run_epoch(state, epoch, max_steps)`` trains one and returns its
         steps; ``validate(state, epoch, evaluate_pose)`` runs the
-        validation pass where given."""
+        validation pass where given. Data parallel, rank 0 alone saves and
+        validates (in eval mode the model makes no collective call); the other
+        ranks wait for it at the next step's collectives."""
         state, begin_epoch = self.resume(state)
         end_epoch = epochs if epochs is not None else self.cfg.epoch_num
         left = max_steps
@@ -568,14 +611,15 @@ class TrainLoop:
             trainer_mod.set_learning_rate(
                 state, trainer_mod.lr_for_epoch(self.cfg, epoch))
             steps = run_epoch(state, epoch, left)
-            save_model(state, epoch, self.model_dir,
-                       keep=self.cfg.checkpoint_keep)
+            if self.is_main:
+                save_model(state, epoch, self.model_dir,
+                           keep=self.cfg.checkpoint_keep)
             do_eval = (self.cfg.eval_epoch
                        and epoch % self.cfg.eval_inter == 0
                        and epoch >= self.cfg.eval_epoch_begin)
-            if validate is not None and (do_eval
-                                         or epoch % self.cfg.val_inter == 0
-                                         or epoch == end_epoch - 1):
+            if validate is not None and self.is_main and (
+                    do_eval or epoch % self.cfg.val_inter == 0
+                    or epoch == end_epoch - 1):
                 validate(state, epoch, do_eval)
             if left is not None:
                 left -= steps

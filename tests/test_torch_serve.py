@@ -143,19 +143,21 @@ def _jpeg(h, w, seed):
 
 def test_image_body_without_pil_names_the_decoder(server, monkeypatch):
     """Without PIL a JPEG body of the artifact's size decodes (data/
-    image_io) and is posed; one of another size needs PIL's resize, and
-    the server answers 415 naming it."""
+    image_io) and is posed, and so is one of another size: it is resized
+    as PIL's BILINEAR resize does it (data/resample), to the pixels PIL
+    gives."""
+    from PIL import Image
     url, _ = server
     same, other = _jpeg(64, 64, 4), _jpeg(48, 40, 5)
+    want = np.asarray(Image.open(io.BytesIO(other)).convert("RGB").resize(
+        (64, 64), Image.BILINEAR))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    out = _post(url, same, {"Content-Type": "image/jpeg"})
-    assert np.isfinite(np.asarray(out["pose"])).all()
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _post(url, other, {"Content-Type": "image/jpeg"})
-    assert ei.value.code == 415
-    assert "PIL" in json.loads(ei.value.read())["error"]
-    with pytest.raises(TS.DecoderMissing, match="PIL"):
-        TS.decode_image(other, "image/jpeg", 64, 64, False)
+    for body in (same, other):
+        out = _post(url, body, {"Content-Type": "image/jpeg"})
+        assert np.isfinite(np.asarray(out["pose"])).all()
+    raw = TS.decode_image(other, "image/jpeg", 64, 64, False,
+                          raw_uint8=True)
+    np.testing.assert_array_equal(raw, want)
 
 
 def test_decode_jpeg_and_png_bodies():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one CUDA card.
 
-  python tools/profile_torch_train.py [--steps 5]
+  python tools/profile_torch_train.py [--steps 5] [--sharded]
 
 The step of chip_smoke.py's phase (f): configs/synthetic_train.json (bf16,
 batch 16, Adam) from assets/duck_ckpt.msgpack, the fixture's 2 views tiled
@@ -18,6 +18,13 @@ warm-up steps it prints:
   kernels', copies' and memsets' times) against the wall-clock window,
   hence the idle share, and the 12 kernels with the most device time.
 
+``--sharded`` profiles the data-parallel step instead
+(trainer.make_sharded_train_step_from_data in a world-1 NCCL group that
+the script makes itself: synchronized BatchNorm, DistributedDataParallel,
+the metrics' all-reduce), its stages split the same way; the forward runs
+through the DDP wrapper, and the whole step's median is printed beside
+the stages' sum.
+
 Needs a CUDA card; exits 1 without one.
 """
 from __future__ import annotations
@@ -32,6 +39,20 @@ from collections import Counter
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, H, W = 16, 480, 640
+
+
+def world_one_mesh():
+    """A world-1 NCCL group on cuda:0, as torchrun would describe it."""
+    import socket
+    from pvnet_tpu_torch.parallel import init_process_group
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    return init_process_group("cuda")
 
 
 def build_step(dev):
@@ -55,63 +76,98 @@ def build_step(dev):
     return cfg, state, data, ids, torch.Generator(device=dev).manual_seed(0)
 
 
-def stage_ms(cfg, state, data, ids, gen):
+def stage_ms(cfg, state, data, ids, gen, mesh=None):
     """One step split by CUDA events; the same work as train_step_from_data
-    (its pieces called in its order)."""
+    (its pieces called in its order), or with ``mesh`` as the sharded
+    step's: the forward through its DDP wrapper (whose backward averages
+    the gradients) and the metrics all-reduced."""
     import torch
     from pvnet_tpu_torch.train import trainer as TT
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    model = state.model if mesh is None else TT.replica(state, mesh)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     ev[0].record()
     batch = TT.apply_device_aug({k: v[ids] for k, v in data.items()},
                                 cfg.aug_cfg, (H, W), generator=gen)
     ev[1].record()
     state.model.train()
-    loss, _ = TT.batch_loss(state.model, batch, cfg.vertex_loss_ratio,
-                            False, cfg.bf16)
+    loss, metrics = TT.batch_loss(model, batch, cfg.vertex_loss_ratio,
+                                  False, cfg.bf16)
     ev[2].record()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     ev[3].record()
     state.optimizer.step()
     ev[4].record()
+    if mesh is not None:
+        TT.global_metrics(metrics, mesh)
+    ev[5].record()
     torch.cuda.synchronize()
     names = ("gather+augmentation", "targets+forward+loss", "backward",
-             "adam")
+             "adam", "metrics")
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--sharded", action="store_true",
+                   help="the data-parallel step in a world-1 NCCL group")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    try:
+        return profile(args)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def profile(args) -> int:
+    import torch
     from pvnet_tpu_torch.train import trainer as TT
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
+    mesh = world_one_mesh() if args.sharded else None
     cfg, state, data, ids, gen = build_step(dev)
+    if mesh is None:
+        def step():
+            return TT.train_step_from_data(
+                state, data, ids, generator=gen, aug_cfg=cfg.aug_cfg,
+                aug_hw=(H, W), bf16=cfg.bf16)
+    else:
+        sharded = TT.make_sharded_train_step_from_data(
+            mesh, aug_cfg=cfg.aug_cfg, aug_hw=(H, W), bf16=cfg.bf16)
 
-    def step():
-        return TT.train_step_from_data(state, data, ids, generator=gen,
-                                       aug_cfg=cfg.aug_cfg, aug_hw=(H, W),
-                                       bf16=cfg.bf16)
+        def step():
+            return sharded(state, data, ids, gen)
 
     for _ in range(3):
         step()
     torch.cuda.synchronize()
-    runs = [stage_ms(cfg, state, data, ids, gen) for _ in range(args.steps)]
+    runs = [stage_ms(cfg, state, data, ids, gen, mesh)
+            for _ in range(args.steps)]
     med = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
     total = sum(med.values())
-    print(f"stage ms (median of {args.steps} bf16 steps, b={B}, {H}x{W}): "
-          + ", ".join(f"{k} {v:.3f} ({v / total * 100:.1f} %)"
-                      for k, v in med.items()) + f"; sum {total:.3f}",
-          flush=True)
+    whole = []
+    for _ in range(args.steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        whole.append(ev[0].elapsed_time(ev[1]))
+    kind = "sharded (NCCL world 1)" if mesh else "unsharded"
+    print(f"stage ms, {kind} (median of {args.steps} bf16 steps, b={B}, "
+          f"{H}x{W}): " + ", ".join(f"{k} {v:.3f} ({v / total * 100:.1f} %)"
+                                     for k, v in med.items())
+          + f"; sum {total:.3f}; whole step median "
+          f"{sorted(whole)[len(whole) // 2]:.3f}", flush=True)
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
