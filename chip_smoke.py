@@ -200,9 +200,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
     (m2) the C entropy decoder equal to the plain Python one on 2 frames,
     host ms a frame on one thread and frames/s on 8; (m3) the pixel kernel
     equal to its plain version on the 24 frames (b=24) and on random
-    coefficients at 9 more geometries (extremes included), kernel, plain
-    and bound ms; (m4) the port's LINEMOD, Occlusion and Truncation
-    records against the JAX package's (RT to 1e-6, keypoints to 1e-4 px);
+    coefficients at 16 more geometries (extremes included), its launch
+    plan's halo work, warm and cold ms at b=1, 8 and 24 beside the bound,
+    plain ms, and one served JPEG request's decode split into host
+    entropy decoding, upload, kernel and copy back; (m4) the port's
+    LINEMOD, Occlusion and Truncation records against the JAX package's
+    (RT to 1e-6, keypoints to 1e-4 px);
     (m5) ``python -m pvnet_tpu_torch.train --linemod_cls duck --init
     <duck checkpoint> --steps 6 --buckets 480x640`` in this process (the
     bf16 recipe, the 12 train frames repeated to a batch of 16): finite
@@ -350,10 +353,12 @@ K3_BF16_OPS_PER_PAIR = 14
 INT8_OPS_PER_S = 1979e12
 # device times at the main-path shapes before each kernel's Hopper
 # redesign (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table): K3
-# (kernel, back to back), K5, K1, K2 (f32, bf16) and K3's bf16 mode
+# (kernel, back to back), K5, K1, K2 (f32, bf16), K3's bf16 mode and the
+# JPEG pixel kernel (24 frames and one at 480x640 4:2:0, warm)
 BEFORE_MS = {"K3": 0.0832, "K3 back to back": 0.3455, "K5": 0.4453,
              "K1": 0.0383, "K2 f32": 0.0469, "K2 bf16": 0.0464,
-             "K3 bf16": 0.1585}
+             "K3 bf16": 0.1585, "jpeg_pixels b=24": 0.2195,
+             "jpeg_pixels b=1": 0.0261}
 # L2 cache of the H100: the cold timings rotate over inputs that exceed it
 L2_BYTES = 50 * 2 ** 20
 # device clock cycles of cuda_ms's head start: ~50 ms at the H100's clocks
@@ -3329,17 +3334,29 @@ M_STEPS = 6               # (m4): training steps of the CLI
 M_SEEDS = (0, 1, 2)       # (m5): RANSAC seeds of --test_model
 M_POOL = 8                # (m2): host threads of the entropy decoder
 # the decode kernel's arithmetic in 32-bit operations (the least it
-# needs; the kernel itself runs libjpeg's 64-bit intermediates and
-# recomputes a halo of chroma blocks): per 8x8 block, 64 dequantizing
-# multiplies and 16 one-dimensional passes of 12 multiplies, 32 adds and
-# subtracts, 8 rounding adds and 8 shifts, and 128 saturations; per output
-# pixel, each upsampled chroma sample 9 operations (h2v2: two column sums
-# of a multiply and an add, the weighted sum, its bias and shift, four
-# index clamps) and the colour conversion 15 (three products, five adds,
-# three shifts, three clamps and the gray copy's select)
+# needs, the bound's count; kept as it was when the bound was first
+# written, so that its shares compare across kernels): per 8x8 block, 64
+# dequantizing multiplies and 16 one-dimensional passes of 12 multiplies,
+# 32 adds and subtracts, 8 rounding adds and 8 shifts, and 128
+# saturations; per output pixel, each upsampled chroma sample 9
+# operations (h2v2: two column sums of a multiply and an add, the weighted
+# sum, its bias and shift, four index clamps) and the colour conversion 15
+# (three products, five adds, three shifts, three clamps and the gray
+# copy's select)
 DECODE_OPS_PER_BLOCK = 64 + 16 * (12 + 32 + 8 + 8) + 128
 DECODE_OPS_PER_CHROMA = 9
 DECODE_OPS_PER_PIXEL = 15
+# the kernel's halo work in the same operations: one 8-point pass with its
+# saturations 68, one output of a pass alone (csrc/jpeg_decode.cu's
+# idct_edge: 7 for the even part, 12 for the odd, the sum, rounding and
+# shift, the saturation) 23; a halo row block 64 dequantizing multiplies,
+# 8 one-output column passes and a row pass; a halo column block 64, 8
+# column passes and 8 one-output row passes; a corner 64 and 9 one-output
+# passes
+DECODE_HALO_OPS = (64 + 8 * 23 + 68, 64 + 8 * 68 + 8 * 23, 64 + 9 * 23)
+# (m3): batch sizes timed (one frame is what serving and the streamed
+# training routes launch)
+M3_BATCHES = (1, 8, 24)
 
 
 def reset_all_counters():
@@ -3369,6 +3386,50 @@ def decode_bound_ms(geo, batch: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INSTR_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decode_halo_share(geo, batch: int) -> float:
+    """The kernel's halo work over its own blocks' at ``geo`` in a launch
+    of ``batch`` images, in the operations of DECODE_OPS_PER_BLOCK and
+    DECODE_HALO_OPS, from the launch plan's block counts
+    (image_io.tile_blocks)."""
+    from pvnet_tpu_torch.data import image_io as IO
+    own, rows, cols, corners = IO.tile_blocks(geo, batch)
+    halo = sum(n * w for n, w in zip((rows, cols, corners), DECODE_HALO_OPS))
+    return halo / (own * DECODE_OPS_PER_BLOCK)
+
+
+def served_decode_split(dev, blob, reps: int = 20):
+    """Medians (ms, host clock after a synchronize) of one served JPEG
+    request's decode (serve.py's decode_rgb_bytes): host entropy decoding,
+    the upload of coefficients and tables, the pixel kernel's launch to
+    its end, the RGB frame's copy back, and the whole of it."""
+    import statistics
+    import torch
+    from pvnet_tpu_torch.data import image_io as IO
+    parts = {k: [] for k in ("entropy", "upload", "kernel", "readback",
+                             "whole")}
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = IO.jpeg_coefficients_native(blob)
+        t1 = time.perf_counter()
+        coef = torch.from_numpy(c.coef[None]).to(dev)
+        qt = torch.from_numpy(c.qt[None]).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rgb = IO.jpeg_pixels(coef, qt, c.geometry)[0]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rgb.cpu()
+        t4 = time.perf_counter()
+        IO.decode_rgb_bytes(blob, "request", dev).cpu()
+        t5 = time.perf_counter()
+        for v, dt in zip(parts.values(), (t1 - t0, t2 - t1, t3 - t2,
+                                          t4 - t3, t5 - t4)):
+            v.append(dt * 1e3)
+    # the first round warms up
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}
 
 
 def check_decoder(dev, root, manifest):
@@ -3430,28 +3491,50 @@ def check_decoder(dev, root, manifest):
         t0 = time.perf_counter()
         list(pool.map(IO.jpeg_coefficients_native, blobs * 4 * reps))
         pool_fps = 4 * reps * n / (time.perf_counter() - t0)
-    ms = cuda_ms(lambda: IO.jpeg_pixels(coef, qt, geo), iters=20)
     plain_ms = cuda_ms(lambda: IO.jpeg_pixels_plain(coef, qt, geo), iters=5)
-    one = coef[:1], qt[:1]
-    ms1 = cuda_ms(lambda: IO.jpeg_pixels(*one, geo), iters=50)
-    bound, by = decode_bound_ms(geo, n)
-    bound1, _ = decode_bound_ms(geo, 1)
     print(f"(m2) C entropy decoder == plain Python (coefficients, tables) "
           f"on {frames[0]} and {frames[1]}; host entropy decoding "
           f"{host_ms:.3f} ms per {geo.height}x{geo.width} frame on one "
           f"thread, {pool_fps:.1f} frames/s on {M_POOL} threads", flush=True)
     print(f"(m3) jpeg_pixels (CUDA) == jpeg_pixels_plain on the {n} frames "
           f"({geo.height}x{geo.width}, sampling h={list(geo.h)} "
-          f"v={list(geo.v)}), exact; kernel {ms:.4f} ms for {n} frames "
-          f"({ms / n:.4f} ms a frame), {ms1:.4f} ms for one; plain "
-          f"{plain_ms:.4f} ms; bound {bound:.4f} ms ({by}; one frame "
-          f"{bound1:.4f}); {SMI}", flush=True)
+          f"v={list(geo.v)}), exact; plain {plain_ms:.4f} ms for {n}; the "
+          f"launch plan's halo work {decode_halo_share(geo, 1):.1%} of the "
+          f"own blocks' at b=1, {decode_halo_share(geo, n):.1%} at b={n} "
+          f"(blocks own, row, column, corner a frame: "
+          f"{IO.tile_blocks(geo, 1)}, {IO.tile_blocks(geo, n)})", flush=True)
+    # warm: 50 launches on the same inputs; cold: the inputs rotated over
+    # copies past the L2 (the output stays one tensor)
+    times = {}
+    for b in M3_BATCHES:
+        args = coef[:b].contiguous(), qt[:b].contiguous()
+        warm = cuda_ms(lambda: IO.jpeg_pixels(*args, geo), iters=50)
+        copies = [(args[0].clone(), args[1].clone())
+                  for _ in range(L2_BYTES // _nbytes(args) + 1)]
+        res = torch.empty((b, geo.height, geo.width, 3), dtype=torch.uint8,
+                          device=dev)
+        cold = cold_ms(lambda x: IO.jpeg_pixels(*x, geo, out=res), copies)
+        del copies
+        bound, by = decode_bound_ms(geo, b)
+        times[b] = warm, cold, bound, by
+        before = BEFORE_MS.get(f"jpeg_pixels b={b}")
+        print(f"(m3) jpeg_pixels b={b}: warm {warm:.4f} ms "
+              f"({bound / warm:.1%} of the bound), cold {cold:.4f} ms "
+              f"({bound / cold:.1%}); bound {bound:.4f} ms ({by})"
+              + (f"; before the redesign {before}" if before else "")
+              + f"; {SMI}", flush=True)
+    split = served_decode_split(dev, blobs[0])
+    print(f"(m3) one served JPEG request's decode ({geo.height}x"
+          f"{geo.width}, host clock, medians of 20): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in split.items())
+          + f"; the kernel's device time {times[1][0]:.4f} ms", flush=True)
+    ms, cold, bound, by = times[n]
     return {"name": "jpeg_pixels", "route": "cuda",
             "source": "pvnet_tpu_torch/csrc/jpeg_decode.cu",
             "replaces": "pvnet_tpu/data/linemod.py:43",
-            "launches": 0, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None}
+            "launches": 0, "max_abs_err": err, "ms": ms, "cold_ms": cold,
+            "one_frame_ms": times[1][0], "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
 # (m3): geometries of the pixel kernel besides the frames' 4:2:0 480x640:
@@ -3465,6 +3548,13 @@ DECODE_GEOMETRIES = [(37, 53, (1, 1, 1), (1, 1, 1)),
                      (1, 1, (2, 1, 1), (2, 1, 1)),
                      (61, 83, (1,), (1,)),
                      (40, 72, (2, 2, 2), (1, 1, 1)),
+                     (481, 647, (2, 1, 1), (2, 1, 1)),
+                     (480, 640, (2, 1, 1), (1, 1, 1)),
+                     (480, 640, (1, 1, 1), (1, 1, 1)),
+                     (480, 640, (1,), (1,)),
+                     (32, 32, (2, 2, 2), (2, 2, 2)),
+                     (24, 2100, (2, 1, 1), (2, 1, 1)),
+                     (17, 2100, (2, 1, 1), (1, 1, 1)),
                      (256, 256, (2, 1, 1), (2, 1, 1))]
 
 
@@ -3496,8 +3586,9 @@ def check_decoder_geometries(dev):
                 f"(m3) jpeg_pixels != plain at {geo}, extreme={extreme}"
     print(f"(m3) jpeg_pixels == jpeg_pixels_plain also on random "
           f"coefficients at {len(DECODE_GEOMETRIES)} geometries (4:4:4, "
-          f"4:2:2, 4:2:0, gray, 1 to 3 pixels wide, 256x256 also at int16 "
-          f"and 16-bit table extremes), b=3", flush=True)
+          f"4:2:2, 4:2:0, gray, 1 to 3 pixels wide, 481x647, tiles 16 MCUs "
+          f"wide, 256x256 also at int16 and 16-bit table extremes), b=3",
+          flush=True)
 
 
 def check_records(root, manifest):

@@ -9,25 +9,50 @@
 // equals cv2's byte for byte (pvnet_tpu_torch/data/image_io.py holds the
 // plain versions and says which libjpeg routines each step reproduces).
 //
-// What bounds the kernel on the H100: device-memory bytes in principle
-// (int16 coefficients in, 2 bytes a coefficient; uint8 RGB out; at
-// 480x640 4:2:0 0.92 MB each way, ~0.55 us a frame at 3.35 TB/s), but this
-// first kernel is simple and exact rather than fast: it keeps libjpeg's
-// 64-bit intermediates (JLONG) and recomputes the chroma blocks of a
-// one-block halo around each tile, so it is bound by its integer
-// instructions.
+// What bounds the kernel on the H100: device-memory bytes and its integer
+// instructions alike, in principle. At 480x640 4:2:0 a frame is 0.92 MB of
+// int16 coefficients in and 0.92 MB of RGB out, 0.55 us at 3.35 TB/s, and
+// about 18 M 32-bit operations (chip_smoke.py's DECODE_OPS_*), 0.55 us at
+// the card's instruction rate. In practice a thread block's life is a
+// chain of dependent steps (its copies in, two transform passes, the
+// planes' edges, pixels, the copy out), and a frame is only 1200 MCUs:
+// the kernel is bound by that latency, a few microseconds a block, far
+// more than by either rate, so a block must carry enough work to pay for
+// it and enough blocks must be resident to overlap it.
 //
-// Design: a thread block owns a tile of 4x4 MCUs of one image (64x64
-// pixels at 4:2:0). It IDCTs the tile's blocks of every component, plus a
-// ring of one block around the tile for each component that is
-// upsampled (the triangle filter reads one sample beyond the tile on each
-// side), in two passes through shared memory: pass 1 one thread per
-// (block, column), pass 2 one thread per (block, row) writing uint8
-// samples into a shared plane per component. Then each thread takes
-// pixels of the tile: the luma sample, the chroma samples upsampled with
-// libjpeg's biases (edges replicated by clamping the sample coordinates
-// to the component's real samples), the colour conversion, and three
-// bytes written to the output.
+// Design (each point answers one bound of the earlier, 64-bit kernel):
+// - 32-bit arithmetic. Both passes of jpeg_idct_islow run in unsigned
+//   32-bit sums that may wrap; their inputs are 16-bit (the dequantized
+//   coefficient after its wrap, the column pass's output after its
+//   saturation), so every output sum stays within 0.935 * 2^31 and the
+//   wrapped sum is libjpeg's 64-bit one; only the final descale is signed
+//   (tests/test_torch_jpeg_int32.py models it on the CPU). The column
+//   pass's output is int16 in shared memory, in place of the coefficients.
+// - No 8x8 halo block is recomputed. The triangle filter reads one chroma
+//   sample beyond each tile edge; of a halo block the kernel computes only
+//   that edge: above and below the tile one row (its column pass one
+//   output of eight, its row pass one row), left and right one column (its
+//   column pass, then one output of each row), at a corner one sample. At
+//   480x640 4:2:0 that adds 19 % to the own blocks' transform work (14 %
+//   at b=24, where tiles are 4 MCU rows tall) where the earlier ring of
+//   whole blocks added 42 %. Thread-block clusters that hand each other
+//   their edge columns through distributed shared memory were built and
+//   measured first: less work, but their barrier cost more than the
+//   columns save (PERF.md).
+// - A grid sized to the card: a tile is ceil(mcux / 8) MCUs wide (at most
+//   16) and 2 MCU rows tall, 4 where that still leaves 8 x 132 blocks, so
+//   one 480x640 frame is 120 blocks (one an SM) and 24 frames 1536; a
+//   warp per 8 blocks of a tile, 32 registers a thread, shared memory
+//   dynamic and sized from the geometry (27 KB at 480x640 4:2:0, b=1).
+// - Coalesced traffic and short chains: the tables and each tile's own
+//   blocks go to shared memory by cp.async in 16-byte pieces before
+//   anything else (a warp's instruction covering four blocks), the halo
+//   blocks once the tile's slot groups are known; each warp then
+//   transforms its own blocks with no block barrier between the passes;
+//   pixels are computed 8 to a thread, with the sampling a template
+//   parameter (one kernel per pattern) and no division per pixel; the
+//   tile's RGB rows are staged in shared memory and written with 16-byte
+//   stores on 16-byte boundaries.
 #include <stdint.h>
 #include <string.h>
 
@@ -406,183 +431,532 @@ int parse_jpeg(const uint8_t* d, size_t n, int16_t* coef, long nblocks,
 // Device: dequantize + islow IDCT + upsampling + YCbCr->RGB
 // ---------------------------------------------------------------------------
 
-constexpr int kTileMcu = 4;     // a tile is kTileMcu x kTileMcu MCUs
-constexpr int kMaxBlocks = 136; // 4:2:0: 64 luma + 2 x 36 chroma with halo
-constexpr int kPlane = 64 * 64; // bytes of one component's tile plane
-constexpr int kThreads = 256;
+constexpr int kRowTiles = 8;       // tiles across an MCU row
+constexpr int kMaxTileMcus = 16;   // MCUs of a tile along x
+constexpr int kMinTileRows = 2, kMaxTileRows = 4;   // MCU rows of a tile
+constexpr int kFillBlocks = 8 * 132;   // blocks that keep the card full
+constexpr int kMaxThreads = 512;
+constexpr int kMinBlocks = 4;     // resident blocks: 32 registers a thread
+constexpr int kSlot = 144;         // bytes of a block in shared memory: 8 rows
+                                   // of 16, padded to 9 x 16 so that the
+                                   // column pass's words meet no bank twice
+constexpr int kPad = 8;            // plane columns left of a tile's own
+                                   // samples (its left border: kPad - 1)
+constexpr int kGroups = 27;        // slot groups: 3 components x 9 kinds
 
-// jidctint.c's constants (CONST_BITS 13, PASS1_BITS 2)
-constexpr long long F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270,
-                    F0899 = 7373, F1175 = 9633, F1501 = 12299, F1847 = 15137,
-                    F1961 = 16069, F2053 = 16819, F2562 = 20995,
-                    F3072 = 25172;
+// what a slot needs along one axis of its block: every row (column), or
+// only the first or the last one (the edge of a halo block next to the tile)
+enum { kEvery = 0, kFirst = 1, kLast = 2 };
+// a chroma component's upsampling: none, h2v1 or h2v2
+enum { kNone = 0, kH2V1 = 1, kH2V2 = 2 };
 
 struct Geo {
-  int H, W, nc, hmax, vmax, total;
-  int h[3], v[3], bw[3], bh[3], dw[3], dh[3], off[3];
+  int H, W, hmax, vmax, total, mcux, mcuy;
+  int tx, ty;              // MCUs of a tile along x, MCU rows of a tile
+  int h[3], v[3], bw[3], dw[3], dh[3], off[3];
+  int upx[3], upy[3];      // fancy upsampling along x / y: a halo is needed
+  int box[3];              // libjpeg's box upsampling (plane <= 2 wide)
+  // shared memory, byte offsets from the dynamic base: the tables at 0,
+  // the slots, a plane per component (8 ty v_c + 2 rows of pitch[c], the
+  // tile's samples from column kPad on) and the RGB rows
+  int plane[3], pitch[3];
+  int slots, stage, stage_pitch;
 };
 
-// One 8-point pass of jpeg_idct_islow on x[0..7] (stride `s`), descaled
-// by `shift`, into o[0..7].
-__device__ __forceinline__ void idct8(const long long* x, long long* o,
-                                      int shift) {
-  long long z2 = x[2], z3 = x[6];
-  long long z1 = (z2 + z3) * F0541;
-  long long tmp2 = z1 + z3 * -F1847;
-  long long tmp3 = z1 + z2 * F0765;
-  long long tmp0 = (x[0] + x[4]) * 8192;   // << CONST_BITS
-  long long tmp1 = (x[0] - x[4]) * 8192;
-  long long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-  long long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  long long t0 = x[7], t1 = x[5], t2 = x[3], t3 = x[1];
-  long long a1 = t0 + t3, a2 = t1 + t2, a3 = t0 + t2, a4 = t1 + t3;
-  long long z5 = (a3 + a4) * F1175;
-  t0 *= F0298;
-  t1 *= F2053;
-  t2 *= F3072;
-  t3 *= F1501;
-  a1 *= -F0899;
-  a2 *= -F2562;
-  a3 = a3 * -F1961 + z5;
-  a4 = a4 * -F0390 + z5;
-  t0 += a1 + a3;
-  t1 += a2 + a4;
-  t2 += a2 + a3;
-  t3 += a1 + a4;
-  const long long rnd = 1LL << (shift - 1);
-  o[0] = (tmp10 + t3 + rnd) >> shift;
-  o[7] = (tmp10 - t3 + rnd) >> shift;
-  o[1] = (tmp11 + t2 + rnd) >> shift;
-  o[6] = (tmp11 - t2 + rnd) >> shift;
-  o[2] = (tmp12 + t1 + rnd) >> shift;
-  o[5] = (tmp12 - t1 + rnd) >> shift;
-  o[3] = (tmp13 + t0 + rnd) >> shift;
-  o[4] = (tmp13 - t0 + rnd) >> shift;
+__device__ __forceinline__ int sat16(int x) {
+  return min(max(x, -32768), 32767);
 }
 
-__device__ __forceinline__ long long clampll(long long x, long long lo,
-                                             long long hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
+__device__ __forceinline__ uint32_t to_sample(int x) {
+  return (uint32_t)(min(max(x, -128), 127) + 128);
 }
 
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
+__device__ __forceinline__ uint32_t sext16(uint32_t x) {
+  return (uint32_t)(int32_t)(int16_t)(uint16_t)x;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t hi16(uint32_t x) {
+  return (uint32_t)((int32_t)x >> 16);
+}
+
+template <int S>
+__device__ __forceinline__ int descale(uint32_t v) {
+  return (int32_t)(v + (1u << (S - 1))) >> S;
+}
+
+// One 8-point pass of jpeg_idct_islow in 32-bit registers, as its even part
+// e (tmp10, tmp11, tmp12, tmp13) and odd part o (t3, t2, t1, t0): output k
+// is e[k] + o[k], output 7 - k is e[k] - o[k]. The sums are unsigned and
+// wrap modulo 2^32; for inputs in [-32768, 32767] every output sum, the
+// rounding constant included, lies within 0.935 * 2^31 of zero, so the
+// wrapped sum is libjpeg's 64-bit one and only the descale is signed.
+__device__ __forceinline__ void idct_even(uint32_t x0, uint32_t x2,
+                                          uint32_t x4, uint32_t x6,
+                                          uint32_t e[4]) {
+  const uint32_t z1 = (x2 + x6) * 4433u;     // FIX_0_541196100
+  const uint32_t tmp2 = z1 - x6 * 15137u;    // FIX_1_847759065
+  const uint32_t tmp3 = z1 + x2 * 6270u;     // FIX_0_765366865
+  const uint32_t tmp0 = (x0 + x4) << 13, tmp1 = (x0 - x4) << 13;
+  e[0] = tmp0 + tmp3;
+  e[1] = tmp1 + tmp2;
+  e[2] = tmp1 - tmp2;
+  e[3] = tmp0 - tmp3;
+}
+
+__device__ __forceinline__ void idct_odd(uint32_t x1, uint32_t x3,
+                                         uint32_t x5, uint32_t x7,
+                                         uint32_t o[4]) {
+  const uint32_t z5 = (x7 + x3 + x5 + x1) * 9633u;  // FIX_1_175875602
+  const uint32_t z1 = (x7 + x1) * (0u - 7373u);     // FIX_0_899976223
+  const uint32_t z2 = (x5 + x3) * (0u - 20995u);    // FIX_2_562915447
+  const uint32_t z3 = (x7 + x3) * (0u - 16069u) + z5;  // FIX_1_961570560
+  const uint32_t z4 = (x5 + x1) * (0u - 3196u) + z5;   // FIX_0_390180644
+  o[0] = x1 * 12299u + z1 + z4;              // FIX_1_501321110
+  o[1] = x3 * 25172u + z2 + z3;              // FIX_3_072711026
+  o[2] = x5 * 16819u + z2 + z4;              // FIX_2_053119869
+  o[3] = x7 * 2446u + z1 + z3;               // FIX_0_298631336
+}
+
+// Output 0 (first) or 7 (last) of the same pass alone: the sum equals the
+// full pass's, modulo 2^32 and so exactly.
+__device__ __forceinline__ uint32_t idct_edge(const uint32_t* x, bool last) {
+  const uint32_t e = ((x[0] + x[4]) << 13) + (x[2] + x[6]) * 4433u +
+                     x[2] * 6270u;
+  const uint32_t o = x[1] * 12299u + (x[7] + x[1]) * (0u - 7373u) +
+                     (x[5] + x[1]) * (0u - 3196u) +
+                     (x[7] + x[3] + x[5] + x[1]) * 9633u;
+  return last ? e - o : e + o;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// (row, column) cells of a grid `cols` wide, visited by thread t in steps
+// of n: one division on entry, carries after it
+struct Walk {
+  int r, c, dr, dc, cols;
+  __device__ Walk(int t, int n, int cols_) : cols(cols_) {
+    r = t / cols;
+    c = t - r * cols;
+    dr = n / cols;
+    dc = n - dr * cols;
+  }
+  __device__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      r++;
+    }
+  }
+};
+
+// 8 samples from 4-byte-aligned p
+__device__ __forceinline__ void load8(const uint8_t* p, int s[8]) {
+  const uint32_t a = *(const uint32_t*)p, b = *(const uint32_t*)(p + 4);
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    s[k] = (a >> (8 * k)) & 255;
+    s[k + 4] = (b >> (8 * k)) & 255;
+  }
+}
+
+// samples at p[-1 .. 4], p 4-byte aligned
+__device__ __forceinline__ void load6(const uint8_t* p, int s[6]) {
+  const uint32_t a = *(const uint32_t*)p;
+  s[0] = p[-1];
+#pragma unroll
+  for (int k = 0; k < 4; k++) s[k + 1] = (a >> (8 * k)) & 255;
+  s[5] = p[4];
+}
+
+// Component c's samples under the 8 pixels (yl, xl .. xl + 7) of the tile,
+// upsampled as libjpeg does: jdsample.c h2v1 / h2v2_fancy_upsample (the
+// plane's borders hold the halo blocks' edge samples or the replicated
+// edge), or box upsampling where the plane is at most 2 samples wide.
+template <int K>
+__device__ __forceinline__ void upsample8(const Geo& g, const uint8_t* sm,
+                                          int c, int yl, int xl, int s[8]) {
+  const uint8_t* pl = sm + g.plane[c];
+  const int pitch = g.pitch[c];
+  if (K == kNone) {
+    load8(pl + (yl + 1) * pitch + kPad + xl, s);
+    return;
+  }
+  const int ys = K == kH2V2 ? yl >> 1 : yl;
+  const uint8_t* near = pl + (ys + 1) * pitch + kPad + (xl >> 1);
+  if (g.box[c]) {
+#pragma unroll
+    for (int k = 0; k < 8; k++) s[k] = near[k >> 1];
+    return;
+  }
+  int n[6];
+  load6(near, n);
+  if (K == kH2V1) {
+#pragma unroll
+    for (int m = 0; m < 4; m++) {
+      s[2 * m] = (3 * n[m + 1] + n[m] + 1) >> 2;
+      s[2 * m + 1] = (3 * n[m + 1] + n[m + 2] + 2) >> 2;
+    }
+    return;
+  }
+  int f[6];
+  load6(near + ((yl & 1) ? pitch : -pitch), f);
+#pragma unroll
+  for (int j = 0; j < 6; j++) n[j] = 3 * n[j] + f[j];  // column sums
+#pragma unroll
+  for (int m = 0; m < 4; m++) {
+    s[2 * m] = (3 * n[m + 1] + n[m] + 8) >> 4;
+    s[2 * m + 1] = (3 * n[m + 1] + n[m + 2] + 7) >> 4;
+  }
+}
+
+__device__ __forceinline__ uint32_t clamp255(int x) {
+  return (uint32_t)min(max(x, 0), 255);
+}
+
+// jdcolor.c ycc_rgb_convert (SCALEBITS 16): R | G << 8 | B << 16
+__device__ __forceinline__ uint32_t ycc_rgb(int y, int cb, int cr) {
+  const int xcb = cb - 128, xcr = cr - 128;
+  const int r = y + ((91881 * xcr + 32768) >> 16);
+  const int gg = y + ((-22554 * xcb + 32768 - 46802 * xcr) >> 16);
+  const int b = y + ((116130 * xcb + 32768) >> 16);
+  return clamp255(r) | clamp255(gg) << 8 | clamp255(b) << 16;
+}
+
+// A tile's slots: the tile's own blocks of each component, then its halo
+// blocks: the columns of blocks left and right of the tile (pass 1 in
+// full, one sample of each row in pass 2), and the rows of blocks above
+// and below it and the four corners (one output of pass 1's columns, that
+// row alone in pass 2). They come in 27
+// groups: 0-2 the components' own blocks, 3-8 the halo columns (both
+// taking every column of pass 1), 9-26 the halo rows and corners (one row
+// of it). A warp holds them in its lanes (lane l: group l's first slot,
+// component, block offset from the tile's own first block, row width and
+// needs), every warp alike, and finds a slot's group by a binary search
+// over the lanes.
+struct Groups {
+  int base, c, dx, dy, w, need;
+  int ns;   // slots of the tile
+};
+
+__device__ __forceinline__ Groups tile_groups(const Geo& g, int mx0, int ntx,
+                                              int my0, int nty, int nc) {
+  const int l = threadIdx.x & 31;
+  const int kind = l < 3 ? 0 : (l < 9 ? 1 + (l - 3) % 2 : 3 + (l - 9) % 6);
+  Groups r;
+  r.c = l < 3 ? l : (l < 9 ? (l - 3) / 2 : (l - 9) / 6);
+  r.dx = r.dy = r.need = 0;
+  r.w = 1;
+  int count = 0;
+  if (l < kGroups && r.c < nc) {
+    const int c = r.c;
+    const int nbx = ntx * g.h[c], nby = nty * g.v[c];
+    const int sx0 = mx0 * g.h[c] * 8, sy0 = my0 * g.v[c] * 8;
+    const bool top = g.upy[c] && sy0 > 0;
+    const bool bot = g.upy[c] && sy0 + 8 * nby < g.dh[c];
+    const bool left = g.upx[c] && sx0 > 0;
+    const bool right = g.upx[c] && sx0 + 8 * nbx < g.dw[c];
+    switch (kind) {
+      case 0: count = nbx * nby; r.w = nbx; break;
+      case 1: count = left ? nby : 0; r.dx = -1; r.need = kLast << 2; break;
+      case 2:
+        count = right ? nby : 0; r.dx = nbx; r.need = kFirst << 2;
+        break;
+      case 3:
+        count = top ? nbx : 0; r.dy = -1; r.w = nbx; r.need = kLast;
+        break;
+      case 4:
+        count = bot ? nbx : 0; r.dy = nby; r.w = nbx; r.need = kFirst;
+        break;
+      case 5:
+        count = left && top; r.dx = -1; r.dy = -1;
+        r.need = kLast | kLast << 2;
+        break;
+      case 6:
+        count = right && top; r.dx = nbx; r.dy = -1;
+        r.need = kLast | kFirst << 2;
+        break;
+      case 7:
+        count = left && bot; r.dx = -1; r.dy = nby;
+        r.need = kFirst | kLast << 2;
+        break;
+      default:
+        count = right && bot; r.dx = nbx; r.dy = nby;
+        r.need = kFirst | kFirst << 2;
+        break;
+    }
+  }
+  int incl = count;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(~0u, incl, d);
+    if (l >= d) incl += o;
+  }
+  r.base = incl - count;
+  r.ns = __shfl_sync(~0u, incl, kGroups - 1);
+  return r;
+}
+
+// Slot s of the tile (every lane of the warp calls it): its block's index
+// in the image, the plane offset of the block's sample (0, 0), and its
+// component and needs.
+struct Slot {
+  int blk, dst, meta;
+};
+
+__device__ __forceinline__ Slot slot_at(const Geo& g, const Groups& gr, int s,
+                                        int mx0, int my0) {
+  int k = 0;   // the last group whose first slot is at most s
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    const int b = __shfl_sync(~0u, gr.base, min(k + step, kGroups - 1));
+    if (k + step < kGroups && b <= s) k += step;
+  }
+  const int c = __shfl_sync(~0u, gr.c, k), w = __shfl_sync(~0u, gr.w, k);
+  const int dx = __shfl_sync(~0u, gr.dx, k), dy = __shfl_sync(~0u, gr.dy, k);
+  const int idx = s - __shfl_sync(~0u, gr.base, k);
+  const int need = __shfl_sync(~0u, gr.need, k);
+  const int ry = idx / w;
+  const int sdy = dy + ry, sdx = dx + (idx - ry * w);
+  Slot r;
+  r.blk = g.off[c] + (my0 * g.v[c] + sdy) * g.bw[c] + mx0 * g.h[c] + sdx;
+  r.dst = g.plane[c] + (8 * sdy + 1) * g.pitch[c] + kPad + 8 * sdx;
+  r.meta = c | need << 2;
+  return r;
+}
+
+// Shared memory: the images' quantization tables, one block per slot
+// (coefficients, then the column pass's output in place), a plane per
+// component with a one-sample border, and the tile's RGB rows.
+template <int NC, int K1, int K2>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 jpeg_pixels_kernel(const int16_t* __restrict__ coef,
                    const int32_t* __restrict__ qt, uint8_t* __restrict__ out,
-                   Geo g) {
-  __shared__ int32_t ws[kMaxBlocks * 64];
-  __shared__ uint8_t plane[3][kPlane];
-  const int img = blockIdx.z;
-  // per component: the tile's nominal block origin (a halo block may lie
-  // outside the plane), its size in blocks, and its first block in the
-  // flat list
-  int ox[3], oy[3], nx[3], ny[3], base[3];
-  int nblk = 0;
-  for (int c = 0; c < g.nc; c++) {
-    int hx = g.hmax / g.h[c] > 1 ? 1 : 0, hy = g.vmax / g.v[c] > 1 ? 1 : 0;
-    ox[c] = blockIdx.x * kTileMcu * g.h[c] - hx;
-    oy[c] = blockIdx.y * kTileMcu * g.v[c] - hy;
-    nx[c] = kTileMcu * g.h[c] + 2 * hx;
-    ny[c] = kTileMcu * g.v[c] + 2 * hy;
-    base[c] = nblk;
-    nblk += nx[c] * ny[c];
-  }
+                   const __grid_constant__ Geo g) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  uint8_t* slots = sm + g.slots;
+  const int32_t* qs = (const int32_t*)sm;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int img = blockIdx.z, my0 = blockIdx.y * g.ty;
+  const int mx0 = blockIdx.x * g.tx;
+  const int ntx = min(g.tx, g.mcux - mx0), nty = min(g.ty, g.mcuy - my0);
   const int16_t* cimg = coef + (size_t)img * g.total * 64;
-  const int32_t* qimg = qt + (size_t)img * g.nc * 64;
 
-  // pass 1: one thread per (block, column), dequantized with the SIMD
-  // code's 16-bit wrap, output saturated to 16 bits
-  for (int item = threadIdx.x; item < nblk * 8; item += blockDim.x) {
-    int b = item >> 3, col = item & 7;
-    int c = g.nc - 1;
-    while (b < base[c]) c--;
-    int lb = b - base[c];
-    int gbx = ox[c] + lb % nx[c], gby = oy[c] + lb / nx[c];
-    if (gbx < 0 || gby < 0 || gbx >= g.bw[c] || gby >= g.bh[c]) continue;
-    const int16_t* blk =
-        cimg + ((size_t)g.off[c] + (size_t)gby * g.bw[c] + gbx) * 64;
-    long long x[8], o[8];
+  // The tables and the tile's own blocks first (slots 0 .. nown - 1,
+  // component by component, rows of blocks in order), by cp.async in
+  // 16-byte pieces, a warp's instruction covering four blocks
+  const int n0 = ntx * nty * g.h[0] * g.v[0];
+  const int n1 = NC > 1 ? ntx * nty * g.h[1] * g.v[1] : 0;
+  const int nown = n0 + n1 + (NC > 2 ? ntx * nty * g.h[2] * g.v[2] : 0);
+  for (int i = tid; i < NC * 16; i += nt)
+    cp_async16(sm + 16 * i, qt + (size_t)img * NC * 64 + 4 * i);
+  for (int i = tid; i < 8 * nown; i += nt) {
+    const int s = i >> 3;
+    const int c = s < n0 ? 0 : (s < n0 + n1 ? 1 : 2);
+    const int idx = s - (c == 0 ? 0 : (c == 1 ? n0 : n0 + n1));
+    const int nbx = ntx * g.h[c], dy = idx / nbx;
+    const int blk = g.off[c] + (my0 * g.v[c] + dy) * g.bw[c] + mx0 * g.h[c] +
+                    idx - dy * nbx;
+    cp_async16(slots + s * kSlot + (i & 7) * 16,
+               cimg + (size_t)blk * 64 + (i & 7) * 8);
+  }
+  // then the halo blocks, once the groups say which
+  const Groups gr = tile_groups(g, mx0, ntx, my0, nty, NC);
+  const int ns = gr.ns;
+  for (int base = nown + 32 * warp; base < ns; base += 32 * nwarps) {
+    const Slot sl = slot_at(g, gr, base + lane, mx0, my0);
 #pragma unroll
-    for (int r = 0; r < 8; r++) {
-      int dq = (int)blk[r * 8 + col] * qimg[c * 64 + r * 8 + col];
-      x[r] = (long long)(int16_t)(uint16_t)(dq & 0xFFFF);
+    for (int j = 0; j < 8; j++) {
+      const int k = 4 * j + (lane >> 3);
+      const int blk = __shfl_sync(~0u, sl.blk, k);
+      if (base + k < ns)
+        cp_async16(slots + (base + k) * kSlot + (lane & 7) * 16,
+                   cimg + (size_t)blk * 64 + (lane & 7) * 8);
     }
-    idct8(x, o, 11);
-#pragma unroll
-    for (int r = 0; r < 8; r++)
-      ws[b * 64 + r * 8 + col] = (int32_t)clampll(o[r], -32768, 32767);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  // pass 2: one thread per (block, row), output saturated to 0..255
-  for (int item = threadIdx.x; item < nblk * 8; item += blockDim.x) {
-    int b = item >> 3, row = item & 7;
-    int c = g.nc - 1;
-    while (b < base[c]) c--;
-    int lb = b - base[c];
-    int lbx = lb % nx[c], lby = lb / nx[c];
-    int gbx = ox[c] + lbx, gby = oy[c] + lby;
-    if (gbx < 0 || gby < 0 || gbx >= g.bw[c] || gby >= g.bh[c]) continue;
-    long long x[8], o[8];
+  // The transforms, each warp on its own chunks of 8 slots with no block
+  // barrier. Pass 1 a lane per (slot, pair of columns): dequantize with the
+  // SIMD code's 16-bit wrap, the column pass, saturated to 16 bits, in
+  // place. Pass 2 a lane per (slot, row): the row pass, saturated to
+  // 0..255, into the component's plane (a halo block: only the row next to
+  // the tile, or only its edge sample of each row, into the border).
+  for (int chunk = warp; 8 * chunk < ns; chunk += nwarps) {
+    const Slot sl = slot_at(g, gr, 8 * chunk + (lane & 7), mx0, my0);
+    uint8_t* cs = slots + 8 * chunk * kSlot;
+    {
+      const int k = lane >> 2, p = lane & 3;
+      const int meta = __shfl_sync(~0u, sl.meta, k);
+      if (8 * chunk + k < ns) {
+        const int c = meta & 3, nr = (meta >> 2) & 3;
+        // the pair's two columns one after the other (16-bit stores leave
+        // the other column's half of each word as it was)
+        const uint32_t* words = (const uint32_t*)(cs + k * kSlot) + p;
+        const int32_t* q = qs + c * 64 + 2 * p;
+#pragma unroll 1
+        for (int half = 0; half < 2; half++) {
+          int16_t* col = (int16_t*)(cs + k * kSlot) + 2 * p + half;
+          uint32_t x[8];
 #pragma unroll
-    for (int k = 0; k < 8; k++) x[k] = ws[b * 64 + row * 8 + k];
-    idct8(x, o, 18);
-    uint8_t* dst = plane[c] + (lby * 8 + row) * (nx[c] * 8) + lbx * 8;
+          for (int r = 0; r < 8; r++)
+            x[r] = sext16((words[4 * r] >> (16 * half)) *
+                          (uint32_t)q[8 * r + half]);
+          if (nr == kEvery) {
+            uint32_t e[4], o[4];
+            idct_even(x[0], x[2], x[4], x[6], e);
+            idct_odd(x[1], x[3], x[5], x[7], o);
 #pragma unroll
-    for (int k = 0; k < 8; k++)
-      dst[k] = (uint8_t)(clampll(o[k], -128, 127) + 128);
-  }
-  __syncthreads();
-
-  // pixels: upsample (edges replicated by clamping to the real samples)
-  // and convert
-  const int tw = kTileMcu * 8 * g.hmax, th = kTileMcu * 8 * g.vmax;
-  const int px0 = blockIdx.x * tw, py0 = blockIdx.y * th;
-  uint8_t* oimg = out + (size_t)img * g.H * g.W * 3;
-  for (int p = threadIdx.x; p < tw * th; p += blockDim.x) {
-    int X = px0 + p % tw, Y = py0 + p / tw;
-    if (X >= g.W || Y >= g.H) continue;
-    int s[3];
-    for (int c = 0; c < g.nc; c++) {
-      const uint8_t* pl = plane[c];
-      const int pw = nx[c] * 8, sx0 = ox[c] * 8, sy0 = oy[c] * 8;
-      const int rx = g.hmax / g.h[c], ry = g.vmax / g.v[c];
-#define SAMPLE(yy, xx) ((int)pl[((yy) - sy0) * pw + ((xx) - sx0)])
-      if (rx == 1 && ry == 1) {
-        s[c] = SAMPLE(Y, X);
-      } else if (g.dw[c] <= 2) {              // libjpeg's box upsampling
-        s[c] = SAMPLE(Y / ry, X / rx);
-      } else {
-        const int xn = X >> 1, xodd = X & 1;
-        const int xf = clampi(xodd ? xn + 1 : xn - 1, 0, g.dw[c] - 1);
-        if (ry == 1) {                        // h2v1_fancy_upsample
-          s[c] = (3 * SAMPLE(Y, xn) + SAMPLE(Y, xf) + 1 + xodd) >> 2;
-        } else {                              // h2v2_fancy_upsample
-          const int yn = Y >> 1, yodd = Y & 1;
-          const int yf = clampi(yodd ? yn + 1 : yn - 1, 0, g.dh[c] - 1);
-          const int cn = 3 * SAMPLE(yn, xn) + SAMPLE(yf, xn);
-          const int cf = 3 * SAMPLE(yn, xf) + SAMPLE(yf, xf);
-          s[c] = (3 * cn + cf + 8 - xodd) >> 4;
+            for (int m = 0; m < 4; m++) {
+              col[8 * m] = (int16_t)sat16(descale<11>(e[m] + o[m]));
+              col[8 * (7 - m)] = (int16_t)sat16(descale<11>(e[m] - o[m]));
+            }
+          } else {
+            const bool last = nr == kLast;
+            col[8 * (last ? 7 : 0)] =
+                (int16_t)sat16(descale<11>(idct_edge(x, last)));
+          }
         }
       }
-#undef SAMPLE
     }
-    uint8_t* o = oimg + ((size_t)Y * g.W + X) * 3;
-    if (g.nc == 1) {
-      o[0] = o[1] = o[2] = (uint8_t)s[0];
-      continue;
+    __syncwarp();
+#pragma unroll 1
+    for (int j = 0; j < 2; j++) {
+      const int k = (lane >> 3) + 4 * j, r = lane & 7;
+      const int meta = __shfl_sync(~0u, sl.meta, k);
+      const int dsto = __shfl_sync(~0u, sl.dst, k);
+      const int nr = (meta >> 2) & 3, ncol = (meta >> 4) & 3;
+      if (8 * chunk + k >= ns ||
+          (nr != kEvery && r != (nr == kFirst ? 0 : 7)))
+        continue;
+      const uint4 wv = *(const uint4*)(cs + k * kSlot + r * 16);
+      const uint32_t xs[8] = {sext16(wv.x), hi16(wv.x), sext16(wv.y),
+                              hi16(wv.y), sext16(wv.z), hi16(wv.z),
+                              sext16(wv.w), hi16(wv.w)};
+      const int c = meta & 3;
+      const int at = dsto + r * g.pitch[c];
+      if (ncol == kEvery) {
+        uint32_t e[4], o[4];
+        idct_even(xs[0], xs[2], xs[4], xs[6], e);
+        idct_odd(xs[1], xs[3], xs[5], xs[7], o);
+        uint32_t v[8];
+#pragma unroll
+        for (int m = 0; m < 4; m++) {
+          v[m] = to_sample(descale<18>(e[m] + o[m]));
+          v[7 - m] = to_sample(descale<18>(e[m] - o[m]));
+        }
+        *(uint2*)(sm + at) =
+            make_uint2(v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24,
+                       v[4] | v[5] << 8 | v[6] << 16 | v[7] << 24);
+      } else {
+        const bool last = ncol == kLast;
+        sm[at + (last ? 7 : 0)] =
+            (uint8_t)to_sample(descale<18>(idct_edge(xs, last)));
+      }
     }
-    // jdcolor.c ycc_rgb_convert (SCALEBITS 16)
-    const int y = s[0], xcb = s[1] - 128, xcr = s[2] - 128;
-    const int r = y + ((91881 * xcr + 32768) >> 16);
-    const int gg = y + ((-22554 * xcb + 32768 - 46802 * xcr) >> 16);
-    const int b = y + ((116130 * xcb + 32768) >> 16);
-    o[0] = (uint8_t)clampi(r, 0, 255);
-    o[1] = (uint8_t)clampi(gg, 0, 255);
-    o[2] = (uint8_t)clampi(b, 0, 255);
+  }
+  __syncthreads();
+
+  // Edge replication: the plane's samples past the image's real ones (the
+  // left and top border at the image's edge, the column dw and the row dh)
+  // take the nearest real sample, as libjpeg's clamped neighbours do
+  bool fixed = false;
+#pragma unroll
+  for (int c = 1; c < NC; c++) {
+    if (!(g.upx[c] || g.upy[c])) continue;
+    const int ow = ntx * g.h[c] * 8, oh = 8 * nty * g.v[c];
+    const int pitch = g.pitch[c];
+    const int sx0 = mx0 * g.h[c] * 8, sy0 = my0 * g.v[c] * 8;
+    const int fl = g.upx[c] && sx0 == 0 ? -1 : -2;
+    const int fr = g.upx[c] && g.dw[c] - sx0 <= ow ? g.dw[c] - sx0 : -2;
+    const int ft = g.upy[c] && sy0 == 0 ? -1 : -2;
+    const int fb = g.upy[c] && g.dh[c] - sy0 <= oh ? g.dh[c] - sy0 : -2;
+    if (fl == -2 && fr == -2 && ft == -2 && fb == -2) continue;
+    fixed = true;
+    uint8_t* pl = sm + g.plane[c] + pitch + kPad;   // sample (0, 0)
+    const int ncols = 2 * (oh + 2);
+    for (int i = tid; i < ncols + 2 * (ow + 2); i += nt) {
+      int row, cc;
+      if (i < ncols) {
+        cc = (i & 1) ? fr : fl;
+        row = (i >> 1) - 1;
+        if (cc == -2) continue;
+      } else {
+        row = ((i - ncols) & 1) ? fb : ft;
+        cc = ((i - ncols) >> 1) - 1;
+        if (row == -2) continue;
+      }
+      const int sr = row == ft ? 0 : (row == fb ? fb - 1 : row);
+      const int sc = cc == fl ? 0 : (cc == fr ? fr - 1 : cc);
+      pl[row * pitch + cc] = pl[sr * pitch + sc];
+    }
+  }
+  if (fixed) __syncthreads();
+
+  // Pixels, a thread per 8 of a row: luma, the chroma upsampled, the colour
+  // conversion, 24 bytes into the tile's RGB rows
+  const int tw = ntx * 8 * g.hmax, th = 8 * nty * g.vmax;
+  const int X0 = mx0 * 8 * g.hmax, Y0 = my0 * 8 * g.vmax;
+  {
+    for (Walk it(tid, nt, tw >> 3); it.r < th; it.next()) {
+      const int yl = it.r, xl = it.c * 8;
+      if (Y0 + yl >= g.H || X0 + xl >= g.W) continue;
+      int y[8];
+      load8(sm + g.plane[0] + (yl + 1) * g.pitch[0] + kPad + xl, y);
+      uint32_t px[8];
+      if (NC == 1) {
+#pragma unroll
+        for (int k = 0; k < 8; k++) px[k] = (uint32_t)y[k] * 0x010101u;
+      } else {
+        int cb[8], cr[8];
+        upsample8<K1>(g, sm, 1, yl, xl, cb);
+        upsample8<K2>(g, sm, 2, yl, xl, cr);
+#pragma unroll
+        for (int k = 0; k < 8; k++) px[k] = ycc_rgb(y[k], cb[k], cr[k]);
+      }
+      uint2* st = (uint2*)(sm + g.stage + yl * g.stage_pitch + 3 * xl);
+      st[0] = make_uint2(__byte_perm(px[0], px[1], 0x4210),
+                         __byte_perm(px[1], px[2], 0x5421));
+      st[1] = make_uint2(__byte_perm(px[2], px[3], 0x6542),
+                         __byte_perm(px[4], px[5], 0x4210));
+      st[2] = make_uint2(__byte_perm(px[5], px[6], 0x5421),
+                         __byte_perm(px[6], px[7], 0x6542));
+    }
+  }
+  __syncthreads();
+
+  // The RGB rows to device memory: 16-byte stores on 16-byte boundaries
+  // (the staged bytes shifted into place), single bytes before the first
+  // boundary and after the last
+  {
+    const int rows = min(th, g.H - Y0), nbytes = min(tw, g.W - X0) * 3;
+    uint8_t* oimg = out + (size_t)img * g.H * g.W * 3;
+    for (Walk it(tid, nt, (nbytes >> 4) + 1); it.r < rows; it.next()) {
+      uint8_t* gd = oimg + ((size_t)(Y0 + it.r) * g.W + X0) * 3;
+      const uint8_t* sr = sm + g.stage + it.r * g.stage_pitch;
+      const int head =
+          min((int)((16 - ((uintptr_t)gd & 15)) & 15), nbytes);
+      const int body = (nbytes - head) >> 4;
+      if (it.c < body) {
+        const int so = head + 16 * it.c, sh = (so & 3) * 8;
+        const uint32_t* w = (const uint32_t*)(sr + (so & ~3));
+        uint4 v;
+        v.x = __funnelshift_r(w[0], w[1], sh);
+        v.y = __funnelshift_r(w[1], w[2], sh);
+        v.z = __funnelshift_r(w[2], w[3], sh);
+        v.w = __funnelshift_r(w[3], w[4], sh);
+        *(uint4*)(gd + so) = v;
+      } else if (it.c == body) {
+        for (int b = 0; b < head; b++) gd[b] = sr[b];
+        for (int b = head + 16 * body; b < nbytes; b++) gd[b] = sr[b];
+      }
+    }
   }
 }
 
@@ -642,47 +1016,127 @@ extern "C" int pvnet_png_unfilter(const uint8_t* raw, size_t n, int height,
 }
 
 #ifdef __CUDACC__
-// coef int16 [B, total, 64], qt int32 [B, nc, 64] -> out uint8
-// [B, H, W, 3], images of one geometry (nc 1 or 3; per component sampling
-// factors h_c, v_c with component 0 the largest and ratios 1x1, 2x1 or
-// 2x2, checked by the wrapper).
+namespace {
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// jpeg_pixels_kernel for the component count and the two chroma
+// components' upsampling
+const void* pick_kernel(int nc, int k1, int k2) {
+  static const void* const kKernels[9] = {
+      (const void*)jpeg_pixels_kernel<3, kNone, kNone>,
+      (const void*)jpeg_pixels_kernel<3, kNone, kH2V1>,
+      (const void*)jpeg_pixels_kernel<3, kNone, kH2V2>,
+      (const void*)jpeg_pixels_kernel<3, kH2V1, kNone>,
+      (const void*)jpeg_pixels_kernel<3, kH2V1, kH2V1>,
+      (const void*)jpeg_pixels_kernel<3, kH2V1, kH2V2>,
+      (const void*)jpeg_pixels_kernel<3, kH2V2, kNone>,
+      (const void*)jpeg_pixels_kernel<3, kH2V2, kH2V1>,
+      (const void*)jpeg_pixels_kernel<3, kH2V2, kH2V2>};
+  if (nc == 1) return (const void*)jpeg_pixels_kernel<1, kNone, kNone>;
+  return kKernels[3 * k1 + k2];
+}
+
+}  // namespace
+
+// coef int16 [B, total, 64] and qt int32 [B, nc, 64], both 16-byte
+// aligned -> out uint8 [B, H, W, 3], images of one geometry: nc 1 or 3,
+// component 0
+// with the largest sampling factors (at most 2), each other component's
+// ratio to it 1x1, 2x1 or 2x2. Returns cudaErrorInvalidValue for anything
+// else (and for B outside 1..65535), else the launch's error code.
+//
+// The launch plan (data/image_io.py's tile_blocks mirrors it): a tile is
+// tx = min(ceil(mcux / 8), 16) MCUs wide and ty MCU rows tall, ty 2, or 4
+// where that still leaves 8 x 132 blocks or more; a warp for each 8 slots
+// of the largest tile or each 32 groups of 8 pixels, whichever are more,
+// 2 to 16.
 extern "C" int pvnet_jpeg_pixels(const int16_t* coef, const int32_t* qt,
                                  uint8_t* out, int B, int H, int W, int nc,
                                  int h0, int v0, int h1, int v1, int h2,
                                  int v2, cudaStream_t stream) {
-  Geo g;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 65535 || H < 1 || W < 1 || (nc != 1 && nc != 3))
+    return bad;
+  Geo g = {};
   g.H = H;
   g.W = W;
-  g.nc = nc;
   const int hs[3] = {h0, h1, h2}, vs[3] = {v0, v1, v2};
   g.hmax = g.vmax = 1;
   for (int c = 0; c < nc; c++) {
+    if (hs[c] < 1 || vs[c] < 1) return bad;
     g.h[c] = hs[c];
     g.v[c] = vs[c];
     g.hmax = hs[c] > g.hmax ? hs[c] : g.hmax;
     g.vmax = vs[c] > g.vmax ? vs[c] : g.vmax;
   }
-  if (g.hmax > 2 || g.vmax > 2) return (int)cudaErrorInvalidValue;
-  const int mcux = (W + 8 * g.hmax - 1) / (8 * g.hmax);
+  if (g.h[0] != g.hmax || g.v[0] != g.vmax || g.hmax > 2 || g.vmax > 2)
+    return bad;
+  g.mcux = (W + 8 * g.hmax - 1) / (8 * g.hmax);
   const int mcuy = (H + 8 * g.vmax - 1) / (8 * g.vmax);
-  int off = 0;
+  g.mcuy = mcuy;
+  int kind[3] = {kNone, kNone, kNone};
   for (int c = 0; c < nc; c++) {
-    g.bw[c] = mcux * g.h[c];
-    g.bh[c] = mcuy * g.v[c];
+    g.bw[c] = g.mcux * g.h[c];
     g.dw[c] = (W * g.h[c] + g.hmax - 1) / g.hmax;
     g.dh[c] = (H * g.v[c] + g.vmax - 1) / g.vmax;
-    g.off[c] = off;
-    off += g.bw[c] * g.bh[c];
+    g.off[c] = g.total;
+    g.total += g.bw[c] * mcuy * g.v[c];
+    const int rx = g.hmax / g.h[c], ry = g.vmax / g.v[c];
+    if (g.hmax % g.h[c] || g.vmax % g.v[c]) return bad;
+    if (rx == 2) kind[c] = ry == 1 ? kH2V1 : kH2V2;
+    else if (ry != 1) return bad;
+    g.box[c] = kind[c] != kNone && g.dw[c] <= 2;
+    g.upx[c] = kind[c] != kNone && !g.box[c];
+    g.upy[c] = kind[c] == kH2V2 && !g.box[c];
   }
-  g.total = off;
-  int nblk = 0;
-  for (int c = 0; c < nc; c++)
-    nblk += (kTileMcu * g.h[c] + (g.hmax > g.h[c] ? 2 : 0)) *
-            (kTileMcu * g.v[c] + (g.vmax > g.v[c] ? 2 : 0));
-  if (nblk > kMaxBlocks) return (int)cudaErrorInvalidValue;
-  dim3 grid((mcux + kTileMcu - 1) / kTileMcu, (mcuy + kTileMcu - 1) / kTileMcu,
-            B);
-  jpeg_pixels_kernel<<<grid, kThreads, 0, stream>>>(coef, qt, out, g);
+  g.tx = (g.mcux + kRowTiles - 1) / kRowTiles;
+  if (g.tx > kMaxTileMcus) g.tx = kMaxTileMcus;
+  const int gx = (g.mcux + g.tx - 1) / g.tx;
+  // MCU rows of a tile: kMinTileRows, doubled while kFillBlocks blocks or
+  // more remain (up to kMaxTileRows)
+  g.ty = kMinTileRows;
+  while (2 * g.ty <= kMaxTileRows &&
+         (long)gx * ((mcuy + 2 * g.ty - 1) / (2 * g.ty)) * B >= kFillBlocks)
+    g.ty *= 2;
+  // slots of the largest tile, halo columns and corners on both sides
+  int slots = 0;
+  for (int c = 0; c < nc; c++) {
+    const int own = g.tx * g.ty * g.h[c] * g.v[c];
+    const int cols = g.upx[c] ? 2 * g.ty * g.v[c] : 0;
+    const int edge = (g.upy[c] ? 2 * g.tx * g.h[c] : 0) +
+                     (g.upx[c] && g.upy[c] ? 4 : 0);
+    slots += own + cols + edge;
+  }
+  const int groups8 = 8 * g.ty * g.vmax * g.tx * g.hmax;   // groups of 8
+  int warps = (slots + 7) / 8 > (groups8 + 31) / 32 ? (slots + 7) / 8
+                                                    : (groups8 + 31) / 32;
+  warps = warps < 2 ? 2 : (warps > kMaxThreads / 32 ? kMaxThreads / 32 : warps);
+  const int threads = 32 * warps;
+  int at = round_up(nc * 64 * 4, 16);   // the tables
+  g.slots = at;
+  at += kSlot * 8 * ((slots + 7) / 8);
+  for (int c = 0; c < nc; c++) {
+    g.pitch[c] = round_up(kPad + g.tx * g.h[c] * 8 + 1, 8);
+    g.plane[c] = at;
+    at += round_up((8 * g.ty * g.v[c] + 2) * g.pitch[c], 16);
+  }
+  g.stage_pitch = round_up(3 * g.tx * 8 * g.hmax, 16) + 16;
+  g.stage = at;
+  at += 8 * g.ty * g.vmax * g.stage_pitch;
+  const int smem = at;
+
+  const void* fn = pick_kernel(nc, kind[1], kind[2]);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  void* args[] = {(void*)&coef, (void*)&qt, (void*)&out, (void*)&g};
+  err = cudaLaunchKernel(fn, dim3(gx, (mcuy + g.ty - 1) / g.ty, B),
+                         dim3(threads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

@@ -657,17 +657,49 @@ def _check_pixels(coef: torch.Tensor, qt: torch.Tensor,
     _check_sampling("jpeg_pixels", geo.h, geo.v)
 
 
-# csrc/jpeg_decode.cu: a thread block owns 4x4 MCUs and IDCTs them, with a
-# ring of one block around each upsampled component, into shared memory
-TILE_MCUS, MAX_TILE_BLOCKS = 4, 136
+# csrc/jpeg_decode.cu's launch plan: a tile (thread block) is min(ceil(mcux
+# / ROW_TILES), MAX_TILE_MCUS) MCUs wide and MIN_TILE_ROWS MCU rows tall,
+# doubled up to MAX_TILE_ROWS while FILL_BLOCKS blocks or more remain
+ROW_TILES, MAX_TILE_MCUS = 8, 16
+MIN_TILE_ROWS, MAX_TILE_ROWS = 2, 4
+FILL_BLOCKS = 8 * 132
+# the batch is a grid dimension of the launch
+MAX_BATCH = 65535
 
 
-def tile_blocks(geo: JpegGeometry) -> int:
-    """Blocks the kernel IDCTs for one tile of this geometry."""
+def tile_blocks(geo: JpegGeometry, batch: int = 1
+                ) -> Tuple[int, int, int, int]:
+    """8x8 blocks the kernel transforms for one image of this geometry in a
+    launch of ``batch`` images, as its launch plan lays the tiles out:
+    (own, row, column, corner). Own blocks in full; a row block (above or
+    below a tile, for h2v2 chroma) only the row next to the tile (8
+    one-output column transforms, one row transform); a column block (left
+    or right of a tile, for h2v1 and h2v2 chroma) its 8 column transforms
+    and one output of each row; a corner block one sample."""
     hmax, vmax = max(geo.h), max(geo.v)
-    return sum((TILE_MCUS * hc + (2 if hmax > hc else 0))
-               * (TILE_MCUS * vc + (2 if vmax > vc else 0))
-               for hc, vc in zip(geo.h, geo.v))
+    mcux = -(-geo.width // (8 * hmax))
+    mcuy = -(-geo.height // (8 * vmax))
+    tx = min(-(-mcux // ROW_TILES), MAX_TILE_MCUS)
+    tiles = -(-mcux // tx)
+    ty = MIN_TILE_ROWS
+    while (2 * ty <= MAX_TILE_ROWS
+           and tiles * -(-mcuy // (2 * ty)) * batch >= FILL_BLOCKS):
+        ty *= 2
+    rows = cols = corners = 0
+    for (hc, vc), (dh, dw) in zip(zip(geo.h, geo.v), geo.downsampled()):
+        upx = hmax // hc == 2 and dw > 2
+        upy = upx and vmax // vc == 2
+        for my0 in range(0, mcuy, ty):
+            nby = min(ty, mcuy - my0) * vc
+            for mx0 in range(0, mcux, tx):
+                nbx = min(tx, mcux - mx0) * hc
+                sx0, sy0 = 8 * mx0 * hc, 8 * my0 * vc
+                vert = (upy and sy0 > 0) + (upy and sy0 + 8 * nby < dh)
+                horiz = (upx and sx0 > 0) + (upx and sx0 + 8 * nbx < dw)
+                rows += vert * nbx
+                cols += horiz * nby
+                corners += vert * horiz
+    return geo.total_blocks(), rows, cols, corners
 
 
 def jpeg_pixels(coef: torch.Tensor, qt: torch.Tensor, geo: JpegGeometry,
@@ -695,16 +727,20 @@ def jpeg_pixels(coef: torch.Tensor, qt: torch.Tensor, geo: JpegGeometry,
         out.copy_(res)
         return out
     kernel_lib.check_device(coef)
-    if tile_blocks(geo) > MAX_TILE_BLOCKS:
-        raise ImageDecodeError(
-            f"sampling h={list(geo.h)} v={list(geo.v)}: a tile needs "
-            f"{tile_blocks(geo)} blocks, the kernel holds {MAX_TILE_BLOCKS}")
+    if B > MAX_BATCH:
+        raise ImageDecodeError(f"a batch of {B} images: the kernel takes at "
+                               f"most {MAX_BATCH}")
     if out is None:
         out = torch.empty(shape, dtype=torch.uint8, device=coef.device)
     if B == 0:
         return out
+    # the kernel copies both in 16-byte pieces
     coef = coef.contiguous()
+    if coef.data_ptr() % 16:
+        coef = coef.clone()
     qt = qt.to(torch.int32).contiguous()
+    if qt.data_ptr() % 16:
+        qt = qt.clone()
     h = list(geo.h) + [1] * (3 - geo.nc)
     v = list(geo.v) + [1] * (3 - geo.nc)
     kernel_lib.launch("pvnet_jpeg_pixels", coef.device, coef.data_ptr(),

@@ -1168,7 +1168,15 @@ _JPEG_GEOMETRIES = [(37, 53, (1, 1, 1), (1, 1, 1)),
                     (61, 83, (1,), (1,)),
                     (40, 72, (2, 2, 2), (1, 1, 1)),
                     (65, 130, (2, 1, 1), (2, 1, 1)),
-                    (480, 640, (2, 1, 1), (2, 1, 1))]
+                    (480, 640, (2, 1, 1), (2, 1, 1)),
+                    (481, 647, (2, 1, 1), (2, 1, 1)),
+                    (480, 640, (2, 1, 1), (1, 1, 1)),
+                    (480, 640, (1, 1, 1), (1, 1, 1)),
+                    (480, 640, (1,), (1,)),
+                    (32, 32, (2, 2, 2), (2, 2, 2)),
+                    (33, 47, (2, 1, 2), (2, 1, 2)),
+                    (24, 2100, (2, 1, 1), (2, 1, 1)),
+                    (17, 2100, (2, 1, 1), (1, 1, 1))]
 _MINI = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "linemod_mini")
 
@@ -1190,8 +1198,9 @@ def _coefficients(geo, b, extreme, seed):
 @pytest.mark.parametrize("extreme", [False, True])
 @pytest.mark.parametrize("h,w,hs,vs", _JPEG_GEOMETRIES)
 def test_jpeg_pixels_matches_plain(cuda, h, w, hs, vs, extreme):
-    """Every sampling the kernel takes, tiles cut by the image's edge,
-    planes 1 and 2 samples wide (libjpeg's box upsampling), b=3; with
+    """Every sampling the kernel takes, tiles cut by the image's edge
+    (481x647: the tile divides neither side), planes 1 and 2 samples wide
+    (libjpeg's box upsampling), tiles 16 MCUs wide (2100 wide), b=3; with
     extreme coefficients and 16-bit tables the dequantizing wrap and
     both saturations. Exact."""
     from pvnet_tpu_torch.data import image_io as IO
@@ -1208,12 +1217,64 @@ def test_jpeg_pixels_matches_plain(cuda, h, w, hs, vs, extreme):
     assert torch.equal(out.cpu(), want)
 
 
-def test_jpeg_pixels_refuses(cuda):
+@pytest.mark.parametrize("b", [1, 24])
+def test_jpeg_pixels_batch_sizes(cuda, b):
+    """480x640 4:2:0 at the serving route's one frame and the 24-frame
+    batch of the dataset reads, exact."""
     from pvnet_tpu_torch.data import image_io as IO
-    geo = IO.JpegGeometry(32, 32, (2, 2, 2), (2, 2, 2))   # 192 tile blocks
-    coef, qt = _coefficients(geo, 1, False, 0)
-    with pytest.raises(IO.ImageDecodeError, match="192 blocks"):
-        IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo)
+    geo = IO.JpegGeometry(480, 640, (2, 1, 1), (2, 1, 1))
+    coef, qt = _coefficients(geo, b, False, b)
+    got = IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo)
+    assert torch.equal(got.cpu(), IO.jpeg_pixels_plain(coef, qt, geo))
+
+
+@pytest.mark.parametrize("h,w,hs,vs", [(37, 53, (2, 1, 1), (2, 1, 1)),
+                                       (61, 83, (1,), (1,)),
+                                       (480, 640, (2, 1, 1), (2, 1, 1))])
+def test_jpeg_pixels_into_a_slice_at_an_offset(cuda, h, w, hs, vs):
+    """``out=`` a slice of a larger tensor, at batch offsets and at odd
+    byte offsets (the 16-byte stores' head and tail), and coefficients and
+    tables at addresses off 16 bytes: the bytes around the slice stay as
+    they were."""
+    from pvnet_tpu_torch.data import image_io as IO
+    geo = IO.JpegGeometry(h, w, hs, vs)
+    coef, qt = _coefficients(geo, 3, True, 5)
+    want = IO.jpeg_pixels_plain(coef, qt, geo)
+    big = torch.full((5, h, w, 3), 7, dtype=torch.uint8, device=cuda)
+    IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo, out=big[1:4])
+    assert torch.equal(big[1:4].cpu(), want)
+    assert (big[0] == 7).all() and (big[4] == 7).all()
+    n = want.numel()
+    for off in (1, 5, 13):
+        flat = torch.full((n + 32,), 7, dtype=torch.uint8, device=cuda)
+        c = torch.zeros(coef.numel() + 8, dtype=torch.int16, device=cuda)
+        c = c[off % 8:off % 8 + coef.numel()].view(coef.shape)
+        c.copy_(coef)
+        q = torch.zeros(qt.numel() + 4, dtype=torch.int32, device=cuda)
+        q = q[off % 4:off % 4 + qt.numel()].view(qt.shape)
+        q.copy_(qt)
+        IO.jpeg_pixels(c, q, geo, out=flat[off:off + n].view(want.shape))
+        assert torch.equal(flat[off:off + n].view(want.shape).cpu(), want)
+        assert (flat[:off] == 7).all() and (flat[off + n:] == 7).all()
+
+
+def test_jpeg_pixels_refuses(cuda):
+    """What the kernel does not take raises: a sampling outside 4:4:4,
+    4:2:2 and 4:2:0 (component 0 not the largest; a 1x2 ratio), a batch
+    past the grid's 65535, int32 coefficients, an ``out`` on the CPU."""
+    from pvnet_tpu_torch.data import image_io as IO
+    for hs, vs in (((1, 2, 1), (1, 1, 1)), ((2, 2, 1), (2, 1, 2))):
+        geo = IO.JpegGeometry(32, 32, hs, vs)
+        coef, qt = _coefficients(geo, 1, False, 0)
+        with pytest.raises(IO.ImageDecodeError, match="sampling|largest"):
+            IO.jpeg_pixels(coef.to(cuda), qt.to(cuda), geo)
+    geo = IO.JpegGeometry(8, 8, (1,), (1,))
+    coef = torch.zeros((IO.MAX_BATCH + 1, 1, 64), dtype=torch.int16,
+                       device=cuda)
+    qt = torch.ones((IO.MAX_BATCH + 1, 1, 64), dtype=torch.int32,
+                    device=cuda)
+    with pytest.raises(IO.ImageDecodeError, match="at most 65535"):
+        IO.jpeg_pixels(coef, qt, geo)
     geo = IO.JpegGeometry(16, 16, (1, 1, 1), (1, 1, 1))
     coef, qt = _coefficients(geo, 1, False, 0)
     with pytest.raises(TypeError):

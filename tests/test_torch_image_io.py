@@ -123,7 +123,7 @@ def test_coefficients_and_pixels_split(tmp_path):
         np.testing.assert_array_equal(out[k].numpy(), read_rgb_np(p))
     batch = IO.decode_rgb_batch(paths)
     assert torch.equal(batch, out)
-    assert IO.tile_blocks(geo) == 136
+    assert IO.tile_blocks(geo) == (90, 20, 48, 32)
 
 
 def _png(tmp_path, mode, seed):
