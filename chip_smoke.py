@@ -4,6 +4,7 @@
   python3 chip_smoke.py
 
 (``--parallel-worker OUT`` and ``--gloo-worker OUT`` are phase (q)'s ranks,
+``--spatial-worker OUT`` and ``--spatial-gloo-worker OUT`` phase (r)'s,
 started under torchrun by the script itself.)
 
 Phases, each of which fails the run (non-zero exit) on any error:
@@ -300,12 +301,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
     sharded requests' latency beside the unsharded ones' and each part's
     seconds, with the card's name and power limit. One card shows no
     scaling, and none is measured;
+(r) spatial partitioning (parallel/spatial.py), each part in processes
+    of its own under ``python -m torch.distributed.run``, requests of 4
+    images at 480x640 through make_spatial_pose_pipeline, f32 without
+    TF32, each draw from a generator seeded alike on every rank: (r1) a
+    world-size-1 NCCL group (a 1x1 mesh): 3 requests and one with
+    uncertainty, each equal to the unsharded pipeline bit for bit; (r2)
+    4 gloo ranks sharing the card, sp=4 (120 rows a rank): the same
+    requests and one under bf16 autocast; (r3) the same ranks as a 2x2
+    data x sp mesh, one request. Each rank launches K1 and K3 once a
+    request (twice with uncertainty). In (r2) and (r3) the fields
+    gathered from the ranks' slabs equal the unsharded forward's (masks
+    but for pixels whose unsharded logits tie within 1e-4, vertex within
+    1e-4 of its largest value; bf16: masks on >= 99.5 % of the pixels,
+    vertex within 5 % of its largest value), the poses and keypoints
+    equal the unsharded voting and PnP on those fields with the same
+    draws bit for bit, and the unsharded pipeline's (its own fields)
+    within the CPU tests' own-FCN pose tolerance. (r4) ``python -m pvnet_tpu_torch.envelope_study`` for 2
+    envelopes on the first 16 of (h)'s images written as a LINEMOD tree,
+    its rows printed beside the JAX reference's, a record. Prints each
+    part's latency beside the unsharded one's and the near-tie counts;
 (e) print the int8 route's JSON line and the kernels' (K1, K2, K3 and its
     bf16 mode with their cold times and (c)'s times at the variants'
     shapes; launches summed over the phases that drive their paths, (j)'s
     programs and server, (k), (l) and (m) included; the JPEG decoder's
-    pixel kernel from (m); (n)'s, (o)'s, (p)'s and (q)'s launches added to
-    each),
+    pixel kernel from (m); (n)'s, (o)'s, (p)'s, (q)'s and (r)'s launches
+    added to each),
     then,
     as the last line,
     {"ok": true, "device": {...}}.
@@ -4740,7 +4761,7 @@ def torchrun(args, nproc: int, tmp: str, timeout: float = Q_TIMEOUT):
                                    TMPDIR=tmp))
     if proc.returncode != 0:
         print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr)
-    assert proc.returncode == 0, f"(q) {' '.join(args[:2])} under torchrun " \
+    assert proc.returncode == 0, f"{' '.join(args[:2])} under torchrun " \
         f"exited {proc.returncode}"
     return proc, time.time() - t0
 
@@ -5055,13 +5076,355 @@ def run_parallel(dev, fixture, kernels):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase (r): spatial partitioning, one image's rows over an sp axis
+# ---------------------------------------------------------------------------
+
+R_BATCH = 4               # (r): images a request
+R_SP = 4                  # (r2): sp ranks sharing the card, 120 rows each
+R_DEVICE = "cuda:0"       # (r2), (r3): the device the gloo ranks share
+R_NEAR_TIE = 1e-4         # a mask pixel may differ from the unsharded one
+#                           where the unsharded logits tie within this
+R_ENVELOPES = "128,512"   # (r4): the envelope study's sweep
+R_ENV_FRAMES = 16         # (r4): the first frames of (h)'s split
+
+
+def spatial_check(model, x, pose, kps, mask, ver, draws, rows, pts, K,
+                  params, unc, bf16, exact):
+    """One sharded request on the main rank, against the unsharded forward
+    and pipeline on the whole batch with the same draws. ``mask`` and
+    ``ver`` are the fields gathered from every rank's slab, ``rows`` the
+    main rank's data group's rows of the batch.
+
+    ``exact`` (one shard): poses and keypoints equal the unsharded
+    pipeline's bit for bit. Otherwise: the group's poses and keypoints
+    equal, bit for bit, the unsharded voting and PnP on the gathered
+    fields with the same draws; in float32 the fields equal the unsharded
+    forward's (masks but for pixels whose unsharded logits tie within
+    R_NEAR_TIE; vertex within 1e-4 of the field's largest value: the
+    slabs' convolutions take other cuDNN algorithms than the whole
+    image's, 1.4e-4 apart at a largest value of 15.5 in float32 without
+    TF32),
+    and against the unsharded pipeline on its own fields the poses are
+    within tests/test_torch_pipeline.py's own-FCN 1 deg / 15 mm with 80 %
+    of the keypoints within 0.05 px (fields 1e-5 apart hand a few votes
+    to a neighbouring hypothesis, whose refined point can lie pixels
+    away; the largest distance is printed); bf16: masks equal on
+    >= 99.5 % of the pixels, vertex within 5 % of its largest value.
+    Returns the differences and the unsharded request's ms."""
+    import torch
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.ops.geometry import rotation_angle_deg
+    with torch.no_grad(), pl._bf16_autocast(x.device.type, bf16):
+        seg_r, ver_r = model(x.permute(0, 3, 1, 2).contiguous())
+    seg_r, ver_r = seg_r.float(), ver_r.float()
+    diff = mask != seg_r.argmax(1)
+    gap = (seg_r[:, 0] - seg_r[:, 1]).abs()
+    pts_t = torch.as_tensor(pts, device=x.device)
+    K_t = torch.as_tensor(K, device=x.device)
+    torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    est = pl.estimate_poses(model, x, pts_t, K_t, params, uncertainty=unc,
+                            fcn_bf16=bf16, **draws)
+    torch.cuda.synchronize(x.device)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    kp_err = (kps - est.kps).norm(dim=-1)
+    rot = rotation_angle_deg(pose[..., :3].double(),
+                             est.pose[..., :3].double())
+    row = {"mask_diffs": int(diff.sum()),
+           "near_ties": int((gap < R_NEAR_TIE).sum()),
+           "vertex_err": float((ver.float() - ver_r).abs().max()),
+           "vertex_max": float(ver_r.abs().max()),
+           "kp_px": float(kp_err.max()),
+           "kp_within_005": float((kp_err < 5e-2).float().mean()),
+           "rot_deg": float(rot.max()),
+           "t_mm": float((pose[..., 3] - est.pose[..., 3]).norm(dim=-1)
+                         .max()) * 1e3, "unsharded_ms": one_ms}
+    assert torch.isfinite(pose).all() and torch.isfinite(kps).all()
+    if exact:
+        assert torch.equal(pose, est.pose) and torch.equal(kps, est.kps), row
+        return row
+    d = {k: v[rows] for k, v in draws.items()}
+    m, v = mask[rows], ver[rows].float()
+    if unc:
+        kps_f, cov = pl.keypoints_with_covariance(
+            m, v, params, d["noise"], d["pair_u"], d["cov_noise"],
+            d["cov_pair_u"])
+    else:
+        kps_f = pl.keypoints_from_fields(m, v, params, d["noise"],
+                                         d["pair_u"])
+        cov = None
+    pose_f = pl.poses_from_keypoints(pts_t, kps_f, K_t, covar=cov)
+    assert torch.equal(kps[rows], kps_f) and torch.equal(pose[rows],
+                                                         pose_f), row
+    if bf16:
+        assert row["mask_diffs"] <= 5e-3 * mask.numel(), row
+        assert row["vertex_err"] <= 0.05 * row["vertex_max"], row
+    else:
+        assert bool((gap[diff] < R_NEAR_TIE).all()), row
+        assert row["vertex_err"] <= 1e-4 * row["vertex_max"], row
+        assert row["kp_within_005"] >= 0.8, row
+        assert row["rot_deg"] < 1.0 and row["t_mm"] < 15.0, row
+    return row
+
+
+def spatial_requests(world, smesh, fixture, variants):
+    """make_spatial_pose_pipeline over ``smesh`` on requests of R_BATCH
+    images at HxW, after a warm-up request: ``variants`` [(name,
+    uncertainty, bf16, requests)]. Each request's draws come from a
+    generator seeded alike on every rank; its latency (host clock, every
+    rank synchronized before it) and this rank's K1 / K3 launches (once a
+    request, twice with uncertainty); the fields gathered from the ranks'
+    slabs and the poses checked on the main rank (spatial_check). Returns
+    {name: {"sharded_ms", "checks", "launches"}}: on the main rank; the
+    launches summed over every rank."""
+    import torch
+    from pvnet_tpu_torch import infer
+    from pvnet_tpu_torch import pipeline as pl
+    from pvnet_tpu_torch.parallel import (all_gather_rows, all_reduce_sum,
+                                          barrier, make_spatial_field_fn,
+                                          make_spatial_pose_pipeline)
+    from pvnet_tpu_torch.parallel.spatial import gather_dim
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = smesh.device
+    model = infer.load_model(CKPT, VN, dev)
+    pts, K = fixture["points_3d"], fixture["K"]
+    params = pl.VoteParams()
+    exact = smesh.sp.size == 1 and smesh.data.size == 1
+    out = {}
+    for name, unc, bf16, n in variants:
+        run = make_spatial_pose_pipeline(smesh, model, pts, K, params,
+                                         uncertainty=unc, fcn_bf16=bf16)
+        fields = make_spatial_field_fn(smesh, model, fcn_bf16=bf16)
+        shapes = pl.draw_shapes(R_BATCH, H, W, params, unc, False)
+        ms, checks, counts = [], [], {}
+        for r in range(-1, n):                      # -1: a warm-up request
+            imgs, _ = request_images(fixture["images"], 60 + r)
+            x = pl.normalize_images(torch.from_numpy(imgs[:R_BATCH]).to(dev))
+            g = torch.Generator(device=dev).manual_seed(600 + r)
+            draws = pl.draw_votes(shapes, g)
+            barrier(world)
+            torch.cuda.synchronize(dev)
+            reset_all_counters()
+            t0 = time.perf_counter()
+            pose, kps = run(x, draws=draws)
+            torch.cuda.synchronize(dev)
+            t = (time.perf_counter() - t0) * 1e3
+            got = read_all_counters()
+            want = 2 if unc else 1
+            assert got["stratified_select_cmajor"] == want, (name, got)
+            assert got["count_inliers"] == want, (name, got)
+            mask, ver = fields(x)
+            mask = all_gather_rows(gather_dim(mask, smesh.sp, 1), smesh.data)
+            ver = all_gather_rows(gather_dim(ver, smesh.sp, 2), smesh.data)
+            if world.is_main:
+                row = spatial_check(model, x, pose, kps, mask, ver, draws,
+                                    smesh.data.rows(R_BATCH), pts, K,
+                                    params, unc, bf16, exact)
+            if r < 0:
+                continue
+            ms.append(t)
+            if world.is_main:
+                checks.append(row)
+            for k, v in got.items():
+                counts[k] = counts.get(k, 0) + v
+        names = sorted(counts)
+        total = all_reduce_sum(torch.tensor(
+            [float(counts[k]) for k in names], device=dev), world)
+        out[name] = {"sharded_ms": ms, "checks": checks, "launches": {
+            k: int(v) for k, v in zip(names, total.tolist())}}
+    return out
+
+
+def spatial_worker(out_path):
+    """(r1) in a process of its own under torchrun, world size 1: an NCCL
+    group on cuda:LOCAL_RANK, a 1x1 (data, sp) mesh; 3 requests and one
+    with uncertainty, each equal to the unsharded pipeline bit for bit."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.ops import kernel_lib
+    from pvnet_tpu_torch.parallel import init_process_group, make_spatial_mesh
+    t0 = time.time()
+    world = init_process_group("cuda")
+    assert world.group is not None and world.size == 1, world
+    assert torch.distributed.get_backend() == "nccl"
+    kernel_lib.library()
+    smesh = make_spatial_mesh(sp=1)
+    with np.load(FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    res = spatial_requests(world, smesh, fixture,
+                           [("plain", False, False, N_REQUESTS),
+                            ("uncertainty", True, False, 1)])
+    with open(out_path, "w") as f:
+        json.dump({"requests": res, "seconds": time.time() - t0}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spatial_gloo_worker(out_path):
+    """(r2), (r3): one of R_SP gloo ranks sharing R_DEVICE: sp=R_SP (H/R_SP
+    rows a rank), 3 f32 requests, one with uncertainty and one under bf16
+    autocast; then a 2x2 data x sp mesh of the same ranks, one request."""
+    import numpy as np
+    import torch
+    from pvnet_tpu_torch.ops import kernel_lib
+    from pvnet_tpu_torch.parallel import init_process_group, make_spatial_mesh
+    t0 = time.time()
+    world = init_process_group(R_DEVICE, backend="gloo")
+    assert world.size == R_SP and world.device == torch.device(R_DEVICE)
+    if world.device.type == "cuda":
+        kernel_lib.library()
+    with np.load(FIXTURE) as z:
+        fixture = {k: z[k] for k in z.files}
+    sp = make_spatial_mesh(sp=R_SP, device=R_DEVICE)
+    res = {"sp": spatial_requests(world, sp, fixture, [
+        ("plain", False, False, N_REQUESTS), ("uncertainty", True, False, 1),
+        ("bf16", False, True, 1)])}
+    mesh22 = make_spatial_mesh(sp=2, device=R_DEVICE)
+    assert (mesh22.data.size, mesh22.sp.size) == (2, 2)
+    res["2x2"] = spatial_requests(world, mesh22, fixture,
+                                  [("plain", False, False, 1)])
+    if world.is_main:
+        with open(out_path, "w") as f:
+            json.dump({"requests": res, "seconds": time.time() - t0}, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def print_spatial(tag, what, res):
+    for name, p in res.items():
+        c = p["checks"]
+        print(f"{tag} make_spatial_pose_pipeline, {what}, {name}: "
+              f"{len(p['sharded_ms'])} requests of {R_BATCH} at {H}x{W}; "
+              f"latency ms sharded {[round(x, 3) for x in p['sharded_ms']]}"
+              f", unsharded {[round(r['unsharded_ms'], 3) for r in c]}; "
+              f"mask pixels apart from the unsharded forward "
+              f"{[r['mask_diffs'] for r in c]} (unsharded logits within "
+              f"{R_NEAR_TIE} of a tie: {[r['near_ties'] for r in c]}); "
+              f"vertex err {[float('%.3g' % r['vertex_err']) for r in c]} "
+              f"(field max {max(r['vertex_max'] for r in c):.3f}); against "
+              f"the unsharded pipeline: keypoints within 0.05 px "
+              f"{[round(r['kp_within_005'], 3) for r in c]}, the farthest "
+              f"px {[float('%.3g' % r['kp_px']) for r in c]}, deg "
+              f"{[float('%.3g' % r['rot_deg']) for r in c]}, mm "
+              f"{[float('%.3g' % r['t_mm']) for r in c]}; launches on all "
+              f"ranks {p['launches']}; {SMI}", flush=True)
+
+
+def reference_rates(ref, split, n, mode="plain"):
+    """The JAX reference's seed-0 rates (2D projection < 5 px, ADD < 10 %
+    of the diameter, 5 cm 5 deg) over the first ``n`` of (h)'s images,
+    from its per-image errors."""
+    import numpy as np
+    e = {k: np.asarray(v[:n]) for k, v in
+         ref["runs"][mode][0]["per_image"].items()}
+    return (float((e["proj_px"] < 5).mean()),
+            float((e["add_m"] < 0.1 * float(split["diameter"])).mean()),
+            float(((e["trans_cm"] < 5) & (e["rot_deg"] < 5)).mean()))
+
+
+def spatial_envelope_study(dev, split, tmp, kernels):
+    """(r4) ``python -m pvnet_tpu_torch.envelope_study`` (in this process)
+    on a LINEMOD tree of the first R_ENV_FRAMES of (h)'s images (their
+    JPEG round trip, data/synthetic.write_linemod_views), f32, tail_depth
+    3, R_ENVELOPES: its rows beside the JAX reference's rates on those
+    images (raw renders, 512 hypotheses) as a record, not a gate."""
+    from pvnet_tpu_torch import envelope_study
+    from pvnet_tpu_torch.data.synthetic import write_linemod_views
+    import numpy as np
+    first = {k: split[k][:R_ENV_FRAMES] for k in ("images", "masks", "poses")}
+    # LineModImageDB reads frames 0..n-1: the images renumbered in order
+    first["index"] = np.arange(R_ENV_FRAMES)
+    root = os.path.join(tmp, "envelope")
+    t0 = time.time()
+    write_linemod_views(root, first, {"test": range(R_ENV_FRAMES)},
+                        device=dev)
+    write_s = time.time() - t0
+    with open(RECIPE) as f:
+        recipe = json.load(f)
+    recipe["bf16"] = False
+    recipe_path = os.path.join(tmp, "envelope_recipe.json")
+    with open(recipe_path, "w") as f:
+        json.dump(recipe, f)
+    reset_all_counters()
+    t0 = time.time()
+    out = run_quiet(envelope_study.main, [
+        "--cfg_file", recipe_path, "--data_dir", root, "--cls", "duck",
+        "--envelopes", R_ENVELOPES, "--weights", CKPT, "--tail_depth", "3",
+        "--num_threads", "4", "--device", str(dev)])
+    study_s = time.time() - t0
+    launches = read_all_counters()
+    add_launches(kernels, launches)
+    rows = [json.loads(line) for line in
+            out.partition("envelope sweep:")[2].splitlines()
+            if line.startswith("{")]
+    assert [r["hyp_num"] for r in rows] == [
+        int(n) for n in R_ENVELOPES.split(",")], out[-2000:]
+    with open(EVAL_REFERENCE) as f:
+        ref = json.load(f)
+    jax16 = reference_rates(ref, split, R_ENV_FRAMES)
+    jpeg = [[r[m] for m in ("proj", "add", "cm")]
+            for r in ref["runs_jpeg"]["plain"]]
+    print(f"(r4) envelope study, f32, tail_depth 3, on the first "
+          f"{R_ENV_FRAMES} of (h)'s images as JPEG frames (tree written in "
+          f"{write_s:.1f} s, the study {study_s:.1f} s): "
+          f"{json.dumps(rows)}; the JAX reference on the same images as raw "
+          f"renders (512 hypotheses, seed 0) proj/add/5cm5deg "
+          f"{[round(v, 4) for v in jax16]}, on the 64 JPEG frames over seeds "
+          f"0-2 {jpeg}; a record, not a gate; launches {launches}; {SMI}",
+          flush=True)
+
+
+def run_spatial(dev, fixture, kernels, split):
+    """Phase (r): (r1) the spatial pipeline in a world-1 NCCL group, (r2)
+    and (r3) R_SP gloo ranks sharing the card (sp=R_SP, then a 2x2 data x
+    sp mesh), (r4) the envelope study on (h)'s first images."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        out = os.path.join(tmp, "r1.json")
+        _, r1_s = torchrun([os.path.join(REPO, "chip_smoke.py"),
+                            "--spatial-worker", out], 1, tmp)
+        with open(out) as f:
+            r1 = json.load(f)
+        for p in r1["requests"].values():
+            add_launches(kernels, p["launches"])
+        print_spatial("(r1)", "NCCL world 1, a 1x1 mesh (equal to the "
+                      "unsharded pipeline bit for bit)", r1["requests"])
+        print(f"(r1) the worker took {r1['seconds']:.1f} s, the command "
+              f"{r1_s:.1f} s", flush=True)
+
+        out = os.path.join(tmp, "r2.json")
+        _, r2_s = torchrun([os.path.join(REPO, "chip_smoke.py"),
+                            "--spatial-gloo-worker", out], R_SP, tmp)
+        with open(out) as f:
+            r2 = json.load(f)
+        for part in r2["requests"].values():
+            for p in part.values():
+                add_launches(kernels, p["launches"])
+        gpu = torch.cuda.get_device_name(0)
+        print_spatial("(r2)", f"{R_SP} gloo ranks sharing {gpu}, sp={R_SP} "
+                      f"({H // R_SP} rows a rank)", r2["requests"]["sp"])
+        print_spatial("(r3)", f"{R_SP} gloo ranks sharing {gpu}, a 2x2 data "
+                      f"x sp mesh", r2["requests"]["2x2"])
+        print(f"(r2), (r3): the workers took {r2['seconds']:.1f} s, the "
+              f"command {r2_s:.1f} s; one card with gloo ranks stages every "
+              f"halo through the host: a record, not a speed figure",
+              flush=True)
+        spatial_envelope_study(dev, split, tmp, kernels)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
-    if len(sys.argv) == 3 and sys.argv[1] in ("--parallel-worker",
-                                              "--gloo-worker"):
-        sys.path.insert(0, REPO)         # (q)'s ranks under torchrun
-        return (parallel_worker if sys.argv[1] == "--parallel-worker"
-                else gloo_worker)(sys.argv[2])
+    workers = {"--parallel-worker": parallel_worker,
+               "--gloo-worker": gloo_worker,
+               "--spatial-worker": spatial_worker,
+               "--spatial-gloo-worker": spatial_gloo_worker}
+    if len(sys.argv) == 3 and sys.argv[1] in workers:
+        sys.path.insert(0, REPO)         # (q)'s and (r)'s ranks (torchrun)
+        return workers[sys.argv[1]](sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA card", file=sys.stderr)
@@ -5118,6 +5481,8 @@ def main() -> int:
     phase("(p) host-augmented training", run_host_route, dev, fixture,
           kernels)
     phase("(q) data parallelism", run_parallel, dev, fixture, kernels)
+    phase("(r) spatial partitioning", run_spatial, dev, fixture, kernels,
+          split)
     print("seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in seconds.items())
         + f"; whole run {time.time() - T_START:.1f}", flush=True)

@@ -2,6 +2,7 @@
 ported from pvnet_tpu/data/pose_transforms.py (ref
 lib/utils/base_utils.py:27-294): ``read_pose`` (:35), ``PoseTransformer``
 (:42; LINEMOD_ORIG -> blender and Occlusion LINEMOD -> blender frames),
+``PrinterAligner`` (:126; 3D-printed-object scans into the world frame),
 ``project_np`` and ``project_h_np`` (:164).
 
 One departure (ROADMAP D3): the JAX class caches each class's translation
@@ -127,6 +128,37 @@ class PoseTransformer:
         translation_transform[1:] *= -1
         tra += translation_transform
         return np.concatenate([rot, np.reshape(tra, [3, 1])], axis=-1)
+
+
+class PrinterAligner:
+    """3D-printed-object pose alignment (ref ModelAligner,
+    base_utils.py:33-85): maps printer-scan camera poses into the world
+    frame via the calibration transforms the reference hard-codes."""
+
+    # (ref base_utils.py:62-79)
+    _TRANSFORM1 = np.array(
+        [[0.161513626575, -0.827108919621, 0.538334608078, -0.245206743479],
+         [-0.986692547798, -0.124983474612, 0.104004733264, -0.050683632493],
+         [-0.018740313128, -0.547968924046, -0.836288750172, 0.387638419867]])
+    _TRANSFORM2 = np.array(
+        [[0.976471602917, 0.201606079936, -0.076541729271, -0.000718327821],
+         [-0.196746662259, 0.978194475174, 0.066531419754, 0.000077120210],
+         [0.088285841048, -0.049906700850, 0.994844079018, -0.001409600372]])
+
+    def __init__(self):
+        R1, t1 = self._TRANSFORM1[:, :3], self._TRANSFORM1[:, 3]
+        R2, t2 = self._TRANSFORM2[:, :3], self._TRANSFORM2[:, 3]
+        self.t_p2w = R2 @ t1 + t2
+        self.R_p2w = R2 @ R1
+        self.s_p2w = 0.85
+
+    def pose_p2w(self, RT: np.ndarray) -> np.ndarray:
+        """A printer-frame pose [3, 4] in the world frame
+        (ref base_utils.py:81-85)."""
+        t, R = RT[:, 3], RT[:, :3]
+        R_w2c = R @ self.R_p2w.T
+        t_w2c = -(R_w2c @ self.t_p2w) + self.s_p2w * t
+        return np.concatenate([R_w2c, t_w2c[:, None]], 1)
 
 
 def project_np(pts_3d: np.ndarray, RT: np.ndarray, K: np.ndarray

@@ -412,31 +412,12 @@ def _paint_all(jobs, workers: int) -> List[Tuple[np.ndarray, np.ndarray]]:
 _WRITE_CHUNK = 64
 
 
-def write_synthetic_linemod(root: str, cls_name: str = "duck",
-                            num_images: int = 20,
-                            image_hw: Tuple[int, int] = (480, 640),
-                            seed: int = 0, occluder_prob: float = 0.0,
-                            max_clutter: int = 0,
-                            n_distractor_meshes: int = 8, device="cpu",
-                            workers: int = 1) -> PathConfig:
-    """Write the JAX package's synthetic LINEMOD tree under ``root``, file
-    for file what pvnet_tpu/data/synthetic.py generate_synthetic_linemod
-    writes with the same arguments:
-
-      LINEMOD/{cls}/{cls}.ply, JPEGImages/{k:06}.jpg, mask/{k:04}.png,
-      train.txt / val.txt / test.txt;
-      LINEMOD_ORIG/{cls}/data/rot{k}.rot + tra{k}.tra, distance.txt,
-      mesh.ply.
-
-    One ``RandomState(seed)`` is drawn in the JAX order (distractor meshes,
-    then per image its pose, distractors and background). The views are
-    rasterized in ``workers`` processes; JPEGs are encoded on ``device``
-    (data/image_io: PIL's bytes), masks written as 8-bit PNGs of 0/255."""
+def _linemod_writer(root: str, cls_name: str, mesh: PlyMesh, device):
+    """Start a LINEMOD tree under ``root`` as the JAX generator writes it:
+    the class's meshes (``mesh`` in the blender frame) and distance file
+    now; returns (paths, the class directory, write(k, pose, rgb, mask) of
+    one view's files)."""
     from pvnet_tpu_torch.data.image_io import write_jpeg, write_png
-    rng = np.random.RandomState(seed)
-    dmeshes = [make_distractor_mesh(rng) for _ in range(n_distractor_meshes)] \
-        if (occluder_prob > 0 or max_clutter > 0) else []
-    h, w = image_hw
     paths = PathConfig(data_dir=root)
     cls_dir = os.path.join(paths.linemod_dir, cls_name)
     os.makedirs(os.path.join(cls_dir, "JPEGImages"), exist_ok=True)
@@ -444,7 +425,6 @@ def write_synthetic_linemod(root: str, cls_name: str = "duck",
     orig_dir = os.path.join(paths.linemod_orig_dir, cls_name)
     os.makedirs(os.path.join(orig_dir, "data"), exist_ok=True)
 
-    mesh = make_duck_mesh()
     save_ply_ascii(os.path.join(cls_dir, f"{cls_name}.ply"), mesh)
     # the LINEMOD_ORIG mesh in mm in the orig frame (orig = flip @
     # blender), so that the pose conversion round-trips
@@ -475,7 +455,43 @@ def write_synthetic_linemod(root: str, cls_name: str = "duck",
         with open(os.path.join(orig_dir, "data", f"tra{k}.tra"), "w") as f:
             f.write("1 3\n")
             f.write(" ".join(f"{v:.8f}" for v in t_o * 100.0) + "\n")
+    return paths, cls_dir, write
 
+
+def _write_lists(cls_dir: str, lists: Dict[str, Iterable[int]]) -> None:
+    """train.txt, val.txt and test.txt: the JPEG names of each list's
+    image numbers."""
+    for name in ("train", "val", "test"):
+        with open(os.path.join(cls_dir, f"{name}.txt"), "w") as f:
+            f.writelines(f"{k:06}.jpg\n" for k in lists.get(name, ()))
+
+
+def write_synthetic_linemod(root: str, cls_name: str = "duck",
+                            num_images: int = 20,
+                            image_hw: Tuple[int, int] = (480, 640),
+                            seed: int = 0, occluder_prob: float = 0.0,
+                            max_clutter: int = 0,
+                            n_distractor_meshes: int = 8, device="cpu",
+                            workers: int = 1) -> PathConfig:
+    """Write the JAX package's synthetic LINEMOD tree under ``root``, file
+    for file what pvnet_tpu/data/synthetic.py generate_synthetic_linemod
+    writes with the same arguments:
+
+      LINEMOD/{cls}/{cls}.ply, JPEGImages/{k:06}.jpg, mask/{k:04}.png,
+      train.txt / val.txt / test.txt;
+      LINEMOD_ORIG/{cls}/data/rot{k}.rot + tra{k}.tra, distance.txt,
+      mesh.ply.
+
+    One ``RandomState(seed)`` is drawn in the JAX order (distractor meshes,
+    then per image its pose, distractors and background). The views are
+    rasterized in ``workers`` processes; JPEGs are encoded on ``device``
+    (data/image_io: PIL's bytes), masks written as 8-bit PNGs of 0/255."""
+    rng = np.random.RandomState(seed)
+    dmeshes = [make_distractor_mesh(rng) for _ in range(n_distractor_meshes)] \
+        if (occluder_prob > 0 or max_clutter > 0) else []
+    h, w = image_hw
+    mesh = make_duck_mesh()
+    paths, cls_dir, write = _linemod_writer(root, cls_name, mesh, device)
     for k0 in range(0, num_images, _WRITE_CHUNK):
         jobs, poses = [], []
         for _ in range(k0, min(k0 + _WRITE_CHUNK, num_images)):
@@ -490,12 +506,25 @@ def write_synthetic_linemod(root: str, cls_name: str = "duck",
         with ThreadPoolExecutor(max(1, min(workers, len(views)))) as pool:
             list(pool.map(lambda i: write(k0 + i, poses[i], *views[i]),
                           range(len(views))))
+    _write_lists(cls_dir, split_indices(num_images))
+    return paths
 
-    names = [f"{k:06}.jpg" for k in range(num_images)]
-    lists = split_indices(num_images)
-    for name in ("train", "val", "test"):
-        with open(os.path.join(cls_dir, f"{name}.txt"), "w") as f:
-            f.writelines(names[i] + "\n" for i in lists[name])
+
+def write_linemod_views(root: str, split: Dict[str, np.ndarray],
+                        lists: Dict[str, Iterable[int]],
+                        cls_name: str = "duck", device="cpu") -> PathConfig:
+    """A LINEMOD tree, as :func:`write_synthetic_linemod` writes it, of
+    views already generated: ``split`` holds :func:`generate_synthetic_
+    linemod`'s images, masks, poses and their image numbers ``index``
+    (LineModImageDB reads frames 0..n-1 of a tree of n); ``lists`` the
+    image numbers of each list (train, val, test; a missing list is
+    written empty)."""
+    paths, cls_dir, write = _linemod_writer(root, cls_name,
+                                            make_duck_mesh(), device)
+    for k, pose, rgb, mask in zip(split["index"], split["poses"],
+                                  split["images"], split["masks"]):
+        write(int(k), pose, rgb, mask)
+    _write_lists(cls_dir, lists)
     return paths
 
 

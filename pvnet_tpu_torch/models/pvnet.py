@@ -70,11 +70,17 @@ def _fc_head(backbone: ResNetBackbone, fcdim: int, conv=nn.Conv2d) -> None:
 class _Backbone:
     """The backbone module of a model that names it after its depth
     (``resnet18_8s``, ``resnet34_8s``, ``resnet50_8s``), as the
-    reference's state_dicts do."""
+    reference's state_dicts do, and the decoder's upsample."""
 
     @property
     def backbone(self) -> ResNetBackbone:
         return getattr(self, f"{self.arch}_8s")
+
+    def upsample(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """The decoder's bilinear align-corners upsample to [h, w]: a
+        method, so that a row-sharded copy of the model
+        (parallel/spatial.py) can compute it from the global heights."""
+        return _upsample(x, h, w)
 
 
 class PVNet(_Backbone, nn.Module):
@@ -140,17 +146,17 @@ class PVNet(_Backbone, nn.Module):
         fm = self.conv8s(torch.cat([xfc, x8s], 1))
         if return_8s_features:
             return fm, x4s, x2s
-        fm = _upsample(fm, *x4s.shape[2:])
+        fm = self.upsample(fm, *x4s.shape[2:])
         fm = self.conv4s(torch.cat([fm, x4s], 1))
         if return_4s_features:
             return fm, x2s
-        fm = _upsample(fm, *x2s.shape[2:])
+        fm = self.upsample(fm, *x2s.shape[2:])
         fm = self.conv2s(torch.cat([fm, x2s], 1))
         if return_2s_features:
             return fm
         if x.shape[1] == 12:                    # packed image (packed4)
             x = depth_to_space2_cm(x)
-        fm = _upsample(fm, *x.shape[2:])
+        fm = self.upsample(fm, *x.shape[2:])
         out = self.convraw(torch.cat([fm, x], 1))
         return out[:, :self.seg_dim], out[:, self.seg_dim:]
 
@@ -197,9 +203,9 @@ class PVNet2o(_Backbone, nn.Module):
         x2s, x4s, x8s, _, x32s = self.backbone(x)
         xfc = self.backbone.fc(x32s)
         fm = self.conv8s(torch.cat([xfc, x8s], 1))
-        fm = _upsample(fm, *x4s.shape[2:])
+        fm = self.upsample(fm, *x4s.shape[2:])
         fm = self.conv4s(torch.cat([fm, x4s], 1))
-        fm = _upsample(fm, *x2s.shape[2:])
+        fm = self.upsample(fm, *x2s.shape[2:])
         out = self.conv2s(torch.cat([fm, x2s, downsample_bilinear_half(x)],
                                     1))
         return out[:, :self.seg_dim], out[:, self.seg_dim:]

@@ -126,6 +126,23 @@ def fold_conv7_to_packed4(w7: torch.Tensor) -> torch.Tensor:
     return w4
 
 
+class PadConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (no padding of its own) behind an explicit zero pad
+    ``pad`` = (left, right, top, bottom): the packed4 stem's asymmetric
+    (2, 1) padding held by the convolution module, where a row-sharded
+    copy of the model (parallel/spatial.py) reads it like any other
+    convolution's. Its parameters are ``nn.Conv2d``'s."""
+
+    def __init__(self, *args, pad=(0, 0, 0, 0), **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.padding != (0, 0):
+            raise ValueError("PadConv2d pads through ``pad`` only")
+        self.pad = tuple(pad)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(F.pad(x, self.pad))
+
+
 def init_weights(model: nn.Module, generator: torch.Generator = None
                  ) -> nn.Module:
     """Initialize as the JAX models do: every conv kernel He fan-out
@@ -220,7 +237,8 @@ class ResNetBackbone(nn.Module):
     downsample included, are QuantConv2d in ``quant_mode``: int8 in eval
     mode, float in training. The stem stays float.
     stem: 'conv7' (the reference's 7x7/2 convolution) or 'packed4' (a 4x4
-    convolution over 12 channels, padding (2, 1), on the packed image;
+    convolution over 12 channels, padding (2, 1) (:class:`PadConv2d`), on
+    the packed image;
     forward then also takes a packed [b, 12, h/2, w/2] input).
     """
 
@@ -234,7 +252,7 @@ class ResNetBackbone(nn.Module):
                              f"{stem!r}")
         self.stem = stem
         if stem == "packed4":
-            self.conv1 = nn.Conv2d(12, 64, 4, bias=False)
+            self.conv1 = PadConv2d(12, 64, 4, bias=False, pad=(2, 1, 2, 1))
         else:
             self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=_BN_EPS)
@@ -267,7 +285,6 @@ class ResNetBackbone(nn.Module):
         if self.stem == "packed4":
             if x.shape[1] != 12:
                 x = space_to_depth2_cm(x)
-            x = F.pad(x, (2, 1, 2, 1))
         x2s = self.relu(self.bn1(self.conv1(x)))
         x4s = self.layer1(self.maxpool(x2s))
         x8s = self.layer2(x4s)

@@ -167,16 +167,31 @@ class QuantConv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return super().forward(x)
+        return self.int8_conv(x, self.activation_scale(x), self.padding)
+
+    def activation_scale(self, x: torch.Tensor,
+                         reduce_max=None) -> torch.Tensor:
+        """The eval-mode activation scale of input ``x`` in this module's
+        mode (updating ``act_absmax`` when calibrating). ``reduce_max``,
+        where given, takes an absmax ([b] per image, or a scalar) to its
+        maximum over the other row shards of the same images
+        (parallel/spatial.py), so that a shard's scale is the image's."""
+        reduce_max = reduce_max or (lambda t: t)
         if self.mode == "calibrate":
-            amax = x.detach().float().abs().amax()
+            amax = reduce_max(x.detach().float().abs().amax())
             if self.act_absmax is not None:
                 amax = torch.maximum(self.act_absmax, amax)
             self.act_absmax = amax
         if self.mode == "dynamic" or self.act_absmax is None:
-            s_x = image_scale(x)
-        else:
-            s_x = _scale(self.act_absmax)
-        out = conv2d_int8(x, self.weight, self.stride, self.padding,
+            amax = reduce_max(x.float().abs().amax(dim=(1, 2, 3)))
+            return _scale(amax)[:, None, None, None]
+        return _scale(self.act_absmax)
+
+    def int8_conv(self, x: torch.Tensor, s_x: torch.Tensor,
+                  padding) -> torch.Tensor:
+        """The eval-mode convolution of ``x`` at activation scale ``s_x``
+        with zero ``padding`` (this module's own, or a row shard's)."""
+        out = conv2d_int8(x, self.weight, self.stride, padding,
                           self.dilation, s_x)
         if self.bias is not None:
             out = out + self.bias.float()[:, None, None]

@@ -9,9 +9,11 @@ GPUs, gloo between CPU processes (``mesh.init_process_group`` picks the
 backend from the device). Without a process group everything runs as one
 process of world size 1 and makes no collective call.
 
-``pvnet_tpu/parallel/spatial.py`` (one image's rows over a TPU slice,
-halo exchanges inserted by XLA's SPMD partitioner) is not ported: torch
-has no such partitioner, and one GPU shows nothing of it.
+Spatial partitioning (``spatial.py``, the port of
+``pvnet_tpu/parallel/spatial.py``) splits each image's rows over the
+ranks of an ``sp`` axis of a 2D ``(data, sp)`` mesh, with the halo
+exchanges that XLA's SPMD partitioner inserts for the JAX package written
+out for each convolution, max pool and upsample.
 """
 
 from pvnet_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -20,3 +22,6 @@ from pvnet_tpu_torch.parallel.mesh import (  # noqa: F401
     replicate, replicate_global, shard_batch, shard_batch_global)
 from pvnet_tpu_torch.parallel.sync_bn import (  # noqa: F401
     SyncBatchNorm2d, convert_sync)
+from pvnet_tpu_torch.parallel.spatial import (  # noqa: F401
+    SpatialMesh, make_spatial_field_fn, make_spatial_mesh,
+    make_spatial_pose_pipeline)

@@ -2,12 +2,14 @@
 the CPU, started by :func:`spawn` (tests/test_torch_parallel.py) with
 torchrun's environment. It never imports JAX.
 
-  python tests/_parallel_worker.py mesh|model INPUT.pt OUTPUT.pt
+  python tests/_parallel_worker.py mesh|model|spatial INPUT.pt OUTPUT.pt
 
 ``mesh``: the mesh helpers and the synchronized BatchNorm (any world
 size); ``model``: one sharded train step, one sharded step from a
 resident set with device augmentation, one sharded eval step and the
-sharded pose pipeline, each from the weights and draws in INPUT. Rank 0
+sharded pose pipeline, each from the weights and draws in INPUT;
+``spatial`` (4 ranks, tests/test_torch_spatial.py): the row-sharded
+fields and pose pipeline over sp=4 and on a 2x2 data x sp mesh. Rank 0
 writes OUTPUT; every failed check raises, so the process exits non-zero.
 """
 import os
@@ -236,6 +238,64 @@ def run_model(inp, mesh):
     return out
 
 
+def run_spatial(inp, mesh):
+    import torch
+    from pvnet_tpu_torch.infer import load_model
+    from pvnet_tpu_torch.models.pvnet import build_model
+    from pvnet_tpu_torch.models.resnet import fold_conv7_to_packed4
+    from pvnet_tpu_torch.parallel import (all_gather_rows,
+                                          make_spatial_field_fn,
+                                          make_spatial_mesh,
+                                          make_spatial_pose_pipeline)
+    from pvnet_tpu_torch.parallel.spatial import gather_dim
+    torch.set_num_threads(1)
+    assert mesh.size == 4
+    out = {}
+
+    def model_of(**kw):
+        model = build_model("resnet18_8s", ver_dim=18, **kw)
+        sd = dict(inp["sd"])
+        if kw.get("stem") == "packed4":
+            k = "resnet18_8s.conv1.weight"
+            sd[k] = fold_conv7_to_packed4(sd[k])
+        model.load_state_dict(sd)
+        return model.eval()
+
+    def fields(smesh, model, images):
+        """The whole batch's fields, gathered from every rank's slab."""
+        mask, ver = make_spatial_field_fn(smesh, model)(images)
+        assert mask.shape[1] * smesh.sp.size == images.shape[1]
+        return (all_gather_rows(gather_dim(mask, smesh.sp, 1), smesh.data),
+                all_gather_rows(gather_dim(ver, smesh.sp, 2), smesh.data))
+
+    sp4 = make_spatial_mesh(sp=4)             # one data group of 4 shards
+    mesh22 = make_spatial_mesh(sp=2)          # 2 data groups x 2 shards
+    assert (sp4.data.size, sp4.sp.size, sp4.sp.rank) == (1, 4, mesh.rank)
+    assert (mesh22.data.size, mesh22.sp.size) == (2, 2)
+    assert (mesh22.data.rank, mesh22.sp.rank) == divmod(mesh.rank, 2)
+    x64 = inp["images64"]
+    out["field64"] = fields(sp4, model_of(), x64)
+    out["packed64"] = fields(mesh22, model_of(stem="packed4"), x64)
+    # dynamic int8 (every stage and the decoder), and the same model
+    # unsharded on every rank
+    q = model_of(quant_stages=(0, 1, 2, 3), quant_decoder=True)
+    out["int8"] = fields(sp4, q, x64)
+    with torch.no_grad():
+        out["int8_one"] = q(x64.permute(0, 3, 1, 2).contiguous())
+    try:
+        make_spatial_field_fn(sp4, q)(torch.zeros(1, 72, 64, 3))
+        raise AssertionError("72 rows were split over 4 shards")
+    except ValueError as e:
+        out["refusal"] = str(e)
+    duck = load_model(inp["ckpt"], 9, "cpu")
+    out["field128"] = fields(mesh22, duck, inp["crop"])
+    for unc in (False, True):
+        run = make_spatial_pose_pipeline(mesh22, duck, inp["points_3d"],
+                                         inp["K"], uncertainty=unc)
+        out[f"pipeline_{unc}"] = run(inp["crop"], draws=inp[f"draws_{unc}"])
+    return out
+
+
 def main():
     import torch
     from pvnet_tpu_torch.parallel import init_process_group
@@ -243,7 +303,8 @@ def main():
     mesh = init_process_group("cpu")
     assert mesh.group is not None and mesh.device.type == "cpu"
     inp = torch.load(inp_path, weights_only=False)
-    out = {"mesh": run_mesh, "model": run_model}[mode](inp, mesh)
+    out = {"mesh": run_mesh, "model": run_model,
+           "spatial": run_spatial}[mode](inp, mesh)
     if mesh.is_main:
         torch.save(out, out_path)
     torch.distributed.destroy_process_group()

@@ -457,6 +457,10 @@ def test_port_imports_and_infers_without_jax(tmp_path):
         # the LINEMOD read path: the decoder, the databases, the loaders
         "import pvnet_tpu_torch.data.linemod, pvnet_tpu_torch.data.dataset\n"
         "import pvnet_tpu_torch.train.__main__\n"
+        # spatial partitioning, profiling, the side-experiment datasets
+        "import pvnet_tpu_torch.parallel.spatial\n"
+        "import pvnet_tpu_torch.utils.profiling\n"
+        "import pvnet_tpu_torch.data.experimental\n"
         "from pvnet_tpu_torch.data.image_io import read_mask, read_rgb\n"
         f"mini = {MINI_DUCK!r}\n"
         "assert read_rgb(mini + '/JPEGImages/000000.jpg').shape == "

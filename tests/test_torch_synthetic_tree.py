@@ -100,3 +100,28 @@ def test_tree_reads_back_as_jax(tmp_path):
         np.testing.assert_array_equal(s.rgb.numpy(), js.rgb)
         np.testing.assert_array_equal(s.mask, js.mask)
         np.testing.assert_allclose(s.hcoords, js.hcoords, rtol=1e-6)
+
+
+def test_views_of_a_generated_split_equal_the_whole_tree(tmp_path):
+    """write_linemod_views of generate_synthetic_linemod's images 1, 4, 6
+    (chip_smoke.py's envelope study writes phase (h)'s frames so) writes
+    those views' files as write_synthetic_linemod does, and the lists it is
+    given."""
+    kw = dict(num_images=N, image_hw=HW, occluder_prob=0.5, max_clutter=2)
+    whole = str(tmp_path / "whole")
+    TS.write_synthetic_linemod(whole, "duck", **kw)
+    split = TS.generate_synthetic_linemod(render=[6, 1, 4], **kw)
+    part = str(tmp_path / "part")
+    TS.write_linemod_views(part, split, {"test": [4, 1]})
+    want = chip_smoke.tree_digests(whole, "", JL.read_mask_np)
+    got = chip_smoke.tree_digests(part, "", JL.read_mask_np)
+    lists = {"LINEMOD/duck/train.txt", "LINEMOD/duck/val.txt",
+             "LINEMOD/duck/test.txt"}
+    for name, digest in got.items():
+        if name not in lists:
+            assert want[name] == digest, name
+    assert len(got) == 3 * 4 + 6
+    cls_dir = os.path.join(part, "LINEMOD", "duck")
+    assert open(os.path.join(cls_dir, "test.txt")).read() == \
+        "000004.jpg\n000001.jpg\n"
+    assert open(os.path.join(cls_dir, "train.txt")).read() == ""
