@@ -30,6 +30,7 @@ from pvnet_tpu_torch.ops.geometry import (inverse_rodrigues, pose_from_Rt,
                                           rodrigues_derivative,
                                           solve_spd_small)
 from pvnet_tpu_torch.ops.smalllinalg import eigh, inv3x3, so3_project
+from pvnet_tpu_torch.utils.profiling import annotate
 
 _PAIR_A = (0, 0, 0, 1, 1, 2)
 _PAIR_B = (1, 2, 3, 2, 3, 3)
@@ -220,64 +221,67 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
     Returns:
       [N, 3, 4] pose [R | t].
     """
-    N, n, _ = pts2d.shape
-    w = torch.ones_like(pts2d[..., 0]) if weights is None else weights
-    w = w / (w.amax(-1, keepdim=True) + 1e-12)
+    with annotate("pnp.epnp"):
+        N, n, _ = pts2d.shape
+        w = torch.ones_like(pts2d[..., 0]) if weights is None else weights
+        w = w / (w.amax(-1, keepdim=True) + 1e-12)
 
-    ctrl_w = _control_points(pts3d, w)                      # [N, 4, 3]
-    alphas = _barycentric(pts3d, ctrl_w)                    # [N, n, 4]
+        ctrl_w = _control_points(pts3d, w)                      # [N, 4, 3]
+        alphas = _barycentric(pts3d, ctrl_w)                    # [N, n, 4]
 
-    fx, fy, px, py = _intrinsics(K)
-    u, v = pts2d[..., 0], pts2d[..., 1]
-    zero = torch.zeros_like(u)
-    row_u = torch.stack([fx.expand_as(u), zero, px - u], dim=-1)  # [N, n, 3]
-    row_v = torch.stack([zero, fy.expand_as(v), py - v], dim=-1)
-    sw = torch.sqrt(w)[..., None]
-    Mu = (alphas[..., :, None] * row_u[..., None, :]).reshape(N, n, 12)
-    Mv = (alphas[..., :, None] * row_v[..., None, :]).reshape(N, n, 12)
-    M = torch.cat([Mu * sw, Mv * sw], dim=1)                # [N, 2n, 12]
-    _, evec = eigh(M.transpose(-1, -2) @ M)                 # ascending
-    V = evec[..., :4]                                       # null basis
+        fx, fy, px, py = _intrinsics(K)
+        u, v = pts2d[..., 0], pts2d[..., 1]
+        zero = torch.zeros_like(u)
+        # [N, n, 3]
+        row_u = torch.stack([fx.expand_as(u), zero, px - u], dim=-1)
+        row_v = torch.stack([zero, fy.expand_as(v), py - v], dim=-1)
+        sw = torch.sqrt(w)[..., None]
+        Mu = (alphas[..., :, None] * row_u[..., None, :]).reshape(N, n, 12)
+        Mv = (alphas[..., :, None] * row_v[..., None, :]).reshape(N, n, 12)
+        M = torch.cat([Mu * sw, Mv * sw], dim=1)                # [N, 2n, 12]
+        _, evec = eigh(M.transpose(-1, -2) @ M)                 # ascending
+        V = evec[..., :4]                                       # null basis
 
-    dist_w = _pairwise_dists(ctrl_w)                        # [N, 6]
+        dist_w = _pairwise_dists(ctrl_w)                        # [N, 6]
 
-    # One closed-form beta seed per null-basis vector, plus a mixed one:
-    # at n = 4/5 the whole 4-dim basis is near-null and which vector the
-    # eigendecomposition puts first is arbitrary, and the beta
-    # Gauss-Newton's basin depends on it. The reprojection argmin below
-    # arbitrates.
-    dv = _pairwise_dists(V.transpose(-1, -2).reshape(N, 4, 4, 3))  # [N, 4, 6]
-    b1 = (dv * dist_w[:, None]).sum(-1) / ((dv * dv).sum(-1) + 1e-12)
-    seeds = torch.diag_embed(b1)                            # [N, 4, 4]
-    mixed = torch.stack([b1[:, 0]] + [torch.full_like(b1[:, 0], 1e-2)] * 3,
-                        dim=-1)
-    seeds = torch.cat([seeds, mixed[:, None]], dim=1)       # [N, 5, 4]
-    S = seeds.shape[1]
+        # One closed-form beta seed per null-basis vector, plus a mixed one:
+        # at n = 4/5 the whole 4-dim basis is near-null and which vector the
+        # eigendecomposition puts first is arbitrary, and the beta
+        # Gauss-Newton's basin depends on it. The reprojection argmin below
+        # arbitrates.
+        dv = _pairwise_dists(                                   # [N, 4, 6]
+            V.transpose(-1, -2).reshape(N, 4, 4, 3))
+        b1 = (dv * dist_w[:, None]).sum(-1) / ((dv * dv).sum(-1) + 1e-12)
+        seeds = torch.diag_embed(b1)                            # [N, 4, 4]
+        mixed = torch.stack(
+            [b1[:, 0]] + [torch.full_like(b1[:, 0], 1e-2)] * 3, dim=-1)
+        seeds = torch.cat([seeds, mixed[:, None]], dim=1)       # [N, 5, 4]
+        S = seeds.shape[1]
 
-    Vs, dws, als, ws = (_repeat(x, S) for x in (V, dist_w, alphas, w))
-    beta = _betas_gauss_newton(Vs, dws, seeds.reshape(N * S, 4))
-    ctrl_c = (Vs @ beta[..., None]).reshape(N * S, 4, 3)
-    # enforce the rigid scale explicitly: Procrustes below is rotation +
-    # translation only, so a residual scale error would corrupt t
-    dc = _pairwise_dists(ctrl_c)
-    scale = (dc * dws).sum(-1) / ((dc * dc).sum(-1) + 1e-12)
-    ctrl_c = ctrl_c * scale[:, None, None]
-    # cheirality: weighted mean depth of the reconstructed points
-    depths = als @ ctrl_c[..., 2:3]                         # [N*S, n, 1]
-    sign = torch.where((depths[..., 0] * ws).sum(-1) < 0, -1.0, 1.0)
-    ctrl_c = ctrl_c * sign[:, None, None]
-    pts_cam = als @ ctrl_c                                  # [N*S, n, 3]
-    R, t = _procrustes(_repeat(pts3d, S), pts_cam, ws)
-    pose_seeds = pose_from_Rt(R, t).reshape(N, S, 3, 4)
+        Vs, dws, als, ws = (_repeat(x, S) for x in (V, dist_w, alphas, w))
+        beta = _betas_gauss_newton(Vs, dws, seeds.reshape(N * S, 4))
+        ctrl_c = (Vs @ beta[..., None]).reshape(N * S, 4, 3)
+        # enforce the rigid scale explicitly: Procrustes below is rotation +
+        # translation only, so a residual scale error would corrupt t
+        dc = _pairwise_dists(ctrl_c)
+        scale = (dc * dws).sum(-1) / ((dc * dc).sum(-1) + 1e-12)
+        ctrl_c = ctrl_c * scale[:, None, None]
+        # cheirality: weighted mean depth of the reconstructed points
+        depths = als @ ctrl_c[..., 2:3]                         # [N*S, n, 1]
+        sign = torch.where((depths[..., 0] * ws).sum(-1) < 0, -1.0, 1.0)
+        ctrl_c = ctrl_c * sign[:, None, None]
+        pts_cam = als @ ctrl_c                                  # [N*S, n, 3]
+        R, t = _procrustes(_repeat(pts3d, S), pts_cam, ws)
+        pose_seeds = pose_from_Rt(R, t).reshape(N, S, 3, 4)
 
-    pose_h = _homography_init(pts3d, pts2d, K, w)
-    cands = torch.cat([pose_seeds, pose_h[:, None]], dim=1)  # [N, 6, 3, 4]
-    err = project(pts3d[:, None], cands, K if K.ndim == 2 else K[:, None]) \
-        - pts2d[:, None]
-    costs = (w[:, None] * (err * err).sum(-1)).sum(-1)      # [N, 6]
-    costs = torch.where(torch.isnan(costs), torch.inf, costs)
-    best = torch.argmin(costs, dim=1)
-    return cands[torch.arange(N, device=cands.device), best]
+        pose_h = _homography_init(pts3d, pts2d, K, w)
+        cands = torch.cat([pose_seeds, pose_h[:, None]], dim=1)  # [N, 6, 3, 4]
+        err = project(pts3d[:, None], cands,
+                      K if K.ndim == 2 else K[:, None]) - pts2d[:, None]
+        costs = (w[:, None] * (err * err).sum(-1)).sum(-1)      # [N, 6]
+        costs = torch.where(torch.isnan(costs), torch.inf, costs)
+        best = torch.argmin(costs, dim=1)
+        return cands[torch.arange(N, device=cands.device), best]
 
 
 # ---------------------------------------------------------------------------
@@ -387,22 +391,23 @@ def _lm_multi_start(pose0: torch.Tensor, pts3d: torch.Tensor,
     Near-planar keypoint sets admit a two-fold pose ambiguity that traps a
     single start in the wrong basin; each flip keeps the centroid's camera
     position (t' = t + (R - R')c)."""
-    N = pose0.shape[0]
-    c = pts3d.mean(dim=1)                                   # [N, 3]
-    R0, t0 = pose0[:, :, :3], pose0[:, :, 3]
-    flips = torch.diag_embed(torch.tensor(
-        [[1.0, 1.0, 1.0], [1.0, -1.0, -1.0], [-1.0, 1.0, -1.0],
-         [-1.0, -1.0, 1.0]], dtype=pose0.dtype, device=pose0.device))
-    Rs = R0[:, None] @ flips                                # [N, 4, 3, 3]
-    ts = (t0 + (R0 @ c[..., None])[..., 0])[:, None] \
-        - (Rs @ c[:, None, :, None])[..., 0]                # [N, 4, 3]
-    cands = torch.cat([Rs, ts[..., None]], dim=-1).reshape(N * 4, 3, 4)
-    poses, costs = lm_refine(cands, _repeat(pts3d, 4), _repeat(pts2d, 4),
-                             K if K.ndim == 2 else _repeat(K, 4),
-                             _repeat(w3, 4), iters)
-    best = torch.argmin(costs.reshape(N, 4), dim=1)
-    return poses.reshape(N, 4, 3, 4)[torch.arange(N, device=poses.device),
-                                     best]
+    with annotate("pnp.lm"):
+        N = pose0.shape[0]
+        c = pts3d.mean(dim=1)                                   # [N, 3]
+        R0, t0 = pose0[:, :, :3], pose0[:, :, 3]
+        flips = torch.diag_embed(torch.tensor(
+            [[1.0, 1.0, 1.0], [1.0, -1.0, -1.0], [-1.0, 1.0, -1.0],
+             [-1.0, -1.0, 1.0]], dtype=pose0.dtype, device=pose0.device))
+        Rs = R0[:, None] @ flips                                # [N, 4, 3, 3]
+        ts = (t0 + (R0 @ c[..., None])[..., 0])[:, None] \
+            - (Rs @ c[:, None, :, None])[..., 0]                # [N, 4, 3]
+        cands = torch.cat([Rs, ts[..., None]], dim=-1).reshape(N * 4, 3, 4)
+        poses, costs = lm_refine(cands, _repeat(pts3d, 4), _repeat(pts2d, 4),
+                                 K if K.ndim == 2 else _repeat(K, 4),
+                                 _repeat(w3, 4), iters)
+        best = torch.argmin(costs.reshape(N, 4), dim=1)
+        return poses.reshape(N, 4, 3, 4)[torch.arange(N, device=poses.device),
+                                         best]
 
 
 def pnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,

@@ -49,6 +49,7 @@ from pvnet_tpu_torch.ops.geometry import solve_2x2
 from pvnet_tpu_torch.ops.select_kernel import (stratified_select,
                                                stratified_select_cmajor)
 from pvnet_tpu_torch.ops.smalllinalg import eigh_small
+from pvnet_tpu_torch.utils.profiling import annotate
 
 # Guard constants matching the CUDA kernels
 # (ref ransac_voting_kernel.cu:42,121).
@@ -715,6 +716,15 @@ def ransac_voting_v3_from_fg(fg: ForegroundSample, hyp_num: int = 1024,
     """v3 voting from a built foreground sample. [b, vn, 2]. ``impl``
     selects the count (:func:`count_inliers`); the refine is float32
     either way."""
+    with annotate("voting"):
+        return _vote_v3(fg, hyp_num, inlier_thresh, min_num, pair_u,
+                        generator, impl)
+
+
+def _vote_v3(fg: ForegroundSample, hyp_num: int, inlier_thresh: float,
+             min_num: int, pair_u: Optional[torch.Tensor],
+             generator: Optional[torch.Generator],
+             impl: Optional[str]) -> torch.Tensor:
     hyps = generate_hypotheses(fg, hyp_num, pair_u, generator)
     counts = count_inliers(fg, hyps, inlier_thresh, impl)   # [b, hn, vn]
     return vote_argmax_refine(fg, hyps, counts, inlier_thresh, min_num)
@@ -744,10 +754,11 @@ def ransac_voting_v3(mask: torch.Tensor, vertex: torch.Tensor,
     Returns:
       [b, vn, 2] voted keypoint locations.
     """
-    fg = sample_foreground(mask, vertex, max_num, noise, generator,
-                           select_method)
-    return ransac_voting_v3_from_fg(fg, hyp_num, inlier_thresh, min_num,
-                                    pair_u, generator, impl)
+    with annotate("voting"):
+        fg = sample_foreground(mask, vertex, max_num, noise, generator,
+                               select_method)
+        return _vote_v3(fg, hyp_num, inlier_thresh, min_num, pair_u,
+                        generator, impl)
 
 
 # ---------------------------------------------------------------------------

@@ -44,6 +44,7 @@ from pvnet_tpu_torch.ops import pnp as pnp_mod
 from pvnet_tpu_torch.ops import voting
 from pvnet_tpu_torch.ops.geometry import inv_sqrtm_2x2
 from pvnet_tpu_torch.parallel.mesh import Mesh, all_gather_rows
+from pvnet_tpu_torch.utils.profiling import annotate
 
 
 class VoteParams(NamedTuple):
@@ -114,8 +115,9 @@ def predict_fields(model: torch.nn.Module, image: torch.Tensor
     """FCN forward: normalized [b, h, w, 3] (or, for a packed4-stem model,
     packed [b, h/2, w/2, 12]) -> (argmax mask [b, h, w], channel-major
     vertex field [b, vn*2, h, w]) (ref train_linemod.py:99-102)."""
-    seg, ver = model(image.permute(0, 3, 1, 2).contiguous())
-    return torch.argmax(seg, dim=1), ver
+    with annotate("fcn"):
+        seg, ver = model(image.permute(0, 3, 1, 2).contiguous())
+        return torch.argmax(seg, dim=1), ver
 
 
 def keypoints_from_fields(mask: torch.Tensor, vertex: torch.Tensor,
@@ -163,13 +165,15 @@ def poses_from_keypoints(points_3d: torch.Tensor, kps_2d: torch.Tensor,
     selects the uncertainty-weighted solver, weighting each keypoint by
     covar^{-1/2}; keypoints whose covariance is degenerate (var_x < 1e-6)
     or NaN get weight 0."""
-    if covar is None:
-        return pnp_mod.pnp_batch(points_3d, kps_2d, K)
-    W = inv_sqrtm_2x2(covar)
-    bad = (covar[..., 0, 0] < 1e-6) | torch.isnan(covar).flatten(-2).any(-1)
-    W = torch.where(bad[..., None, None], 0.0, W)
-    w3 = torch.stack([W[..., 0, 0], W[..., 0, 1], W[..., 1, 1]], dim=-1)
-    return pnp_mod.uncertainty_pnp_batch(kps_2d, w3, points_3d, K)
+    with annotate("pnp"):
+        if covar is None:
+            return pnp_mod.pnp_batch(points_3d, kps_2d, K)
+        W = inv_sqrtm_2x2(covar)
+        bad = (covar[..., 0, 0] < 1e-6) \
+            | torch.isnan(covar).flatten(-2).any(-1)
+        W = torch.where(bad[..., None, None], 0.0, W)
+        w3 = torch.stack([W[..., 0, 0], W[..., 0, 1], W[..., 1, 1]], dim=-1)
+        return pnp_mod.uncertainty_pnp_batch(kps_2d, w3, points_3d, K)
 
 
 def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
@@ -192,24 +196,25 @@ def fused_tail_foreground(model: torch.nn.Module, image: torch.Tensor,
     convolutions when ``tail_quant`` (ops/packed_tail.py)."""
     if tail_depth not in (1, 2, 3):
         raise ValueError(f"tail_depth must be 1, 2 or 3; got {tail_depth}")
-    x = image.permute(0, 3, 1, 2).contiguous()
-    features = {3: "return_8s_features", 2: "return_4s_features",
-                1: "return_2s_features"}[tail_depth]
-    with _bf16_autocast(x.device.type, fcn_bf16):
-        fm = model(x, **{features: True})
-    if tail_depth == 3:
-        fm8, x4s, x2s = fm
-        packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
-            model, fm8, x4s, x2s, x, dtype=dtype, quant=tail_quant)
-    elif tail_depth == 2:
-        fm4, x2s = fm
-        packed, fgcnt = packed_tail.packed_tail_deep_from_model(
-            model, fm4, x2s, x, dtype=dtype, quant=tail_quant)
-    else:
-        packed, fgcnt = packed_tail.packed_tail_from_model(
-            model, fm, x, dtype=dtype, quant=tail_quant)
-    return voting.sample_foreground_packed(packed, fgcnt, max_num, noise,
-                                           generator)
+    with annotate("fcn"):
+        x = image.permute(0, 3, 1, 2).contiguous()
+        features = {3: "return_8s_features", 2: "return_4s_features",
+                    1: "return_2s_features"}[tail_depth]
+        with _bf16_autocast(x.device.type, fcn_bf16):
+            fm = model(x, **{features: True})
+        if tail_depth == 3:
+            fm8, x4s, x2s = fm
+            packed, fgcnt = packed_tail.packed_tail_deep3_from_model(
+                model, fm8, x4s, x2s, x, dtype=dtype, quant=tail_quant)
+        elif tail_depth == 2:
+            fm4, x2s = fm
+            packed, fgcnt = packed_tail.packed_tail_deep_from_model(
+                model, fm4, x2s, x, dtype=dtype, quant=tail_quant)
+        else:
+            packed, fgcnt = packed_tail.packed_tail_from_model(
+                model, fm, x, dtype=dtype, quant=tail_quant)
+        return voting.sample_foreground_packed(packed, fgcnt, max_num,
+                                               noise, generator)
 
 
 @_no_grad
@@ -296,12 +301,13 @@ def estimate_poses(model: torch.nn.Module, images: torch.Tensor,
     the voting, ``cov_pair_u`` for the covariance pass, and on the plain
     path, which samples the foreground a second time for it,
     ``cov_noise``."""
-    kps, cov, fg_pixels = estimate_keypoints(
-        model, images, params, noise, pair_u, generator, uncertainty,
-        fused_tail, tail_depth, tail_dtype, cov_pair_u, cov_noise, fcn_bf16,
-        impl, tail_quant, raw_uint8)
-    pose = poses_from_keypoints(points_3d, kps, K, covar=cov)
-    return PoseEstimate(pose, kps, fg_pixels)
+    with annotate("estimate"):
+        kps, cov, fg_pixels = estimate_keypoints(
+            model, images, params, noise, pair_u, generator, uncertainty,
+            fused_tail, tail_depth, tail_dtype, cov_pair_u, cov_noise,
+            fcn_bf16, impl, tail_quant, raw_uint8)
+        pose = poses_from_keypoints(points_3d, kps, K, covar=cov)
+        return PoseEstimate(pose, kps, fg_pixels)
 
 
 def draw_shapes(batch: int, height: int, width: int,

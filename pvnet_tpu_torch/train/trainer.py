@@ -40,6 +40,7 @@ from pvnet_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean,
                                            shard_batch)
 from pvnet_tpu_torch.parallel.sync_bn import convert_sync
 from pvnet_tpu_torch.train.loss import total_loss
+from pvnet_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -93,10 +94,11 @@ def apply_device_aug(batch: Dict[str, torch.Tensor], aug_cfg,
     if batch["hcoords"].dim() != 3:
         raise ValueError(f"device augmentation takes hcoords [b, k, 3], got "
                          f"{tuple(batch['hcoords'].shape)}")
-    image, mask, hcoords = augment_batch(
-        batch["image"], batch["mask"], batch["hcoords"], aug_hw, aug_cfg,
-        draws=draws, generator=generator)
-    return dict(batch, image=image, mask=mask, hcoords=hcoords)
+    with annotate("augment"):
+        image, mask, hcoords = augment_batch(
+            batch["image"], batch["mask"], batch["hcoords"], aug_hw, aug_cfg,
+            draws=draws, generator=generator)
+        return dict(batch, image=image, mask=mask, hcoords=hcoords)
 
 
 def batch_loss(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
@@ -176,16 +178,22 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     host-augmented batch through :func:`host_batch`, JAX's
     ``train_step(..., aug_cfg=None)``). After the step every parameter's
     ``.grad`` holds this step's gradient."""
-    if aug_cfg is not None:
-        batch = apply_device_aug(batch, aug_cfg, aug_hw, draws, generator)
-    state.model.train()
-    loss, metrics = batch_loss(forward_model or state.model, batch,
-                               vertex_loss_ratio, use_motion, bf16)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.optimizer.step()
-    state.step += 1
-    return metrics
+    with annotate("train.step"):
+        if aug_cfg is not None:
+            batch = apply_device_aug(batch, aug_cfg, aug_hw, draws,
+                                     generator)
+        state.model.train()
+        with annotate("train.forward"):
+            loss, metrics = batch_loss(forward_model or state.model, batch,
+                                       vertex_loss_ratio, use_motion, bf16)
+        with annotate("train.optimizer"):
+            state.optimizer.zero_grad(set_to_none=True)
+        with annotate("train.backward"):
+            loss.backward()
+        with annotate("train.optimizer"):
+            state.optimizer.step()
+        state.step += 1
+        return metrics
 
 
 def train_step_from_data(state: TrainState, data: Dict[str, torch.Tensor],

@@ -1381,3 +1381,37 @@ def test_synthetic_tree_on_the_card_equals_cpu(cuda, tmp_path, monkeypatch):
     for f in files:
         assert open(os.path.join(a, f), "rb").read() == \
             open(os.path.join(b, f), "rb").read(), f
+
+
+def test_pnp_host_syncs_are_counted(cuda):
+    """pipeline.poses_from_keypoints (pnp_batch inside the ``pnp`` span)
+    on the card, recorded: the same host synchronizations on every call,
+    counted on the innermost span (EPnP's linalg calls and the small
+    constant tensors it copies up, the LM's flip matrices, pnp's identity
+    weights), none shown as a warning, and the sync debug mode off again
+    after the span."""
+    import warnings
+
+    from pvnet_tpu_torch import pipeline as PL
+    from pvnet_tpu_torch.utils import profiling as TP
+    g = torch.Generator().manual_seed(0)
+    pts = (torch.randn(9, 3, generator=g) * 0.05).to(cuda)
+    K = torch.tensor([[572.4, 0.0, 325.3], [0.0, 573.6, 242.0],
+                      [0.0, 0.0, 1.0]]).to(cuda)
+    kps = (torch.rand(16, 9, 2, generator=g) * 400 + 100).to(cuda)
+    want = PL.poses_from_keypoints(pts, kps, K)
+    TP.RECORDER.drain()
+    with warnings.catch_warnings(record=True) as shown:
+        warnings.simplefilter("always")
+        with TP.recording():
+            got = [PL.poses_from_keypoints(pts, kps, K) for _ in range(2)]
+    assert not shown, [str(w.message) for w in shown]
+    assert torch.cuda.get_sync_debug_mode() == 0
+    for pose in got:
+        assert torch.equal(pose, want)
+    spans = TP.RECORDER.drain()
+    assert [s["name"] for s in spans] == ["pnp", "pnp.epnp", "pnp.lm"] * 2
+    syncs = [{s["name"]: s["counters"].get("host_syncs", 0)
+              for s in spans[k:k + 3]} for k in (0, 3)]
+    print("host_syncs by span:", syncs)
+    assert syncs[0] == syncs[1] == {"pnp": 1, "pnp.epnp": 19, "pnp.lm": 1}
