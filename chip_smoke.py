@@ -2033,11 +2033,12 @@ def preset_rates(dev, split):
 # the two artifacts of phase (j): their export flags, the pvnet_torch
 # operators their graphs must hold, and the kernel launches of one call
 ARTIFACTS = {
-    "A": (["--packed_stem", "--quant"], ["count_inliers", "select_nhwc"],
+    "A": (["--packed_stem", "--quant"],
+          ["count_inliers", "pnp_epnp", "pnp_lm", "select_nhwc"],
           {"stratified_select": 1, "stratified_select_cmajor": 0,
            "count_inliers": 1, "count_inliers_bf16": 0}),
     "B": (["--no-fused_tail", "--no-bf16", "--uncertainty"],
-          ["count_inliers", "select_cmajor"],
+          ["count_inliers", "pnp_epnp", "pnp_lm", "select_cmajor"],
           {"stratified_select": 0, "stratified_select_cmajor": 2,
            "count_inliers": 2, "count_inliers_bf16": 0}),
 }

@@ -10,11 +10,12 @@ Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` calls one on PyTorch's current
 stream and turns a non-zero code into an error.
 
-The selection and counting kernels (K1, K2, K3) are reached through
-registered operators of the :data:`NAMESPACE` namespace
-(``torch.ops.pvnet_torch.*``, defined in ops/select_kernel.py and
-ops/voting.py), so that ``torch.export`` can trace a pipeline that launches
-them; importing ``pvnet_tpu_torch.ops`` registers them.
+The selection and counting kernels (K1, K2, K3) and the PnP kernels are
+reached through registered operators of the :data:`NAMESPACE` namespace
+(``torch.ops.pvnet_torch.*``, defined in ops/select_kernel.py,
+ops/voting.py and ops/pnp.py), so that ``torch.export`` can trace a
+pipeline that launches them; importing ``pvnet_tpu_torch.ops`` registers
+them.
 """
 from __future__ import annotations
 
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "pvnet_shift_lanes": [_VP, _VP, _VP, _I, _I, _I, _VP],
     "pvnet_shift_sublanes": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "pvnet_jpeg_pixels": [_VP, _VP, _VP] + [_I] * 10 + [_VP],
+    "pvnet_pnp_epnp": [_VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I, _VP],
+    "pvnet_pnp_lm": [_VP, _VP, _I, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _VP],
     # host code of jpeg_decode.cu (no stream)
     "pvnet_jpeg_entropy_decode": [ctypes.c_char_p, ctypes.c_size_t, _VP, _I,
                                   _VP],
@@ -158,14 +161,15 @@ def launch_counters() -> dict:
     their launches in ``.launches`` (each adds one where it launches its
     kernel): K1 ``stratified_select_cmajor``, K2 ``stratified_select``, K3
     ``count_inliers`` and its bf16 mode ``count_inliers_bf16``, K4
-    ``shift_lanes``, K5 ``shift_sublanes``, and the JPEG decoder's pixel
-    stage ``jpeg_pixels``."""
+    ``shift_lanes``, K5 ``shift_sublanes``, the JPEG decoder's pixel
+    stage ``jpeg_pixels``, and PnP's ``epnp`` and ``lm_multi_start``."""
     from pvnet_tpu_torch.data import image_io
-    from pvnet_tpu_torch.ops import row_shift, select_kernel, voting
+    from pvnet_tpu_torch.ops import pnp, row_shift, select_kernel, voting
     fns = (select_kernel.stratified_select_cmajor,
            select_kernel.stratified_select, voting.count_inliers,
            voting.count_inliers_bf16, row_shift.shift_lanes,
-           row_shift.shift_sublanes, image_io.jpeg_pixels)
+           row_shift.shift_sublanes, image_io.jpeg_pixels, pnp.epnp,
+           pnp.lm_multi_start)
     return {fn.__name__: fn for fn in fns}
 
 

@@ -17,6 +17,14 @@ The LM residual matches the reference's Ceres cost
 Its Jacobian with respect to (angle-axis, t) is written out in closed form
 (:func:`_residuals_and_jacobian`): what ``jax.jacfwd`` computes in the
 reference, in plain tensor operations, so that ``torch.export`` traces it.
+
+EPnP and the multi-start LM are each one registered operator of the
+``pvnet_torch`` namespace (``pnp_epnp``, ``pnp_lm``): a CPU tensor runs the
+plain functions :func:`epnp_plain` and :func:`lm_multi_start_plain`, a CUDA
+tensor launches the hand-written kernel of csrc/pnp.cu (one launch per
+operator and call, counted in :func:`epnp`'s and :func:`lm_multi_start`'s
+``.launches``, no host synchronization) or raises. Every entry point below
+goes through the two operators.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from pvnet_tpu_torch.ops import kernel_lib
 from pvnet_tpu_torch.ops.geometry import (inverse_rodrigues, pose_from_Rt,
                                           project, rodrigues,
                                           rodrigues_derivative,
@@ -208,9 +217,10 @@ def _homography_init(pts3d: torch.Tensor, pts2d: torch.Tensor,
     return pose_from_Rt(R, t)
 
 
-def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
-         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """EPnP closed-form pose estimate, batched.
+def epnp_plain(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """EPnP closed-form pose estimate, batched, in plain tensor operations
+    (any device; :func:`epnp` takes it for CPU tensors).
 
     Args:
       pts3d: [N, n, 3] world points.
@@ -221,67 +231,66 @@ def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
     Returns:
       [N, 3, 4] pose [R | t].
     """
-    with annotate("pnp.epnp"):
-        N, n, _ = pts2d.shape
-        w = torch.ones_like(pts2d[..., 0]) if weights is None else weights
-        w = w / (w.amax(-1, keepdim=True) + 1e-12)
+    N, n, _ = pts2d.shape
+    w = torch.ones_like(pts2d[..., 0]) if weights is None else weights
+    w = w / (w.amax(-1, keepdim=True) + 1e-12)
 
-        ctrl_w = _control_points(pts3d, w)                      # [N, 4, 3]
-        alphas = _barycentric(pts3d, ctrl_w)                    # [N, n, 4]
+    ctrl_w = _control_points(pts3d, w)                      # [N, 4, 3]
+    alphas = _barycentric(pts3d, ctrl_w)                    # [N, n, 4]
 
-        fx, fy, px, py = _intrinsics(K)
-        u, v = pts2d[..., 0], pts2d[..., 1]
-        zero = torch.zeros_like(u)
-        # [N, n, 3]
-        row_u = torch.stack([fx.expand_as(u), zero, px - u], dim=-1)
-        row_v = torch.stack([zero, fy.expand_as(v), py - v], dim=-1)
-        sw = torch.sqrt(w)[..., None]
-        Mu = (alphas[..., :, None] * row_u[..., None, :]).reshape(N, n, 12)
-        Mv = (alphas[..., :, None] * row_v[..., None, :]).reshape(N, n, 12)
-        M = torch.cat([Mu * sw, Mv * sw], dim=1)                # [N, 2n, 12]
-        _, evec = eigh(M.transpose(-1, -2) @ M)                 # ascending
-        V = evec[..., :4]                                       # null basis
+    fx, fy, px, py = _intrinsics(K)
+    u, v = pts2d[..., 0], pts2d[..., 1]
+    zero = torch.zeros_like(u)
+    # [N, n, 3]
+    row_u = torch.stack([fx.expand_as(u), zero, px - u], dim=-1)
+    row_v = torch.stack([zero, fy.expand_as(v), py - v], dim=-1)
+    sw = torch.sqrt(w)[..., None]
+    Mu = (alphas[..., :, None] * row_u[..., None, :]).reshape(N, n, 12)
+    Mv = (alphas[..., :, None] * row_v[..., None, :]).reshape(N, n, 12)
+    M = torch.cat([Mu * sw, Mv * sw], dim=1)                # [N, 2n, 12]
+    _, evec = eigh(M.transpose(-1, -2) @ M)                 # ascending
+    V = evec[..., :4]                                       # null basis
 
-        dist_w = _pairwise_dists(ctrl_w)                        # [N, 6]
+    dist_w = _pairwise_dists(ctrl_w)                        # [N, 6]
 
-        # One closed-form beta seed per null-basis vector, plus a mixed one:
-        # at n = 4/5 the whole 4-dim basis is near-null and which vector the
-        # eigendecomposition puts first is arbitrary, and the beta
-        # Gauss-Newton's basin depends on it. The reprojection argmin below
-        # arbitrates.
-        dv = _pairwise_dists(                                   # [N, 4, 6]
-            V.transpose(-1, -2).reshape(N, 4, 4, 3))
-        b1 = (dv * dist_w[:, None]).sum(-1) / ((dv * dv).sum(-1) + 1e-12)
-        seeds = torch.diag_embed(b1)                            # [N, 4, 4]
-        mixed = torch.stack(
-            [b1[:, 0]] + [torch.full_like(b1[:, 0], 1e-2)] * 3, dim=-1)
-        seeds = torch.cat([seeds, mixed[:, None]], dim=1)       # [N, 5, 4]
-        S = seeds.shape[1]
+    # One closed-form beta seed per null-basis vector, plus a mixed one:
+    # at n = 4/5 the whole 4-dim basis is near-null and which vector the
+    # eigendecomposition puts first is arbitrary, and the beta
+    # Gauss-Newton's basin depends on it. The reprojection argmin below
+    # arbitrates.
+    dv = _pairwise_dists(                                   # [N, 4, 6]
+        V.transpose(-1, -2).reshape(N, 4, 4, 3))
+    b1 = (dv * dist_w[:, None]).sum(-1) / ((dv * dv).sum(-1) + 1e-12)
+    seeds = torch.diag_embed(b1)                            # [N, 4, 4]
+    mixed = torch.stack(
+        [b1[:, 0]] + [torch.full_like(b1[:, 0], 1e-2)] * 3, dim=-1)
+    seeds = torch.cat([seeds, mixed[:, None]], dim=1)       # [N, 5, 4]
+    S = seeds.shape[1]
 
-        Vs, dws, als, ws = (_repeat(x, S) for x in (V, dist_w, alphas, w))
-        beta = _betas_gauss_newton(Vs, dws, seeds.reshape(N * S, 4))
-        ctrl_c = (Vs @ beta[..., None]).reshape(N * S, 4, 3)
-        # enforce the rigid scale explicitly: Procrustes below is rotation +
-        # translation only, so a residual scale error would corrupt t
-        dc = _pairwise_dists(ctrl_c)
-        scale = (dc * dws).sum(-1) / ((dc * dc).sum(-1) + 1e-12)
-        ctrl_c = ctrl_c * scale[:, None, None]
-        # cheirality: weighted mean depth of the reconstructed points
-        depths = als @ ctrl_c[..., 2:3]                         # [N*S, n, 1]
-        sign = torch.where((depths[..., 0] * ws).sum(-1) < 0, -1.0, 1.0)
-        ctrl_c = ctrl_c * sign[:, None, None]
-        pts_cam = als @ ctrl_c                                  # [N*S, n, 3]
-        R, t = _procrustes(_repeat(pts3d, S), pts_cam, ws)
-        pose_seeds = pose_from_Rt(R, t).reshape(N, S, 3, 4)
+    Vs, dws, als, ws = (_repeat(x, S) for x in (V, dist_w, alphas, w))
+    beta = _betas_gauss_newton(Vs, dws, seeds.reshape(N * S, 4))
+    ctrl_c = (Vs @ beta[..., None]).reshape(N * S, 4, 3)
+    # enforce the rigid scale explicitly: Procrustes below is rotation +
+    # translation only, so a residual scale error would corrupt t
+    dc = _pairwise_dists(ctrl_c)
+    scale = (dc * dws).sum(-1) / ((dc * dc).sum(-1) + 1e-12)
+    ctrl_c = ctrl_c * scale[:, None, None]
+    # cheirality: weighted mean depth of the reconstructed points
+    depths = als @ ctrl_c[..., 2:3]                         # [N*S, n, 1]
+    sign = torch.where((depths[..., 0] * ws).sum(-1) < 0, -1.0, 1.0)
+    ctrl_c = ctrl_c * sign[:, None, None]
+    pts_cam = als @ ctrl_c                                  # [N*S, n, 3]
+    R, t = _procrustes(_repeat(pts3d, S), pts_cam, ws)
+    pose_seeds = pose_from_Rt(R, t).reshape(N, S, 3, 4)
 
-        pose_h = _homography_init(pts3d, pts2d, K, w)
-        cands = torch.cat([pose_seeds, pose_h[:, None]], dim=1)  # [N, 6, 3, 4]
-        err = project(pts3d[:, None], cands,
-                      K if K.ndim == 2 else K[:, None]) - pts2d[:, None]
-        costs = (w[:, None] * (err * err).sum(-1)).sum(-1)      # [N, 6]
-        costs = torch.where(torch.isnan(costs), torch.inf, costs)
-        best = torch.argmin(costs, dim=1)
-        return cands[torch.arange(N, device=cands.device), best]
+    pose_h = _homography_init(pts3d, pts2d, K, w)
+    cands = torch.cat([pose_seeds, pose_h[:, None]], dim=1)  # [N, 6, 3, 4]
+    err = project(pts3d[:, None], cands,
+                  K if K.ndim == 2 else K[:, None]) - pts2d[:, None]
+    costs = (w[:, None] * (err * err).sum(-1)).sum(-1)      # [N, 6]
+    costs = torch.where(torch.isnan(costs), torch.inf, costs)
+    best = torch.argmin(costs, dim=1)
+    return cands[torch.arange(N, device=cands.device), best]
 
 
 # ---------------------------------------------------------------------------
@@ -382,32 +391,193 @@ def lm_refine(pose0: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
     return pose_from_Rt(rodrigues(p[:, :3]), p[:, 3:]), cost
 
 
-def _lm_multi_start(pose0: torch.Tensor, pts3d: torch.Tensor,
-                    pts2d: torch.Tensor, K: torch.Tensor, w3: torch.Tensor,
-                    iters: int) -> torch.Tensor:
+def lm_multi_start_plain(pose0: torch.Tensor, pts3d: torch.Tensor,
+                         pts2d: torch.Tensor, K: torch.Tensor,
+                         w3: torch.Tensor, iters: int) -> torch.Tensor:
     """LM from the init plus three 180-degree flips about the object
-    centroid; keep the lowest-cost result per problem.
+    centroid; keep the lowest-cost result per problem. Plain tensor
+    operations (any device; :func:`lm_multi_start` takes it for CPU
+    tensors).
 
     Near-planar keypoint sets admit a two-fold pose ambiguity that traps a
     single start in the wrong basin; each flip keeps the centroid's camera
     position (t' = t + (R - R')c)."""
+    N = pose0.shape[0]
+    c = pts3d.mean(dim=1)                                   # [N, 3]
+    R0, t0 = pose0[:, :, :3], pose0[:, :, 3]
+    flips = torch.diag_embed(torch.tensor(
+        [[1.0, 1.0, 1.0], [1.0, -1.0, -1.0], [-1.0, 1.0, -1.0],
+         [-1.0, -1.0, 1.0]], dtype=pose0.dtype, device=pose0.device))
+    Rs = R0[:, None] @ flips                                # [N, 4, 3, 3]
+    ts = (t0 + (R0 @ c[..., None])[..., 0])[:, None] \
+        - (Rs @ c[:, None, :, None])[..., 0]                # [N, 4, 3]
+    cands = torch.cat([Rs, ts[..., None]], dim=-1).reshape(N * 4, 3, 4)
+    poses, costs = lm_refine(cands, _repeat(pts3d, 4), _repeat(pts2d, 4),
+                             K if K.ndim == 2 else _repeat(K, 4),
+                             _repeat(w3, 4), iters)
+    best = torch.argmin(costs.reshape(N, 4), dim=1)
+    return poses.reshape(N, 4, 3, 4)[torch.arange(N, device=poses.device),
+                                     best]
+
+
+def identity_w3(pts3d: torch.Tensor) -> torch.Tensor:
+    """The LM's identity weight rows (1, 0, 1) for every point of pts3d
+    [N, n, 3], as [N, n, 3] (a view of one host-made row)."""
+    return pts3d.new_tensor([1.0, 0.0, 1.0]).expand(pts3d.shape)
+
+
+# ---------------------------------------------------------------------------
+# The registered operators: the CPU implementation is the plain version, the
+# CUDA one launches the kernel of csrc/pnp.cu (counted on the wrapper's
+# ``.launches``) or raises, the fake one gives export's tracer the shape.
+# ---------------------------------------------------------------------------
+
+# points a problem the kernels take (csrc/pnp.cu: pnp::NMAX)
+KERNEL_MAX_POINTS = 32
+
+
+def _per_problem(t: torch.Tensor, N: int, shape) -> Tuple[torch.Tensor, int]:
+    """t broadcast to [N, *shape]: a tensor whose problem i starts i * stride
+    elements after its first, and that stride (0 where the batch shares one
+    contiguous block, as pnp_batch's keypoints and one K are)."""
+    t = t.expand(N, *shape)
+    if N == 0 or t.stride(0) == 0 and t.select(0, 0).is_contiguous():
+        return t, 0
+    return t.contiguous(), t.select(0, 0).numel()
+
+
+def _kernel_inputs(pts3d, pts2d, K, *rows):
+    """Check what the kernels take and lay it out for them: (pts3d, its
+    batch stride, pts2d, K, its batch stride, *rows contiguous or None)."""
+    tensors = [pts3d, pts2d, K] + [r for r in rows if r is not None]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("the PnP kernels take float32 tensors; got "
+                        f"{sorted({str(t.dtype) for t in tensors})}")
+    if any(t.device != pts2d.device for t in tensors):
+        raise ValueError("the PnP kernels' tensors must share one device")
+    N, n = pts2d.shape[:2]
+    if not 1 <= n <= KERNEL_MAX_POINTS:
+        raise ValueError(f"the PnP kernels take 1 to {KERNEL_MAX_POINTS} "
+                         f"points a problem; got {n}")
+    pts3d, s3 = _per_problem(pts3d, N, (n, 3))
+    K, sK = _per_problem(K, N, (3, 3))
+    return (pts3d, s3, pts2d.contiguous(), K, sK,
+            *(None if r is None else r.contiguous() for r in rows))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+@torch.library.custom_op(f"{kernel_lib.NAMESPACE}::pnp_epnp",
+                         mutates_args=(), device_types="cpu")
+def _epnp_op(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
+             weights: Optional[torch.Tensor]) -> torch.Tensor:
+    return epnp_plain(pts3d, pts2d, K, weights)
+
+
+@_epnp_op.register_kernel("cuda")
+def _epnp_cuda(pts3d, pts2d, K, weights):
+    pts3d, s3, pts2d, K, sK, weights = _kernel_inputs(pts3d, pts2d, K,
+                                                      weights)
+    N, n = pts2d.shape[:2]
+    out = pts2d.new_empty((N, 3, 4))
+    if N == 0:
+        return out
+    kernel_lib.launch("pvnet_pnp_epnp", pts2d.device, pts3d.data_ptr(), s3,
+                      pts2d.data_ptr(), K.data_ptr(), sK, _ptr(weights),
+                      out.data_ptr(), N, n)
+    epnp.launches += 1
+    return out
+
+
+@_epnp_op.register_fake
+def _epnp_fake(pts3d, pts2d, K, weights):
+    return pts2d.new_empty((pts2d.shape[0], 3, 4))
+
+
+@torch.library.custom_op(f"{kernel_lib.NAMESPACE}::pnp_lm",
+                         mutates_args=(), device_types="cpu")
+def _lm_op(pose0: torch.Tensor, pts3d: torch.Tensor, pts2d: torch.Tensor,
+           K: torch.Tensor, w3: Optional[torch.Tensor],
+           iters: int) -> torch.Tensor:
+    return lm_multi_start_plain(pose0, pts3d, pts2d, K,
+                                identity_w3(pts3d) if w3 is None else w3,
+                                iters)
+
+
+@_lm_op.register_kernel("cuda")
+def _lm_cuda(pose0, pts3d, pts2d, K, w3, iters):
+    pts3d, s3, pts2d, K, sK, w3, pose0 = _kernel_inputs(pts3d, pts2d, K, w3,
+                                                        pose0)
+    N, n = pts2d.shape[:2]
+    out = pose0.new_empty((N, 3, 4))
+    if N == 0:
+        return out
+    kernel_lib.launch("pvnet_pnp_lm", pose0.device, pose0.data_ptr(),
+                      pts3d.data_ptr(), s3, pts2d.data_ptr(), K.data_ptr(),
+                      sK, _ptr(w3), out.data_ptr(), N, n, iters)
+    lm_multi_start.launches += 1
+    return out
+
+
+@_lm_op.register_fake
+def _lm_fake(pose0, pts3d, pts2d, K, w3, iters):
+    return pose0.new_empty((pose0.shape[0], 3, 4))
+
+
+def _check_problems(pts3d, pts2d, K, **rows):
+    if pts2d.dim() != 3 or pts2d.shape[-1] != 2:
+        raise ValueError(f"pts2d must be [N, n, 2]; got {tuple(pts2d.shape)}")
+    N, n = pts2d.shape[:2]
+    shapes = {"pts3d": (pts3d, (N, n, 3)), **{
+        name: (t, (N, n, 3) if name == "w3" else
+               (N, 3, 4) if name == "pose0" else (N, n))
+        for name, t in rows.items() if t is not None}}
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {list(want)}; got "
+                             f"{tuple(t.shape)}")
+    if tuple(K.shape) not in ((3, 3), (N, 3, 3)):
+        raise ValueError(f"K must be [3, 3] or [{N}, 3, 3]; got "
+                         f"{tuple(K.shape)}")
+    kernel_lib.check_device(pts2d)
+
+
+def epnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
+         weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """EPnP closed-form pose estimate, batched (:func:`epnp_plain`'s
+    arguments and result: pts3d [N, n, 3], pts2d [N, n, 2], K [3, 3] or
+    [N, 3, 3], optional weights [N, n] -> [N, 3, 4]).
+
+    Calls the operator ``pvnet_torch::pnp_epnp``: a CPU tensor runs
+    :func:`epnp_plain`, a CUDA tensor launches the kernel (float32, n up to
+    :data:`KERNEL_MAX_POINTS`; counted in ``.launches``) or raises."""
+    _check_problems(pts3d, pts2d, K, weights=weights)
+    with annotate("pnp.epnp"):
+        return torch.ops.pvnet_torch.pnp_epnp(pts3d, pts2d, K, weights)
+
+
+epnp.launches = 0
+
+
+def lm_multi_start(pose0: torch.Tensor, pts3d: torch.Tensor,
+                   pts2d: torch.Tensor, K: torch.Tensor,
+                   w3: Optional[torch.Tensor], iters: int) -> torch.Tensor:
+    """:func:`lm_multi_start_plain` from pose0 [N, 3, 4]: 4 starts of
+    ``iters`` LM iterations each, weight rows w3 [N, n, 3] or None for the
+    identity (1, 0, 1); the lowest-cost pose [N, 3, 4].
+
+    Calls the operator ``pvnet_torch::pnp_lm``: a CPU tensor runs the plain
+    version, a CUDA tensor launches the kernel (as :func:`epnp`; counted in
+    ``.launches``) or raises."""
+    _check_problems(pts3d, pts2d, K, pose0=pose0, w3=w3)
     with annotate("pnp.lm"):
-        N = pose0.shape[0]
-        c = pts3d.mean(dim=1)                                   # [N, 3]
-        R0, t0 = pose0[:, :, :3], pose0[:, :, 3]
-        flips = torch.diag_embed(torch.tensor(
-            [[1.0, 1.0, 1.0], [1.0, -1.0, -1.0], [-1.0, 1.0, -1.0],
-             [-1.0, -1.0, 1.0]], dtype=pose0.dtype, device=pose0.device))
-        Rs = R0[:, None] @ flips                                # [N, 4, 3, 3]
-        ts = (t0 + (R0 @ c[..., None])[..., 0])[:, None] \
-            - (Rs @ c[:, None, :, None])[..., 0]                # [N, 4, 3]
-        cands = torch.cat([Rs, ts[..., None]], dim=-1).reshape(N * 4, 3, 4)
-        poses, costs = lm_refine(cands, _repeat(pts3d, 4), _repeat(pts2d, 4),
-                                 K if K.ndim == 2 else _repeat(K, 4),
-                                 _repeat(w3, 4), iters)
-        best = torch.argmin(costs.reshape(N, 4), dim=1)
-        return poses.reshape(N, 4, 3, 4)[torch.arange(N, device=poses.device),
-                                         best]
+        return torch.ops.pvnet_torch.pnp_lm(pose0, pts3d, pts2d, K, w3,
+                                            iters)
+
+
+lm_multi_start.launches = 0
 
 
 def pnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
@@ -417,9 +587,8 @@ def pnp(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
     pts3d [N, n, 3], pts2d [N, n, 2], K [3, 3] or [N, 3, 3] -> [N, 3, 4].
     Functional equivalent of the reference's ``pnp()``
     (cv2.SOLVEPNP_ITERATIVE)."""
-    w3 = pts3d.new_tensor([1.0, 0.0, 1.0]).expand(pts3d.shape)
     pose0 = epnp(pts3d, pts2d, K)
-    return _lm_multi_start(pose0, pts3d, pts2d, K, w3, iters)
+    return lm_multi_start(pose0, pts3d, pts2d, K, None, iters)
 
 
 def pnp_batch(pts3d: torch.Tensor, pts2d: torch.Tensor, K: torch.Tensor,
@@ -446,7 +615,7 @@ def uncertainty_pnp(pts2d: torch.Tensor, weights: torch.Tensor,
     Returns [N, 3, 4]: EPnP weighted by each matrix's trace, then the
     weighted multi-start LM."""
     pose0 = epnp(pts3d, pts2d, K, weights=weights[..., 0] + weights[..., 2])
-    return _lm_multi_start(pose0, pts3d, pts2d, K, weights, iters)
+    return lm_multi_start(pose0, pts3d, pts2d, K, weights, iters)
 
 
 def uncertainty_pnp_batch(pts2d: torch.Tensor, weights: torch.Tensor,
@@ -470,6 +639,16 @@ def uncertainty_pnp_v2(pts2d: torch.Tensor, covars: torch.Tensor,
 
     pts2d [N, n, 2], covars [N, n, 2, 2], pts3d [N, n, 3], K [3, 3] or
     [N, 3, 3] -> [N, 3, 4]."""
+    wscalar, w3 = covariance_weights(covars)
+    pose0 = epnp(pts3d, pts2d, K, weights=wscalar)
+    return lm_multi_start(pose0, pts3d, pts2d, K, w3, iters)
+
+
+def covariance_weights(covars: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`uncertainty_pnp_v2`'s weights of covariances [..., 2, 2]:
+    the scalar 1 / lambda_max (0 where var_x < 1e-5) [...] and its
+    isotropic weight rows (w, 0, w) [..., 3]."""
     a = covars[..., 0, 0]
     b = 0.5 * (covars[..., 0, 1] + covars[..., 1, 0])
     d = covars[..., 1, 1]
@@ -478,8 +657,7 @@ def uncertainty_pnp_v2(pts2d: torch.Tensor, covars: torch.Tensor,
     wscalar = torch.where(a < 1e-5, 0.0,
                           1.0 / torch.clamp(lam_max, min=1e-12))
     w3 = torch.stack([wscalar, torch.zeros_like(wscalar), wscalar], dim=-1)
-    pose0 = epnp(pts3d, pts2d, K, weights=wscalar)
-    return _lm_multi_start(pose0, pts3d, pts2d, K, w3, iters)
+    return wscalar, w3
 
 
 def uncertainty_pnp_v2_batch(pts2d: torch.Tensor, covars: torch.Tensor,

@@ -42,7 +42,7 @@ fcn                pipeline.predict_fields,
 voting             voting.ransac_voting_v3(_from_fg)
 pnp                pipeline.poses_from_keypoints
 pnp.epnp (pnp)     pnp.epnp
-pnp.lm (pnp)       pnp._lm_multi_start
+pnp.lm (pnp)       pnp.lm_multi_start
 augment            trainer.apply_device_aug
 train.step         trainer.train_step (in train_step_from_data
                    after the gather)

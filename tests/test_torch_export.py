@@ -37,8 +37,10 @@ SEED = 7
 CASES = {"plain": dict(fused_tail=False),
          "fused_uncertainty": dict(fused_tail=True, tail_depth=3,
                                    uncertainty=True)}
-OPERATORS = {"plain": ["count_inliers", "select_cmajor"],
-             "fused_uncertainty": ["count_inliers", "select_nhwc"]}
+OPERATORS = {"plain": ["count_inliers", "pnp_epnp", "pnp_lm",
+                       "select_cmajor"],
+             "fused_uncertainty": ["count_inliers", "pnp_epnp", "pnp_lm",
+                                   "select_nhwc"]}
 
 
 @pytest.fixture(scope="module")
@@ -92,11 +94,13 @@ def test_artifact_operators(artifacts, name):
     calls = {k: v for k, v in TE.graph_ops(art.program).items()
              if k.startswith("pvnet_torch.")}
     # one selection, one count; the plain path's covariance pass selects
-    # again, the fused one reuses its sample
+    # again, the fused one reuses its sample; one EPnP and one LM
+    pnp = {"pvnet_torch.pnp_epnp.default": 1, "pvnet_torch.pnp_lm.default": 1}
     want = {"plain": {"pvnet_torch.select_cmajor.default": 1,
-                      "pvnet_torch.count_inliers.default": 1},
+                      "pvnet_torch.count_inliers.default": 1, **pnp},
             "fused_uncertainty": {"pvnet_torch.select_nhwc.default": 1,
-                                  "pvnet_torch.count_inliers.default": 2}}
+                                  "pvnet_torch.count_inliers.default": 2,
+                                  **pnp}}
     assert calls == want[name]
 
 

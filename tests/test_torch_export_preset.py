@@ -49,7 +49,8 @@ def test_manifest(exported):
     assert m["tail_depth"] == 3 and not m["uncertainty"]
     assert m["quant_stages"] == [0, 1, 2, 3] and m["quant_mode"] == "static"
     assert m["draws"] == {"noise": [2, 32, 48], "pair_u": [2, 512, 2]}
-    assert m["custom_ops"] == ["count_inliers", "select_nhwc"]
+    assert m["custom_ops"] == ["count_inliers", "pnp_epnp", "pnp_lm",
+                               "select_nhwc"]
     with np.load(DEFAULT_OUT) as z:
         np.testing.assert_array_equal(np.float32(m["points_3d"]),
                                       z["points_3d"])
@@ -57,7 +58,8 @@ def test_manifest(exported):
 
 def test_operators_and_baked_scales(exported):
     _, art = exported
-    assert TE.custom_ops(art.program) == ["count_inliers", "select_nhwc"]
+    assert TE.custom_ops(art.program) == ["count_inliers", "pnp_epnp",
+                                          "pnp_lm", "select_nhwc"]
     model = TE.eager_model(art)
     convs = quant_conv.quant_convs(model)
     assert len(convs) == 19 and model.resnet18_8s.stem == "packed4"

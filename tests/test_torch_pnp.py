@@ -197,3 +197,57 @@ def test_uncertainty_pnp_batch_matches_jax(name):
     assert got.shape == (4, 3, 4) and np.isfinite(got).all()
     ang, trans = _pose_err(got, want)
     assert ang.max() < 0.5 and trans.max() < 5e-3, (ang, trans)
+
+
+# ---------------------------------------------------------------------------
+# the registered operators (pvnet_torch::pnp_epnp, pnp_lm) on CPU tensors
+# ---------------------------------------------------------------------------
+
+def _operator_case():
+    rng = np.random.RandomState(7)
+    pts3d, pts2d, _ = _case("noisy", rng, b=3)
+    w3 = rng.uniform(0.2, 2.0, (3, 9, 3)).astype(np.float32)
+    w3[..., 1] -= 1.1
+    w3[:, 2] = 0.0
+    return _t(pts3d), _t(pts2d), _t(LINEMOD_K), _t(w3)
+
+
+def test_pnp_operators_on_cpu_equal_the_plain_functions():
+    pts3d, pts2d, K, w3 = _operator_case()
+    pts = pts3d.expand(3, 9, 3)
+    Ks = K.expand(3, 3, 3).clone()
+    trace = w3[..., 0] + w3[..., 2]
+    for KK in (K, Ks):
+        pose0 = TP.epnp_plain(pts, pts2d, KK)
+        assert torch.equal(TP.epnp(pts, pts2d, KK), pose0)
+        assert torch.equal(TP.epnp(pts, pts2d, KK, trace),
+                           TP.epnp_plain(pts, pts2d, KK, trace))
+        plain = TP.lm_multi_start_plain(pose0, pts, pts2d, KK,
+                                        TP.identity_w3(pts), 16)
+        assert torch.equal(TP.lm_multi_start(pose0, pts, pts2d, KK, None, 16),
+                           plain)
+        assert torch.equal(TP.pnp_batch(pts3d, pts2d, KK), plain)
+        assert torch.equal(
+            TP.lm_multi_start(pose0, pts, pts2d, KK, w3, 16),
+            TP.lm_multi_start_plain(pose0, pts, pts2d, KK, w3, 16))
+    with pytest.raises(ValueError, match="pts3d"):
+        TP.epnp(pts[:, :8], pts2d, K)
+    with pytest.raises(ValueError, match="K must be"):
+        TP.pnp(pts, pts2d, K[None])
+
+
+def test_pnp_batch_exports_through_the_operators():
+    pts3d, pts2d, K, _ = _operator_case()
+
+    class Solve(torch.nn.Module):
+        def forward(self, pts3d, pts2d, K):
+            return TP.pnp_batch(pts3d, pts2d, K)
+
+    program = torch.export.export(Solve(), (pts3d, pts2d, K))
+    targets = {str(node.target) for node in program.graph.nodes
+               if node.op == "call_function"}
+    assert {"pvnet_torch.pnp_epnp.default",
+            "pvnet_torch.pnp_lm.default"} <= targets, targets
+    assert not any("linalg" in t for t in targets), targets
+    assert torch.equal(program.module()(pts3d, pts2d, K),
+                       TP.pnp_batch(pts3d, pts2d, K))
