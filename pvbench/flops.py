@@ -6,11 +6,13 @@ Peaks of one NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense, at the
 700 W limit): 67 TFLOP/s float32 outside the tensor cores, 495 TFLOP/s
 TF32, 989 TFLOP/s bfloat16; 3.35 TB/s of HBM3.
 
-- FCN: every convolution of PVNet's Resnet18_8s at the input's (h, w),
-  2 * c_in * c_out * k^2 FLOPs per output pixel (a multiply and an add),
-  the head's bias included; BatchNorm, activations, the upsamples and the
-  loss are elementwise and left out (under 1 % of the total). At 480x640
-  that is 144.88 GFLOP an image. A training step counts 3x the forward
+- FCN: every convolution of the configuration's network
+  (reference/fcn.py's description of its blocks, widths and skips) at
+  the input's (h, w), 2 * c_in * c_out * k^2 FLOPs per output pixel (a
+  multiply and an add), the head's bias included; BatchNorm,
+  activations, the upsamples and the loss are elementwise and left out
+  (under 1 % of the total). At 480x640 that is 144.88 GFLOP an image
+  through Resnet18_8s, 385.5 through Resnet50_8s. A training step counts 3x the forward
   (the backward's two products per convolution), not the recomputed work.
 - K3 ``count_inliers``: one (image, keypoint, hypothesis, pixel) pair is
   the inlier test dot = h.n - c.n, |d|^2 = |h|^2 - 2 h.c + |c|^2, then
@@ -29,69 +31,66 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+from pvbench.reference import fcn
+
 PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 K3_FLOPS_PER_PAIR = 13
-
-STAGES = ((2, 64, 1), (2, 128, 2), (2, 256, 2), (2, 512, 2))
 
 
 def _out(n: int, k: int, stride: int, pad: int, dil: int = 1) -> int:
     return (n + 2 * pad - dil * (k - 1) - 1) // stride + 1
 
 
-def fcn_convs(h: int, w: int, seg_dim: int = 2, ver_dim: int = 18,
-              fcdim: int = 256, s8dim: int = 128, s4dim: int = 64,
-              s2dim: int = 32, raw_dim: int = 32, output_stride: int = 8
+def fcn_convs(h: int, w: int, cfg: dict
               ) -> List[Tuple[str, int, int, int, int, int]]:
-    """(name, c_in, c_out, k, h_out, w_out) of every convolution."""
+    """(name, c_in, c_out, k, h_out, w_out) of every convolution of the
+    network that the configuration ``cfg`` describes (reference/fcn.py's
+    description: its blocks, widths and skips)."""
     convs = []
     h2, w2 = _out(h, 7, 2, 3), _out(w, 7, 2, 3)
     convs.append(("stem", 3, 64, 7, h2, w2))
     hc, wc = _out(h2, 3, 2, 1), _out(w2, 3, 2, 1)           # max pool
     skips = {}
-    cur, dil, cin = 4, 1, 64
-    for si, (n, planes, stride) in enumerate(STAGES):
-        if stride != 1:
-            if cur == output_stride:
-                dil *= stride
-                stride = 1
-            else:
-                cur *= stride
-        for i in range(n):
-            s = stride if i == 0 else 1
-            ho, wo = _out(hc, 3, s, dil, dil), _out(wc, 3, s, dil, dil)
-            name = f"layer{si + 1}.{i}"
-            convs.append((f"{name}.conv1", cin, planes, 3, ho, wo))
-            convs.append((f"{name}.conv2", planes, planes, 3, ho, wo))
-            if s != 1 or cin != planes:
-                convs.append((f"{name}.downsample", cin, planes, 1, ho, wo))
-            hc, wc, cin = ho, wo, planes
-        skips[si] = (hc, wc, planes)
+    for blk in fcn.blocks(cfg):
+        name = blk["name"].split(".", 1)[1]
+        cur = (hc, wc)
+        for conv, cin, cout, k, s, d in fcn.block_convs(cfg, blk):
+            src = (hc, wc) if conv == "downsample.0" else cur
+            pad = d if k == 3 else 0
+            out = (_out(src[0], k, s, pad, d), _out(src[1], k, s, pad, d))
+            label = "downsample" if conv == "downsample.0" else conv
+            convs.append((f"{name}.{label}", cin, cout, k, *out))
+            if conv != "downsample.0":
+                cur = out
+        hc, wc = cur
+        skips[blk["layer"]] = cur
     h8, w8 = hc, wc
-    convs.append(("fc", cin, fcdim, 3, h8, w8))
-    convs.append(("conv8s", fcdim + skips[1][2], s8dim, 3, h8, w8))
-    h4, w4, c4 = skips[0]
-    convs.append(("conv4s", s8dim + c4, s4dim, 3, h4, w4))
-    convs.append(("conv2s", s4dim + 64, s2dim, 3, h2, w2))
-    convs.append(("convraw", s2dim + 3, raw_dim, 3, h, w))
-    convs.append(("head", raw_dim, seg_dim + ver_dim, 1, h, w))
+    h4, w4 = skips["layer1"]
+    (_, c8, s8), (_, c4, s4), (_, c2, s2), (_, craw, raw) = fcn.decoder(cfg)
+    convs.append(("fc", fcn.blocks(cfg)[-1]["cout"], cfg["fcdim"], 3, h8,
+                  w8))
+    convs.append(("conv8s", c8, s8, 3, h8, w8))
+    convs.append(("conv4s", c4, s4, 3, h4, w4))
+    convs.append(("conv2s", c2, s2, 3, h2, w2))
+    convs.append(("convraw", craw, raw, 3, h, w))
+    convs.append(("head", raw, cfg["seg_dim"] + cfg["ver_dim"], 1, h, w))
     return convs
 
 
-def fcn_flops(h: int, w: int, **widths) -> float:
-    """Forward FLOPs of one image at (h, w)."""
+def fcn_flops(h: int, w: int, cfg: dict) -> float:
+    """Forward FLOPs of one image at (h, w) through ``cfg``'s network."""
     total = 0.0
-    for name, cin, cout, k, ho, wo in fcn_convs(h, w, **widths):
+    for name, cin, cout, k, ho, wo in fcn_convs(h, w, cfg):
         total += 2.0 * cin * cout * k * k * ho * wo
         if name == "head":
             total += cout * ho * wo                         # the bias
     return total
 
 
-def train_step_flops(h: int, w: int, batch: int, **widths) -> float:
+def train_step_flops(h: int, w: int, batch: int, cfg: dict) -> float:
     """A training step's FLOPs: forward and backward, 3x the forward."""
-    return 3.0 * batch * fcn_flops(h, w, **widths)
+    return 3.0 * batch * fcn_flops(h, w, cfg)
 
 
 def k3_work(b: int, vn: int, hn: int, tn: int) -> Tuple[float, float]:

@@ -1,5 +1,5 @@
 """Milliseconds a batch that the host spends in the Levenberg-Marquardt
-refine: the program's ``pnp.lm`` span (ops/pnp.py ``_lm_multi_start``, 4
+refine: the program's ``pnp.lm`` span (ops/pnp.py ``lm_multi_start``, 4
 starts of 16 iterations a problem) on the host clock, over the batches of
 ``estimate_poses`` in the stretch profiled with device activity alone,
 which slows the host less than the one with CPU activity. The span opens

@@ -26,11 +26,38 @@ from pvbench.reference import pnp as ref_pnp
 from pvbench.reference import voting as ref_voting
 
 WARM = 1 << 30          # the draws' index of the warm-up batch
+SEEDED = "seeded"       # a configuration's "weights" drawn from the seed
+CALIBRATION = 16        # frames of the seeded weights' BatchNorm pass
+WIDTHS = ("fcdim", "s8dim", "s4dim", "s2dim", "raw_dim")
 
 
 def set_precision(cfg: dict) -> None:
     torch.backends.cudnn.allow_tf32 = bool(cfg["tf32"])
     torch.backends.cuda.matmul.allow_tf32 = bool(cfg["tf32"])
+
+
+def widths(cfg: dict) -> dict:
+    """The configuration's head and decoder widths, as build_model takes
+    them."""
+    return {k: cfg[k] for k in WIDTHS}
+
+
+def load_by_name(model: torch.nn.Module, params: dict) -> None:
+    """Load ``params`` by name into ``model``: every tensor used, every
+    tensor but BatchNorm's step counters given."""
+    missing, unexpected = model.load_state_dict(params, strict=False)
+    if unexpected or any("num_batches_tracked" not in k for k in missing):
+        raise RuntimeError(f"weights do not fit the model: missing "
+                           f"{missing}, unexpected {unexpected}")
+
+
+def normalized(images_u8: torch.Tensor, device) -> torch.Tensor:
+    """uint8 [n, h, w, 3] -> the reference's ImageNet-normalized float32
+    [n, 3, h, w] on ``device``."""
+    mean = torch.tensor((0.485, 0.456, 0.406), device=device)
+    std = torch.tensor((0.229, 0.224, 0.225), device=device)
+    x = images_u8.to(device).float() / 255.0
+    return ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
 
 
 def unit_quartiles(ends) -> dict:
@@ -53,22 +80,55 @@ class Offline:
 
     # -- set-up ------------------------------------------------------------
     def load_program(self) -> None:
+        """The program's model from the configuration's checkpoint; seeded
+        weights come with the inputs (:meth:`load_inputs`)."""
         from pvnet_tpu_torch import infer
-        from pvnet_tpu_torch.config import TrainConfig
         set_precision(self.cfg)
         fx = inputs.fixture()
-        self.model = infer.load_model(
-            os.path.join(spec.ROOT, self.cfg["weights"]),
-            self.cfg["num_keypoints"], self.device,
-            TrainConfig(network=self.cfg["network"],
-                        bf16=self.cfg["fcn_bf16"]))
+        if self.cfg["weights"] != SEEDED:
+            self.model = infer.load_model(
+                os.path.join(spec.ROOT, self.cfg["weights"]),
+                self.cfg["num_keypoints"], self.device, self.train_config(),
+                **widths(self.cfg))
         self.pts = torch.as_tensor(fx["points_3d"], device=self.device)
         self.K = torch.as_tensor(fx["K"], device=self.device)
+
+    def train_config(self):
+        from pvnet_tpu_torch.config import TrainConfig
+        return TrainConfig(network=self.cfg["network"],
+                           bf16=self.cfg["fcn_bf16"])
 
     def load_inputs(self, seed: int) -> None:
         self.seed = seed
         self.pool = inputs.offline_pool(seed, self.mix, self.device)
         self.order = inputs.batch_order(seed, len(self.pool), 1 << 16)
+        if self.cfg["weights"] == SEEDED:
+            self.load_seeded(seed)
+
+    def load_seeded(self, seed: int) -> None:
+        """Seeded weights: the recipe's law over the configuration's
+        shapes (inputs.init_params), BatchNorm statistics from one float32
+        train-mode pass of the reference over the first ``CALIBRATION``
+        frames of the first pooled batch (reference/fcn.calibrate); the
+        program loads them by name (strict), and the reference keeps the
+        same tensors on the host."""
+        from pvnet_tpu_torch.config import model_kwargs
+        from pvnet_tpu_torch.models.pvnet import build_model
+        p = inputs.init_params(ref_fcn.conv_shapes(self.cfg),
+                               ref_fcn.bn_names(self.cfg), seed, self.device)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        ref_fcn.calibrate(p, normalized(self.pool[0][:CALIBRATION],
+                                        self.device), self.cfg)
+        set_precision(self.cfg)
+        self.model = None
+        model = build_model(self.cfg["network"],
+                            ver_dim=2 * self.cfg["num_keypoints"],
+                            seg_dim=2, **model_kwargs(self.train_config()),
+                            **widths(self.cfg))
+        load_by_name(model, p)
+        self.model = model.to(self.device).eval()
+        self.ref_params = {k: v.cpu() for k, v in p.items()}
 
     def draws(self, i: int):
         b, h, w = self.pool[0].shape[:3]
@@ -167,7 +227,7 @@ class Offline:
                 "idle_units": self.mix["idle_batches"],
                 "window_units": res["batches"],
                 "window_s": res["window_s"], "batches": res["batches"],
-                "batch": b, "fcn_flops": flops.fcn_flops(h, w),
+                "batch": b, "fcn_flops": flops.fcn_flops(h, w, self.cfg),
                 "fcn_peak": flops.PEAK_FLOPS[prec],
                 "f32_peak": flops.PEAK_FLOPS["float32"],
                 "vn": self.cfg["num_keypoints"], "vote": self.vote}
@@ -204,18 +264,19 @@ class Offline:
         lower-precision twin's, with its least-squares poses."""
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        p = ref_fcn.params_from_flax(msgpack.load(
-            os.path.join(spec.ROOT, self.cfg["weights"])), self.device)
+        if self.cfg["weights"] == SEEDED:
+            p = {k: v.to(self.device) for k, v in self.ref_params.items()}
+        else:
+            p = ref_fcn.params_from_flax(msgpack.load(
+                os.path.join(spec.ROOT, self.cfg["weights"])), self.device,
+                self.cfg)
         conv = lowp.CONTROLS[control] if control else \
             torch.nn.functional.conv2d
-        mean = torch.tensor((0.485, 0.456, 0.406), device=self.device)
-        std = torch.tensor((0.229, 0.224, 0.225), device=self.device)
         kps, fg = [], []
         with torch.no_grad():
             for s in range(0, len(images), block):
-                x = images[s:s + block].to(self.device).float() / 255.0
-                x = ((x - mean) / std).permute(0, 3, 1, 2).contiguous()
-                seg, ver = ref_fcn.forward(p, x, conv=conv)
+                x = normalized(images[s:s + block], self.device)
+                seg, ver = ref_fcn.forward(p, x, self.cfg, conv=conv)
                 k, f = ref_voting.vote(
                     seg.argmax(1), ver, noise[s:s + block].to(self.device),
                     pair_u[s:s + block].to(self.device), **self.vote)

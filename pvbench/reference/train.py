@@ -84,21 +84,23 @@ def trainable(params: Dict[str, torch.Tensor]) -> List[str]:
 
 def run(params: Dict[str, torch.Tensor], batches: List[dict], cfg: dict,
         conv: Callable = F.conv2d) -> dict:
-    """Train ``params`` (float32, modified in place) through ``batches``
-    (raw image, mask, hcoords, draws dict, out_hw each). Returns each
-    step's loss, each leaf's first gradient, and the parameters after
-    the last step."""
+    """Train ``params`` (float32, modified in place) of the network that
+    the configuration ``cfg`` describes (reference/fcn.py), by its recipe
+    ``cfg["train"]``, through ``batches`` (raw image, mask, hcoords, draws
+    dict, out_hw each). Returns each step's loss, each leaf's first
+    gradient, and the parameters after the last step."""
+    recipe = cfg["train"]
     names = trainable(params)
     for k in names:
         params[k].requires_grad_(True)
-    opt = Adam({k: params[k] for k in names}, cfg["lr"])
+    opt = Adam({k: params[k] for k in names}, recipe["lr"])
     losses, first = [], None
     for bt in batches:
         x, m, hc = ref_augment.augment(bt["image"], bt["mask"],
                                        bt["hcoords"], bt["draws"],
-                                       bt["out_hw"], cfg["aug_cfg"])
-        seg, ver = fcn.forward(params, x, train=True, conv=conv)
-        lv = loss(seg, ver, m, hc, cfg.get("vertex_loss_ratio", 1.0))
+                                       bt["out_hw"], recipe["aug_cfg"])
+        seg, ver = fcn.forward(params, x, cfg, train=True, conv=conv)
+        lv = loss(seg, ver, m, hc, recipe.get("vertex_loss_ratio", 1.0))
         grads = torch.autograd.grad(lv, [params[k] for k in names])
         del seg, ver, x
         losses.append(float(lv.detach()))

@@ -5,7 +5,17 @@ cells and metrics. Everything that belongs to one of them sits in a file
 of its own under this folder:
 
 - a configuration: ``configs/<config>.json`` (the ``file`` its entry
-  names), the network's sizes, precisions and, for training, the recipe;
+  names), the network's sizes, precisions and, for training, the recipe.
+  Its network is its own: ``network`` (the backbone's module name,
+  ``resnet18_8s``, ``resnet34_8s`` or ``resnet50_8s``), ``block``
+  (``BasicBlock`` or ``Bottleneck``), ``stage_sizes``, ``output_stride``,
+  the widths ``fcdim``, ``s8dim``, ``s4dim``, ``s2dim``, ``raw_dim`` and
+  the outputs ``seg_dim``, ``ver_dim``, which the reference
+  (reference/fcn.py), the FLOP count (flops.py), the program's model and
+  the seeded weights all read; ``weights`` is a flax checkpoint of a
+  BasicBlock network under the checkout, or ``"seeded"``: drawn from the
+  run's seed by the recipe's law, BatchNorm statistics from one
+  train-mode pass of the reference over 16 of the run's frames;
 - a traffic mix: ``traffic/<traffic>.json``, the parameters that the one
   generator (pvbench/inputs.py) and the loop it names (``loop``) read;
 - a cell: ``workloads/<cell>.json``, its configuration, traffic, chips

@@ -180,9 +180,22 @@ def test_reference_imports_nothing_of_the_program():
     assert out == "[]"
 
 
+# PVNet's published *_8s networks (lib/networks/model_repository.py):
+# block, stage sizes, and fc, 8s, 4s, 2s and raw widths
+PUBLISHED = {
+    "resnet18_8s": ("BasicBlock", [2, 2, 2, 2], (256, 128, 64, 32, 32)),
+    "resnet34_8s": ("BasicBlock", [3, 4, 6, 3], (256, 128, 64, 32, 32)),
+    "resnet50_8s": ("Bottleneck", [3, 4, 6, 3], (384, 256, 128, 64, 64))}
+
+
 def test_configuration_files_state_their_sources():
     for c in BENCH["configs"]:
         cfg = json.load(open(os.path.join(spec.ROOT, c["file"])))
         assert cfg["set_from"] and cfg["weights"]
+        block, stages, widths = PUBLISHED[cfg["network"]]
+        assert (cfg["block"], cfg["stage_sizes"], cfg["output_stride"]) == (
+            block, stages, 8)
         assert (cfg["fcdim"], cfg["s8dim"], cfg["s4dim"], cfg["s2dim"],
-                cfg["raw_dim"], cfg["ver_dim"]) == (256, 128, 64, 32, 32, 18)
+                cfg["raw_dim"]) == widths
+        assert cfg["ver_dim"] == 2 * cfg["num_keypoints"]
+        assert cfg["seg_dim"] == 2

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from pvbench import check, flops, inputs, trace
+from pvbench.offline import load_by_name, widths
 from pvbench.reference import fcn as ref_fcn
 from pvbench.reference import lowp
 from pvbench.reference import train as ref_train
@@ -33,9 +34,9 @@ class Training:
         self.b = self.mix["batch"]
 
     def init_params(self, seed: int):
-        return inputs.init_params(
-            ref_fcn.conv_shapes(seg_dim=2, ver_dim=self.cfg["ver_dim"]),
-            ref_fcn.bn_names(), seed, self.device)
+        return inputs.init_params(ref_fcn.conv_shapes(self.cfg),
+                                  ref_fcn.bn_names(self.cfg), seed,
+                                  self.device)
 
     # -- set-up ------------------------------------------------------------
     def load(self, seed: int) -> None:
@@ -51,13 +52,9 @@ class Training:
             "vertex_loss_ratio": self.recipe["vertex_loss_ratio"],
             "aug_cfg": self.recipe["aug_cfg"]})
         model = build_model(self.cfg["network"], ver_dim=self.cfg["ver_dim"],
-                            seg_dim=2).to(self.device)
-        missing, unexpected = model.load_state_dict(self.init_params(seed),
-                                                    strict=False)
-        if unexpected or any("num_batches_tracked" not in k
-                             for k in missing):
-            raise RuntimeError(f"weights do not fit the model: missing "
-                               f"{missing}, unexpected {unexpected}")
+                            seg_dim=self.cfg["seg_dim"],
+                            **widths(self.cfg)).to(self.device)
+        load_by_name(model, self.init_params(seed))
         self.state = trainer.create_train_state(model, self.tcfg)
         self.data = inputs.frames(self.mix["set_frames"], seed, 9, self.mix,
                                   self.device)
@@ -184,7 +181,7 @@ class Training:
                 "window_s": res["window_s"], "sizes": sizes,
                 "profiled_sizes": prof_sizes, "batch": self.b,
                 "src_hw": tuple(self.data["image"].shape[1:3]),
-                "step_flops": [flops.train_step_flops(h, w, self.b)
+                "step_flops": [flops.train_step_flops(h, w, self.b, self.cfg)
                                for h, w in sizes],
                 "bf16_peak": flops.PEAK_FLOPS["bfloat16"]}
 
@@ -205,7 +202,7 @@ class Training:
         params = {k: v.clone() for k, v in p0.items()}
         conv = lowp.CONTROLS[control] if control else \
             torch.nn.functional.conv2d
-        out = ref_train.run(params, self.check_batches, self.recipe, conv)
+        out = ref_train.run(params, self.check_batches, self.cfg, conv)
         names = ref_train.trainable(params)
         return {"loss": out["loss"],
                 "grad_norm": check.leaf_norms(out["grad"]),
